@@ -1,0 +1,229 @@
+"""Compute backends for CP-Groth16: host (Python ints) and torch (the port's
+device path).
+
+Copy of hekaton_tpu/cpgroth16/backend.py's host side (`_host_ntt`,
+`witness_map_host`, `HostBackend`, unchanged apart from imports), plus
+`TorchBackend`, which takes the place of the JAX package's TpuBackend.
+The protocol layer is backend-agnostic: MSMs, fixed-base scalar-muls, and
+the QAP witness map route through a Backend.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from hekaton_tpu.curves import host as ch
+from hekaton_tpu.fields.bn254 import R
+from hekaton_tpu.fields.host import fr_inv
+
+from ..ntt.ntt import COSET_GEN, root_of_unity
+from .data_structures import PointVec
+
+
+def _host_ntt(vals: list, invert: bool = False) -> list:
+    """Iterative radix-2 NTT over Fr with Python ints (host ground truth)."""
+    n = len(vals)
+    assert n & (n - 1) == 0
+    om = root_of_unity(n)
+    if invert:
+        om = fr_inv(om)
+    a = list(vals)
+    # bit-reverse
+    j = 0
+    for i in range(1, n):
+        bit = n >> 1
+        while j & bit:
+            j ^= bit
+            bit >>= 1
+        j |= bit
+        if i < j:
+            a[i], a[j] = a[j], a[i]
+    length = 2
+    while length <= n:
+        wlen = pow(om, n // length, R)
+        for i in range(0, n, length):
+            w = 1
+            for k in range(i, i + length // 2):
+                u, v = a[k], a[k + length // 2] * w % R
+                a[k] = (u + v) % R
+                a[k + length // 2] = (u - v) % R
+                w = w * wlen % R
+        length <<= 1
+    if invert:
+        ninv = fr_inv(n)
+        a = [x * ninv % R for x in a]
+    return a
+
+
+def witness_map_host(a_evals: list, b_evals: list, c_evals: list) -> list:
+    """h coefficients of (A*B - C)/Z over the coset, host ints."""
+    m = len(a_evals)
+    g = COSET_GEN
+    gpows = [1] * m
+    for i in range(1, m):
+        gpows[i] = gpows[i - 1] * g % R
+
+    def coset_evals(evals):
+        coeffs = _host_ntt(evals, invert=True)
+        return _host_ntt([c * gp % R for c, gp in zip(coeffs, gpows)])
+
+    ca, cb, cc = coset_evals(a_evals), coset_evals(b_evals), coset_evals(c_evals)
+    zinv = fr_inv((pow(g, m, R) - 1) % R)
+    q = [(x * y - z) * zinv % R for x, y, z in zip(ca, cb, cc)]
+    hc = _host_ntt(q, invert=True)
+    ginv = fr_inv(g)
+    gipows = [1] * m
+    for i in range(1, m):
+        gipows[i] = gipows[i - 1] * ginv % R
+    h = [c * gp % R for c, gp in zip(hc, gipows)]
+    return h[: m - 1]
+
+
+class HostBackend:
+    name = "host"
+
+    def __init__(self):
+        self._tables = {}
+
+    def msm(self, vec: PointVec, scalars: list) -> object:
+        return ch.msm_host(vec.points[: len(scalars)], scalars)
+
+    def fixed_base(self, base, scalars: list, g2: bool = False) -> list:
+        """Windowed-table batch scalar-mul (8-bit windows, Jacobian)."""
+        try:
+            from hekaton_tpu.native import accel, available
+
+            if available():
+                return accel.mul_batch([base] * len(scalars), scalars)
+        except Exception:
+            pass
+        key = base if not g2 else (base[0], base[1])
+        if key not in self._tables:
+            tbl = []
+            cur = base
+            for _ in range(32):
+                row = [None]
+                acc = None
+                for _ in range(255):
+                    acc = ch._jac_add(acc, (cur[0], cur[1], 1 if not g2 else type(cur[0]).one()))
+                    row.append(acc)
+                tbl.append(row)
+                for _ in range(8):
+                    cur = ch.pt_dbl(cur)
+            self._tables[key] = tbl
+        tbl = self._tables[key]
+        out = []
+        for s in scalars:
+            s %= ch.R
+            acc = None
+            for j in range(32):
+                d = (s >> (8 * j)) & 0xFF
+                if d:
+                    acc = ch._jac_add(acc, tbl[j][d])
+            out.append(ch._jac_to_affine(acc))
+        return out
+
+    def witness_map(self, a_evals, b_evals, c_evals) -> list:
+        return witness_map_host(a_evals, b_evals, c_evals)
+
+
+class TorchBackend:
+    """The port's backend: the G1 MSMs and the witness map on `device`.
+
+    - G1 `msm` runs msm/pippenger.py::msm_gpu on `device` for every length,
+      in chunks of G1_CHUNK points whose partial sums are folded on the host
+      (the JAX TpuBackend's chunking). A chunk is not padded to a power of
+      two: nothing here compiles per shape.
+    - Window width c and column length L come from the chunk length n by a
+      fixed rule (`msm_params`): with lg = ceil(log2(n)),
+      c = min(13, max(4, lg - 5)), and L = 32 from 2^12 points on, else
+      L = 8. Each bucket then receives about 2^(lg - c + 1) = 64 points per
+      window, and from 2^18 points on c = 13, L = 32, the JAX defaults. At
+      2^16 points c = 11: c = 13 would leave most slab slots padding. Below
+      2^12 points the slab is small and a bucket's pads (L/2 on average)
+      are the larger cost: L = 8 runs a 1K-point MSM ~20% faster than
+      L = 32 on the plain CPU path.
+    - The packed scalars of one list are cached (A, B-G1, B-G2 share z).
+    - G2 `msm` and `fixed_base` run on the host, exactly as HostBackend
+      (ch.msm_host and the native mul_batch). That is this port's routing,
+      whatever the machine: their device versions need the G2 RCB and the
+      Jacobian kernels, which are not ported yet.
+    - `witness_map` runs the port's NTT on `device`; its Montgomery
+      multiplies are the mont_mul kernel on a CUDA device.
+
+    `ran` counts the calls by route.
+    """
+
+    name = "torch"
+    G1_CHUNK = 1 << 20
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._host = HostBackend()
+        self._sc_cache = None
+        self.ran = {"g1_msm_gpu": 0, "g2_msm_host": 0, "fixed_base_host": 0, "witness_map_gpu": 0}
+
+    @staticmethod
+    def msm_params(n: int) -> tuple:
+        """(c, L) for an n-point chunk (rule in the class docstring)."""
+        lg = max(1, math.ceil(math.log2(max(n, 2))))
+        return min(13, max(4, lg - 5)), (32 if n >= 1 << 12 else 8)
+
+    def msm(self, vec: PointVec, scalars: list) -> object:
+        if vec.curve.name != "g1":
+            self.ran["g2_msm_host"] += 1
+            return self._host.msm(vec, scalars)
+        chunk = self.G1_CHUNK
+        acc = None
+        for lo in range(0, len(scalars), chunk):
+            hi = min(lo + chunk, len(scalars))
+            acc = ch.pt_add(acc, self._msm_chunk(vec, scalars, lo, hi))
+        return acc
+
+    def _packed_scalars(self, scalars: list, lo: int, hi: int) -> torch.Tensor:
+        """Pack+transfer scalars[lo:hi] once per scalar list: the Groth16
+        A / B-G1 MSMs run over the same assignment z, so the packed chunks
+        are cached keyed on list identity (a strong ref to the list keeps
+        the identity stable until the next list arrives)."""
+        from ..msm.pippenger import pack_scalars
+
+        if self._sc_cache is None or self._sc_cache[0] is not scalars:
+            self._sc_cache = (scalars, {})
+        cache = self._sc_cache[1]
+        if (lo, hi) not in cache:
+            cache[(lo, hi)] = pack_scalars(scalars[lo:hi]).to(self.device)
+        return cache[(lo, hi)]
+
+    def _msm_chunk(self, vec: PointVec, scalars: list, lo: int, hi: int):
+        from ..msm.pippenger import msm_gpu
+
+        if hi == lo:
+            return None
+        sc = self._packed_scalars(scalars, lo, hi)
+        ax, ay = vec.device_chunk(lo, hi, hi - lo, self.device)
+        c, L = self.msm_params(hi - lo)
+        out = msm_gpu(ax, ay, sc, c=c, L=L)
+        self.ran["g1_msm_gpu"] += 1
+        return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+
+    def fixed_base(self, base, scalars: list, g2: bool = False) -> list:
+        self.ran["fixed_base_host"] += 1
+        return self._host.fixed_base(base, scalars, g2)
+
+    def witness_map(self, a_evals, b_evals, c_evals) -> list:
+        from ..fields import torch_field as tf
+        from ..fields.cuda_field import mont_mul
+        from ..ntt import ntt as nttm
+
+        m = len(a_evals)
+        evals = tf.tensor(tf.FR.pack(list(a_evals) + list(b_evals) + list(c_evals)), self.device)
+        ca, cb, cc = nttm.coset_ntt(nttm.ntt(evals.reshape(3, m, 16), inverse=True))
+        zinv = tf.tensor(tf.FR.pack([fr_inv((pow(COSET_GEN, m, R) - 1) % R)])[0], self.device)
+        q = mont_mul(tf.FR, tf.sub(tf.FR, mont_mul(tf.FR, ca.contiguous(), cb.contiguous()), cc), zinv)
+        h = nttm.coset_intt(q)
+        self.ran["witness_map_gpu"] += 1
+        return tf.FR.unpack(h)[: m - 1]
+
+
+DEFAULT_BACKEND = HostBackend()

@@ -1,0 +1,297 @@
+// BN254 G1 kernels of the MSM: the complete batched-affine add, one round of
+// the level-1 halves pairing, and the window Horner fold.
+//
+// aff_add (root + fin) replaces curves/pallas_curve.py::aff_add_fused
+// (_aff_root_kernel :426, _aff_fin_tree_kernel :442). halves (root + fin)
+// replaces one round of curves/pallas_curve.py::l1_aff_halves
+// (_aff_halves_root_kernel :802, _aff_halves_fin_kernel :822, tr=False).
+// horner replaces curves/pallas_curve.py::horner_fold (_horner_kernel :583).
+//
+// Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
+// (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
+// an inverse pair P == -Q gives infinity; degenerate denominators are 1 so
+// the shared inversion stays defined.
+//
+// Design: the root / batch_inv / finish split. Each thread owns a run of k
+// adds (k lanes strided by the thread count for the plain add, or one slab
+// column's k pairs for a halves round), builds the Montgomery-trick prefix
+// chain of its masked denominators, and writes the chain to scratch and its
+// end to a roots array. The caller inverts the roots with batch_inv (the
+// mont_mul kernel on the tree levels, the Fermat kernel on the last <= 1024),
+// and the finish kernel walks each chain back, giving every add its 1/den.
+// One launch with an in-thread Fermat per thread was the alternative: it
+// costs ~360 products per thread, which at a useful k leaves too few threads
+// to fill 132 SMs, while the split keeps one thread per chain and ~3 products
+// per add for the inversion.
+//
+// What bounds them on an H100: each add is ~8 Montgomery products (~2,400
+// integer multiply-adds) against ~200 bytes of traffic, so both pairs are
+// bound by integer multiply throughput once enough threads are resident. The
+// horner fold is one thread walking (W-1)(c+1) dependent point operations:
+// bound by the latency of that chain. Measured on one H100 80GB HBM3
+// (700 W), in a 2^20-point MSM: the halves finish kernel ~1.6 ms per round
+// on 735K columns, the aff_add pair ~0.14 ms per call, horner ~2.2 ms at
+// W=20, c=13; the Fermat root inversion that every add and round waits on
+// (fields/cuda_field.py) costs more than any of them in total.
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+using namespace hk;
+
+namespace {
+
+constexpr int THREADS = 128;
+
+struct Aff {
+  Fe x, y;
+};
+
+struct AffFlags {
+  bool q_inf, p_inf, same_x, dbl;
+  Fe dx, dy;
+};
+
+__device__ __forceinline__ AffFlags aff_flags(const Aff& p, const Aff& q) {
+  AffFlags f;
+  f.q_inf = fe_is_zero(q.y);
+  f.p_inf = fe_is_zero(p.y);
+  f.dx = fe_sub<FQ>(q.x, p.x);
+  f.dy = fe_sub<FQ>(q.y, p.y);
+  f.same_x = fe_is_zero(f.dx);
+  f.dbl = f.same_x && fe_is_zero(f.dy);
+  return f;
+}
+
+// masked slope denominator: dx, 2*y1 when doubling, 1 when degenerate
+__device__ __forceinline__ Fe aff_den(const Aff& p, const Aff& q) {
+  AffFlags f = aff_flags(p, q);
+  Fe den = f.dbl ? fe_add<FQ>(p.y, p.y) : f.dx;
+  bool degen = f.q_inf || f.p_inf || (f.same_x && !f.dbl);
+  return degen ? fe_one<FQ>() : den;
+}
+
+// complete P + Q from the inverted denominator
+__device__ __forceinline__ Aff aff_fin(const Aff& p, const Aff& q, const Fe& inv) {
+  AffFlags f = aff_flags(p, q);
+  Fe num = f.dy;
+  if (f.dbl) {
+    Fe x1sq = fe_sqr<FQ>(p.x);
+    num = fe_add<FQ>(fe_add<FQ>(x1sq, x1sq), x1sq);
+  }
+  Fe lam = fe_mul<FQ>(num, inv);
+  Fe x2s = f.dbl ? p.x : q.x;
+  Aff r;
+  r.x = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(lam), p.x), x2s);
+  r.y = fe_sub<FQ>(fe_mul<FQ>(lam, fe_sub<FQ>(p.x, r.x)), p.y);
+  bool inverse = f.same_x && !f.dbl && !(f.p_inf || f.q_inf);
+  if (inverse) r.x = r.y = fe_zero();
+  if (f.q_inf) r = p;
+  if (f.p_inf) r = q;
+  return r;
+}
+
+__device__ __forceinline__ Aff load_aff(const int32_t* x, const int32_t* y, long long i) {
+  return Aff{load_limbs(x + i * 16), load_limbs(y + i * 16)};
+}
+
+// packed slab element: 8 x-words then 8 y-words
+__device__ __forceinline__ Aff load_packed(const int32_t* row) {
+  return Aff{load_words(row), load_words(row + 8)};
+}
+
+// -- complete batched-affine add over n lanes -------------------------------
+
+__global__ void aff_root_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                                const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                                int32_t* __restrict__ pre, int32_t* __restrict__ roots,
+                                long long n, long long nthreads, int k) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nthreads) return;
+  Fe acc = fe_one<FQ>();
+  for (int j = 0; j < k; j++) {
+    long long lane = (long long)j * nthreads + t;
+    Fe den = fe_one<FQ>();
+    if (lane < n) den = aff_den(load_aff(x1, y1, lane), load_aff(px, py, lane));
+    acc = j == 0 ? den : fe_mul<FQ>(acc, den);
+    store_words(pre + ((long long)j * nthreads + t) * 8, acc);
+  }
+  store_limbs(roots + t * 16, acc);
+}
+
+__global__ void aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                               const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                               const int32_t* __restrict__ pre, const int32_t* __restrict__ rinv,
+                               int32_t* __restrict__ ox, int32_t* __restrict__ oy, long long n,
+                               long long nthreads, int k) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nthreads) return;
+  Fe inv_run = load_limbs(rinv + t * 16);  // 1 / (den_0 ... den_{k-1})
+  for (int j = k - 1; j >= 0; j--) {
+    long long lane = (long long)j * nthreads + t;
+    Fe inv = j > 0 ? fe_mul<FQ>(inv_run, load_words(pre + ((long long)(j - 1) * nthreads + t) * 8))
+                   : inv_run;
+    Fe den = fe_one<FQ>();
+    if (lane < n) {
+      Aff p = load_aff(x1, y1, lane);
+      Aff q = load_aff(px, py, lane);
+      Aff r = aff_fin(p, q, inv);
+      store_limbs(ox + lane * 16, r.x);
+      store_limbs(oy + lane * 16, r.y);
+      den = aff_den(p, q);
+    }
+    if (j > 0) inv_run = fe_mul<FQ>(inv_run, den);
+  }
+}
+
+// -- one level-1 halves round: element i + element k+i of every column ------
+
+__global__ void halves_root_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre,
+                                   int32_t* __restrict__ roots, long long ncols, int k) {
+  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncols) return;
+  const int32_t* row = v + c * (2LL * k * 16);
+  Fe acc = fe_one<FQ>();
+  for (int i = 0; i < k; i++) {
+    Fe den = aff_den(load_packed(row + i * 16), load_packed(row + (k + i) * 16));
+    acc = i == 0 ? den : fe_mul<FQ>(acc, den);
+    store_words(pre + ((long long)i * ncols + c) * 8, acc);
+  }
+  store_limbs(roots + c * 16, acc);
+}
+
+__global__ void halves_fin_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ pre,
+                                  const int32_t* __restrict__ rinv, int32_t* __restrict__ out,
+                                  long long ncols, int k) {
+  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncols) return;
+  const int32_t* row = v + c * (2LL * k * 16);
+  int32_t* orow = out + c * ((long long)k * 16);
+  Fe inv_run = load_limbs(rinv + c * 16);
+  for (int i = k - 1; i >= 0; i--) {
+    Aff p = load_packed(row + i * 16);
+    Aff q = load_packed(row + (k + i) * 16);
+    Fe inv = i > 0 ? fe_mul<FQ>(inv_run, load_words(pre + ((long long)(i - 1) * ncols + c) * 8))
+                   : inv_run;
+    Aff r = aff_fin(p, q, inv);
+    store_words(orow + i * 16, r.x);
+    store_words(orow + i * 16 + 8, r.y);
+    if (i > 0) inv_run = fe_mul<FQ>(inv_run, aff_den(p, q));
+  }
+}
+
+// -- window Horner fold on complete RCB15 projective formulas (a=0, b3=9) ---
+
+__device__ __forceinline__ Fe mul9(const Fe& a) {
+  Fe a3 = fe_add<FQ>(fe_add<FQ>(a, a), a);
+  return fe_add<FQ>(fe_add<FQ>(a3, a3), a3);
+}
+
+struct Proj {
+  Fe x, y, z;
+};
+
+// RCB15 Algorithm 7 (pallas_curve.py::_padd_rcb_tiles)
+__device__ Proj padd_rcb(const Proj& p, const Proj& q) {
+  Fe t0 = fe_mul<FQ>(p.x, q.x);
+  Fe t1 = fe_mul<FQ>(p.y, q.y);
+  Fe t2 = fe_mul<FQ>(p.z, q.z);
+  Fe t3 = fe_mul<FQ>(fe_add<FQ>(p.x, p.y), fe_add<FQ>(q.x, q.y));
+  t3 = fe_sub<FQ>(t3, fe_add<FQ>(t0, t1));
+  Fe t4 = fe_mul<FQ>(fe_add<FQ>(p.y, p.z), fe_add<FQ>(q.y, q.z));
+  t4 = fe_sub<FQ>(t4, fe_add<FQ>(t1, t2));
+  Fe y3 = fe_mul<FQ>(fe_add<FQ>(p.x, p.z), fe_add<FQ>(q.x, q.z));
+  y3 = fe_sub<FQ>(y3, fe_add<FQ>(t0, t2));
+  Fe x3 = fe_add<FQ>(t0, t0);
+  t0 = fe_add<FQ>(x3, t0);
+  t2 = mul9(t2);
+  Fe z3 = fe_add<FQ>(t1, t2);
+  t1 = fe_sub<FQ>(t1, t2);
+  y3 = mul9(y3);
+  Proj r;
+  r.x = fe_sub<FQ>(fe_mul<FQ>(t3, t1), fe_mul<FQ>(t4, y3));
+  r.y = fe_add<FQ>(fe_mul<FQ>(t1, z3), fe_mul<FQ>(y3, t0));
+  r.z = fe_add<FQ>(fe_mul<FQ>(z3, t4), fe_mul<FQ>(t0, t3));
+  return r;
+}
+
+// RCB15 Algorithm 9 (pallas_curve.py::_pdbl_rcb_tiles)
+__device__ Proj pdbl_rcb(const Proj& p) {
+  Fe t0 = fe_sqr<FQ>(p.y);
+  Fe z3 = fe_add<FQ>(t0, t0);
+  z3 = fe_add<FQ>(z3, z3);
+  z3 = fe_add<FQ>(z3, z3);
+  Fe t1 = fe_mul<FQ>(p.y, p.z);
+  Fe t2 = mul9(fe_sqr<FQ>(p.z));
+  Fe x3 = fe_mul<FQ>(t2, z3);
+  Fe y3 = fe_add<FQ>(t0, t2);
+  z3 = fe_mul<FQ>(t1, z3);
+  t1 = fe_add<FQ>(t2, t2);
+  t2 = fe_add<FQ>(t1, t2);
+  t0 = fe_sub<FQ>(t0, t2);
+  y3 = fe_mul<FQ>(t0, y3);
+  y3 = fe_add<FQ>(x3, y3);
+  t1 = fe_mul<FQ>(p.x, p.y);
+  x3 = fe_mul<FQ>(t0, t1);
+  x3 = fe_add<FQ>(x3, x3);
+  return Proj{x3, y3, z3};
+}
+
+__global__ void horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                              const int32_t* __restrict__ z, int32_t* __restrict__ ox,
+                              int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  Proj acc{load_limbs(x + (W - 1) * 16), load_limbs(y + (W - 1) * 16), load_limbs(z + (W - 1) * 16)};
+  for (int w = W - 2; w >= 0; w--) {
+    for (int d = 0; d < c; d++) acc = pdbl_rcb(acc);
+    Proj s{load_limbs(x + w * 16), load_limbs(y + w * 16), load_limbs(z + w * 16)};
+    acc = padd_rcb(acc, s);
+  }
+  store_limbs(ox, acc.x);
+  store_limbs(oy, acc.y);
+  store_limbs(oz, acc.z);
+}
+
+unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+
+}  // namespace
+
+extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const void* py,
+                           void* pre, void* roots, long long n, long long nthreads, int k,
+                           void* stream) {
+  aff_root_kernel<<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
+      (int32_t*)pre, (int32_t*)roots, n, nthreads, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_aff_fin(const void* x1, const void* y1, const void* px, const void* py,
+                          const void* pre, const void* rinv, void* ox, void* oy, long long n,
+                          long long nthreads, int k, void* stream) {
+  aff_fin_kernel<<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
+      (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_halves_root(const void* v, void* pre, void* roots, long long ncols, int k,
+                              void* stream) {
+  halves_root_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, (int32_t*)pre, (int32_t*)roots, ncols, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_halves_fin(const void* v, const void* pre, const void* rinv, void* out,
+                             long long ncols, int k, void* stream) {
+  halves_fin_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)out, ncols, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_horner(const void* x, const void* y, const void* z, void* ox, void* oy,
+                         void* oz, int W, int c, void* stream) {
+  horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)x, (const int32_t*)y,
+                                                   (const int32_t*)z, (int32_t*)ox,
+                                                   (int32_t*)oy, (int32_t*)oz, W, c);
+  return (int)cudaGetLastError();
+}

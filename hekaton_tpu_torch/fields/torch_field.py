@@ -1,0 +1,378 @@
+"""Batched multi-limb Montgomery field arithmetic on torch tensors.
+
+Port of hekaton_tpu/fields/jax_field.py. Field elements are `(..., 16)`
+`torch.int32` tensors holding 16 little-endian 16-bit limbs in Montgomery
+form (radix R = 2^256), the JAX package's layout. Every function here is the
+plain PyTorch formula: it runs on whatever device its tensors are on, computes
+in int64 and returns int32 limbs. The CUDA kernels (fields/cuda_field.py)
+compute the same canonical values on 32-bit words; since R = 2^256 either way,
+the two agree bit for bit.
+
+`batch_inv` is the one function that dispatches: on CUDA tensors its tree
+levels and root inversion go through the kernel wrappers of cuda_field.py, as
+the JAX version reaches the Pallas kernels on a TPU.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hekaton_tpu.fields.bn254 import LIMB_BITS, LIMB_MASK, NLIMBS, P, R, from_limbs, to_limbs
+
+M16 = LIMB_MASK
+
+
+class FieldSpec:
+    """Static per-modulus data: limb-encoded modulus and Montgomery constants
+    (jax_field.FieldSpec, with int32 numpy arrays)."""
+
+    def __init__(self, modulus: int, name: str, nlimbs: int = NLIMBS):
+        self.modulus = modulus
+        self.name = name
+        self.nlimbs = nlimbs
+        self.mont_r = 1 << (LIMB_BITS * nlimbs)
+        self.r_mod = self.mont_r % modulus
+        self.r2_mod = (self.mont_r * self.mont_r) % modulus
+        self.ninv = (-pow(modulus, -1, self.mont_r)) % self.mont_r
+        self.p_limbs = np.array(to_limbs(modulus, nlimbs), dtype=np.int32)
+        self.ninv_limbs = np.array(to_limbs(self.ninv, nlimbs), dtype=np.int32)
+        self.one_mont = np.array(to_limbs(self.r_mod, nlimbs), dtype=np.int32)
+        # 2^(16*nlimbs) - p: adding it is subtracting p modulo the limb width
+        self.p_comp_limbs = np.array(to_limbs(self.mont_r - modulus, nlimbs), dtype=np.int32)
+
+    @property
+    def mont_rinv(self) -> int:
+        inv = getattr(self, "_mont_rinv", None)
+        if inv is None:
+            inv = self._mont_rinv = pow(self.mont_r, -1, self.modulus)
+        return inv
+
+    def from_mont(self, x: int) -> int:
+        return x * self.mont_rinv % self.modulus
+
+    def pack(self, xs, mont: bool = True) -> np.ndarray:
+        """ints -> (n, nlimbs) int32 limb array (Montgomery form by default)."""
+        m, r = self.modulus, self.mont_r
+        nb = self.nlimbs * 2
+        if mont:
+            buf = b"".join(((x % m) * r % m).to_bytes(nb, "little") for x in xs)
+        else:
+            buf = b"".join((x % m).to_bytes(nb, "little") for x in xs)
+        arr = np.frombuffer(buf, dtype="<u2").astype(np.int32)
+        return arr.reshape(len(xs), self.nlimbs)
+
+    def unpack(self, arr, mont: bool = True) -> list:
+        """(..., nlimbs) limbs (tensor or array) -> list of ints."""
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        arr = np.ascontiguousarray(np.asarray(arr).reshape(-1, self.nlimbs))
+        if ((arr >> 16) != 0).any() or (arr < 0).any():
+            out = []
+            for row in arr:
+                v = from_limbs(int(x) for x in row)
+                out.append(self.from_mont(v) if mont else v % self.modulus)
+            return out
+        b = arr.astype("<u2").tobytes()
+        nb = self.nlimbs * 2
+        m = self.modulus
+        vals = [int.from_bytes(b[i * nb : (i + 1) * nb], "little") for i in range(arr.shape[0])]
+        if mont:
+            rinv = self.mont_rinv
+            return [v * rinv % m for v in vals]
+        return [v % m for v in vals]
+
+
+FQ = FieldSpec(P, "fq")
+FR = FieldSpec(R, "fr")
+
+
+def tensor(arr, device) -> torch.Tensor:
+    """numpy limb/word array -> int32 tensor on `device` (uint32 words keep
+    their bit pattern)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr.astype(np.int32, copy=False)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _dev_consts(spec: FieldSpec, device: str) -> dict:
+    """The spec's limb constants and product matrices as tensors on one
+    device (built once per device)."""
+    nl = spec.nlimbs
+    p = [int(x) for x in spec.p_limbs]
+    ninv = [int(x) for x in spec.ninv_limbs]
+    # 0/1 map of the flattened (nl, nl) outer product onto 2*nl columns
+    cols = np.zeros((nl * nl, 2 * nl))
+    # Toeplitz matrices: x @ T gives the product columns of x with a constant
+    ninv_lo = np.zeros((nl, nl))
+    ninv_hi = np.zeros((nl, nl))
+    p_t = np.zeros((nl, 2 * nl))
+    for i in range(nl):
+        for j in range(nl):
+            cols[i * nl + j, i + j] = 1
+            p_t[i, i + j] = p[j]
+            if i + j < nl:
+                ninv_lo[i, i + j] = ninv[j]
+            if i + j + 1 < nl:
+                ninv_hi[i, i + j + 1] = ninv[j]
+    f64 = functools.partial(torch.tensor, dtype=torch.float64, device=device)
+    i64 = functools.partial(torch.tensor, dtype=torch.int64, device=device)
+    return {
+        "cols": f64(cols),
+        "ninv_lo": f64(ninv_lo),
+        "ninv_hi": f64(ninv_hi),
+        "p_t": f64(p_t),
+        "low_weight": f64([2.0 ** (16 * (k - nl)) for k in range(nl)]),
+        "p": i64(p),
+        "p_comp": i64([int(x) for x in spec.p_comp_limbs]),
+        "one": torch.tensor([int(x) for x in spec.one_mont], dtype=torch.int32, device=device),
+    }
+
+
+def consts(spec: FieldSpec, device) -> dict:
+    return _dev_consts(spec, str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# limb primitives (int64 columns)
+# ---------------------------------------------------------------------------
+
+
+def _carry(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """Non-negative int64 columns -> canonical 16-bit limbs of their value
+    mod 2^(16W) (callers widen x by one zero column to keep a carry out).
+
+    Each pass moves every column's excess one limb up: columns < 2^(16k+16)
+    settle in k passes, which callers pass from their bounds. A run of
+    0xFFFF limbs then takes one more pass per limb; the loop ends when no
+    column exceeds 16 bits."""
+    for _ in range(passes):
+        x = (x & M16) + F.pad(x >> LIMB_BITS, (1, -1))
+    hi = x >> LIMB_BITS
+    while bool(hi.any()):
+        x = (x & M16) + F.pad(hi, (1, -1))
+        hi = x >> LIMB_BITS
+    return x
+
+
+def _broadcast(a, b):
+    a = a.long()
+    b = b.long()
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
+    return a, b
+
+
+# ---------------------------------------------------------------------------
+# modular ops
+# ---------------------------------------------------------------------------
+
+
+def _reduce_once(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
+    """(..., nl + 1) columns holding a value < 2p (canonical limbs plus a
+    carry column) -> its canonical residue: adding 2^256 - p carries into
+    the top column iff the value is at least p."""
+    nl = spec.nlimbs
+    d = _carry(r + F.pad(consts(spec, r.device)["p_comp"], (0, 1)))
+    return torch.where((d[..., nl] > 0).unsqueeze(-1), d[..., :nl], r[..., :nl])
+
+
+def add(spec: FieldSpec, a, b):
+    a, b = _broadcast(a, b)
+    return _reduce_once(spec, _carry(F.pad(a + b, (0, 1)))).int()
+
+
+def sub(spec: FieldSpec, a, b):
+    a, b = _broadcast(a, b)
+    # a + (2^256 - 1 - b) + 1 carries out iff a >= b; otherwise add p back
+    x = F.pad(a + (M16 - b), (0, 1))
+    x[..., 0] += 1
+    d = _carry(x)
+    nl = spec.nlimbs
+    fixed = _carry(d[..., :nl] + consts(spec, d.device)["p"])
+    return torch.where((d[..., nl] == 0).unsqueeze(-1), fixed, d[..., :nl]).int()
+
+
+def neg(spec: FieldSpec, a):
+    return sub(spec, torch.zeros_like(a), a)
+
+
+_ROW_PRODUCT_LANES = 512
+
+
+def _product_cols(a, b, k):
+    """Raw columns (< 2^36) of the schoolbook product a*b. Narrow batches
+    take one float64 matrix product of the outer product (few tensor ops);
+    wide ones accumulate 16 shifted rows (less memory traffic per lane)."""
+    nl = a.shape[-1]
+    if a.numel() < _ROW_PRODUCT_LANES * nl:
+        outer = (a.double().unsqueeze(-1) * b.double().unsqueeze(-2)).flatten(-2)
+        return (outer @ k["cols"]).long()
+    t = a.new_zeros(a.shape[:-1] + (2 * nl,))
+    for i in range(nl):
+        t[..., i : i + nl].addcmul_(a[..., i : i + 1], b)
+    return t
+
+
+def mont_mul(spec: FieldSpec, a, b):
+    """Montgomery product a*b*R^-1 mod p, canonical (separated REDC).
+
+    The product columns t are raw int64 sums (< 2^36); m = t*ninv mod R is
+    formed from t's low columns split at 16 bits (column sums < 2^41, exact);
+    m*p is another exact float64 product. The low half of t + m*p is exactly
+    c*R with c < 2^22, read off as its weighted column sum (exact in
+    float64 after rounding) instead of rippling carries through 16 limbs
+    that all end up zero."""
+    nl = spec.nlimbs
+    k = consts(spec, a.device)
+    a, b = _broadcast(a, b)
+    t = _product_cols(a, b, k)
+    low = t[..., :nl]
+    mcols = (low & M16).double() @ k["ninv_lo"] + (low >> LIMB_BITS).double() @ k["ninv_hi"]
+    m = _carry(mcols.long(), 3)
+    s = t + (m.double() @ k["p_t"]).long()
+    c = (s[..., :nl].double() @ k["low_weight"]).round().long()
+    high = F.pad(s[..., nl:], (0, 1)) + F.pad(c.unsqueeze(-1), (0, nl))
+    return _reduce_once(spec, _carry(high, 3)).int()
+
+
+def mont_sqr(spec: FieldSpec, a):
+    return mont_mul(spec, a, a)
+
+
+def is_zero(spec: FieldSpec, a):
+    return (a == 0).all(-1)
+
+
+def select(cond, a, b):
+    """cond: (...,) bool; a, b limb tensors with matching batch dims."""
+    extra = a.dim() - cond.dim()
+    return torch.where(cond.reshape(cond.shape + (1,) * extra), a, b)
+
+
+def mont_inv(spec: FieldSpec, a):
+    """Batched Fermat inversion a^(p-2) (left-to-right square-and-multiply
+    over the public exponent bits); inv(0) = 0."""
+    e = spec.modulus - 2
+    acc = a
+    for i in reversed(range(e.bit_length() - 1)):
+        acc = mont_sqr(spec, acc)
+        if (e >> i) & 1:
+            acc = mont_mul(spec, acc, a)
+    return acc
+
+
+def _batch_inv(spec: FieldSpec, a, mul, root_inv, stop: int):
+    shape = a.shape
+    nl = spec.nlimbs
+    a2 = a.reshape(-1, nl).contiguous()
+    M = a2.shape[0]
+    Mp = 1 << max(0, (M - 1).bit_length())
+    if Mp > M:
+        ones = consts(spec, a.device)["one"].expand(Mp - M, nl)
+        a2 = torch.cat([a2, ones])
+    levels = []
+    cur = a2
+    while cur.shape[0] > stop:
+        lo, hi = cur[0::2].contiguous(), cur[1::2].contiguous()
+        levels.append((lo, hi))
+        cur = mul(spec, lo, hi)
+    inv = root_inv(spec, cur)
+    for lo, hi in reversed(levels):
+        ilo = mul(spec, inv, hi)
+        ihi = mul(spec, inv, lo)
+        inv = torch.stack([ilo, ihi], dim=1).reshape(2 * lo.shape[0], nl)
+    return inv[:M].reshape(shape)
+
+
+def _host_inv(spec: FieldSpec, root):
+    """Invert the one-lane root of a plain tree on the host: the value the
+    Fermat formulas give (the canonical inverse), without ~360 dependent
+    one-lane products, each a hundred tensor ops."""
+    x = spec.unpack(root)[0]
+    inv = pow(x, spec.modulus - 2, spec.modulus)
+    return tensor(spec.pack([inv]), root.device)
+
+
+def batch_inv_plain(spec: FieldSpec, a):
+    """batch_inv on the plain formulas: the tree runs down to one lane."""
+    return _batch_inv(spec, a, mont_mul, _host_inv, 1)
+
+
+def batch_inv(spec: FieldSpec, a):
+    """Simultaneous inversion via a binary product tree (Montgomery's trick,
+    log-depth form) and ONE Fermat inversion at the root
+    (jax_field.batch_inv).
+
+    a: (..., nlimbs) nonzero Montgomery elements; callers mask degenerate
+    lanes to 1 first (inv(0) = 0 is not preserved, unlike mont_inv). On a
+    CUDA tensor every tree level runs the mont_mul kernel and the tree stops
+    at 1024 lanes for the Fermat kernel; a CPU tensor takes the plain
+    formulas down to one lane.
+    """
+    if not a.is_cuda:
+        return batch_inv_plain(spec, a)
+    from .cuda_field import fermat_inv, mont_mul as kmul
+
+    return _batch_inv(spec, a, kmul, fermat_inv, 1024)
+
+
+class FpOps:
+    """Prime-field ops namespace over a FieldSpec (jax_field.make_fp_ops):
+    the field adapter the curve layer is templated on. `mul` goes through
+    the mont_mul kernel wrapper, so CUDA tensors multiply on the kernel;
+    with plain=True it is the plain formula on every device (the reference
+    the kernels are held against)."""
+
+    ndim = 1
+
+    def __init__(self, spec: FieldSpec, plain: bool = False):
+        self.spec = spec
+        self.plain = plain
+
+    def add(self, a, b):
+        return add(self.spec, a, b)
+
+    def sub(self, a, b):
+        return sub(self.spec, a, b)
+
+    def neg(self, a):
+        return neg(self.spec, a)
+
+    def mul(self, a, b):
+        if self.plain:
+            return mont_mul(self.spec, a, b)
+        from .cuda_field import mont_mul as kmul
+
+        a, b = torch.broadcast_tensors(a, b)
+        return kmul(self.spec, a.contiguous(), b.contiguous())
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def is_zero(self, a):
+        return is_zero(self.spec, a)
+
+    @staticmethod
+    def select(cond, a, b):
+        return select(cond, a, b)
+
+    def zeros(self, batch_shape, device):
+        return torch.zeros(tuple(batch_shape) + (self.spec.nlimbs,), dtype=torch.int32, device=device)
+
+    def one(self, batch_shape, device):
+        return consts(self.spec, device)["one"].expand(tuple(batch_shape) + (self.spec.nlimbs,))
+
+    def pack(self, vals) -> np.ndarray:
+        return self.spec.pack(vals)
+
+    def unpack(self, arr):
+        return self.spec.unpack(arr)
+
+
+FqOps = FpOps(FQ)
+FqPlain = FpOps(FQ, plain=True)

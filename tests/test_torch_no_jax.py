@@ -1,0 +1,100 @@
+"""The port imports and runs with JAX blocked.
+
+A subprocess installs a meta-path hook that refuses `jax` and `jaxlib`,
+imports every hekaton_tpu_torch module, and runs the whole
+PortalChainParams(2) flow on the CPU with the port alone: setup and stage 0
+with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
+stateless recommit must reproduce TorchBackend's stage-0 commitments),
+per-proof verify, aggregation and aggregate verify. A lazy import that
+reaches JAX at run time (in the port or in the JAX package's host modules
+it uses) fails it. tests/test_torch_slice.py runs stage 1 on TorchBackend.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    import torch
+
+    torch.set_num_threads(1)
+
+    class _BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, _BlockJax())
+
+    import hekaton_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(hekaton_tpu_torch.__path__, "hekaton_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    from hekaton_tpu.protocol.aggregation import AggProvingKey, agg_transcript
+    from hekaton_tpu.protocol.ipp import ipp_setup
+    from hekaton_tpu.protocol.tipa import tipa_key_from_ipp
+    from hekaton_tpu.utils.rng import Rng
+    from hekaton_tpu.workloads.chain import PortalChainCircuit, PortalChainParams
+    from hekaton_tpu_torch.cpgroth16.backend import HostBackend, TorchBackend
+    from hekaton_tpu_torch.cpgroth16.verifier import prepare_verifying_key, verify_proof
+    from hekaton_tpu_torch.protocol.coordinator import CoordinatorStage0State
+    from hekaton_tpu_torch.protocol.worker import process_stage0_request, process_stage1_request
+    from hekaton_tpu_torch.runtime.keys import ProvingKeys
+
+    backend = TorchBackend("cpu")
+    circ = PortalChainCircuit.rand(Rng.from_int(1000), PortalChainParams(2))
+    keys = ProvingKeys.generate("chain", circ, backend, lambda i: Rng.from_int(50 + i))
+    n = circ.num_subcircuits()
+    rng = Rng.from_int(1000)
+    stage0 = CoordinatorStage0State(circ)
+    reqs0 = [stage0.gen_request(i) for i in range(n)]
+    resps0 = [process_stage0_request(rng.fork(str(i).encode()), type(circ), keys.get_pk(i), reqs0[i], backend)
+              for i in range(n)]
+    ipp_ck = ipp_setup(n, Rng.from_int(2000))
+    stage1 = stage0.process_stage0_responses(ipp_ck, resps0)
+    reqs1 = [stage1.gen_request(i) for i in range(n)]
+    agg_state = stage1.into_agg_state()
+    resps1 = [process_stage1_request(rng.fork(b"s1" + str(i).encode()), type(circ), keys.get_pk(i),
+                                     reqs0[i], resps0[i], reqs1[i], HostBackend()) for i in range(n)]
+    for i, resp in enumerate(resps1):
+        assert verify_proof(prepare_verifying_key(keys.get_pk(i).vk), resp.proof, agg_state.public_inputs), i
+    agg_pk = AggProvingKey(tipa_key_from_ipp(ipp_ck), keys.get_pk)
+    agg_proof = agg_state.gen_agg_proof(agg_pk, resps1)
+    assert agg_pk.verify_aggregate(agg_transcript(), agg_state.super_com, agg_proof, agg_state.public_inputs)
+    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    print("modules", len(names), "ran", backend.ran)
+    """
+)
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "modules" in proc.stdout and "'g1_msm_gpu': 2" in proc.stdout, proc.stdout
+
+
+def _imports(path: pathlib.Path) -> list:
+    """The top-level module names that a source file's import lines name."""
+    out = []
+    for line in path.read_text().splitlines():
+        words = line.replace(",", " ").split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            out.append(words[1].split(".")[0])
+    return out
+
+
+def test_no_port_source_imports_jax():
+    for path in list((REPO / "hekaton_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not {"jax", "jaxlib"} & set(_imports(path)), path
+    # the smoke script reaches the JAX package's host modules only through the port
+    assert "hekaton_tpu" not in _imports(REPO / "chip_smoke.py")

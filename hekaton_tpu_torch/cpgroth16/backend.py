@@ -3,7 +3,8 @@ device path).
 
 Copy of hekaton_tpu/cpgroth16/backend.py's host side (`_host_ntt`,
 `witness_map_host`, `HostBackend`, unchanged apart from imports), plus
-`TorchBackend`, which takes the place of the JAX package's TpuBackend.
+`TorchBackend`, which takes the place of the JAX package's TpuBackend and
+runs every curve operation and witness map on its device.
 The protocol layer is backend-agnostic: MSMs, fixed-base scalar-muls, and
 the QAP witness map route through a Backend.
 """
@@ -13,11 +14,12 @@ import math
 
 import torch
 
-from hekaton_tpu.curves import host as ch
-from hekaton_tpu.fields.bn254 import R
-from hekaton_tpu.fields.host import fr_inv
+from ..curves import host as ch
+from ..fields.bn254 import R
+from ..fields.host import fr_inv
 
 from ..ntt.ntt import COSET_GEN, root_of_unity
+from ..curves.torch_curve import G1, G2
 from .data_structures import PointVec
 
 
@@ -92,7 +94,7 @@ class HostBackend:
     def fixed_base(self, base, scalars: list, g2: bool = False) -> list:
         """Windowed-table batch scalar-mul (8-bit windows, Jacobian)."""
         try:
-            from hekaton_tpu.native import accel, available
+            from ..native import accel, available
 
             if available():
                 return accel.mul_batch([base] * len(scalars), scalars)
@@ -129,12 +131,15 @@ class HostBackend:
 
 
 class TorchBackend:
-    """The port's backend: the G1 MSMs and the witness map on `device`.
+    """The port's backend: every MSM, fixed-base batch and witness map on
+    `device`; no route runs on the host.
 
-    - G1 `msm` runs msm/pippenger.py::msm_gpu on `device` for every length,
-      in chunks of G1_CHUNK points whose partial sums are folded on the host
-      (the JAX TpuBackend's chunking). A chunk is not padded to a power of
-      two: nothing here compiles per shape.
+    - `msm` runs msm/pippenger.py::msm_gpu on `device` for every length and
+      both curves, in chunks of G1_CHUNK / G2_CHUNK points whose partial
+      sums are folded on the host (the JAX TpuBackend's chunking; its G2
+      chunk of 2^18 was a TPU memory limit, and a 2^20-point G2 chunk's
+      ~3 GB slab fits the card). A chunk is not padded to a power of two:
+      nothing here compiles per shape.
     - Window width c and column length L come from the chunk length n by a
       fixed rule (`msm_params`): with lg = ceil(log2(n)),
       c = min(13, max(4, lg - 5)), and L = 32 from 2^12 points on, else
@@ -142,13 +147,14 @@ class TorchBackend:
       window, and from 2^18 points on c = 13, L = 32, the JAX defaults. At
       2^16 points c = 11: c = 13 would leave most slab slots padding. Below
       2^12 points the slab is small and a bucket's pads (L/2 on average)
-      are the larger cost: L = 8 runs a 1K-point MSM ~20% faster than
+      are the larger cost: L = 8 runs a 1K-point G1 MSM ~20% faster than
       L = 32 on the plain CPU path.
     - The packed scalars of one list are cached (A, B-G1, B-G2 share z).
-    - G2 `msm` and `fixed_base` run on the host, exactly as HostBackend
-      (ch.msm_host and the native mul_batch). That is this port's routing,
-      whatever the machine: their device versions need the G2 RCB and the
-      Jacobian kernels, which are not ported yet.
+    - `fixed_base` runs msm/pippenger.py::fixed_base_msm and
+      to_affine_device on `device` in chunks of FB_CHUNK scalars (each
+      padded to at least 4 lanes), with the 32 x 256 window table of each
+      base built on the host once and cached on the device (TpuBackend's
+      fixed_base).
     - `witness_map` runs the port's NTT on `device`; its Montgomery
       multiplies are the mont_mul kernel on a CUDA device.
 
@@ -157,12 +163,14 @@ class TorchBackend:
 
     name = "torch"
     G1_CHUNK = 1 << 20
+    G2_CHUNK = 1 << 20
+    FB_CHUNK = 1 << 18
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._host = HostBackend()
         self._sc_cache = None
-        self.ran = {"g1_msm_gpu": 0, "g2_msm_host": 0, "fixed_base_host": 0, "witness_map_gpu": 0}
+        self._fb_tables = {}
+        self.ran = {"g1_msm_gpu": 0, "g2_msm_gpu": 0, "fixed_base_gpu": 0, "witness_map_gpu": 0}
 
     @staticmethod
     def msm_params(n: int) -> tuple:
@@ -171,10 +179,7 @@ class TorchBackend:
         return min(13, max(4, lg - 5)), (32 if n >= 1 << 12 else 8)
 
     def msm(self, vec: PointVec, scalars: list) -> object:
-        if vec.curve.name != "g1":
-            self.ran["g2_msm_host"] += 1
-            return self._host.msm(vec, scalars)
-        chunk = self.G1_CHUNK
+        chunk = self.G1_CHUNK if vec.curve.name == "g1" else self.G2_CHUNK
         acc = None
         for lo in range(0, len(scalars), chunk):
             hi = min(lo + chunk, len(scalars))
@@ -183,9 +188,9 @@ class TorchBackend:
 
     def _packed_scalars(self, scalars: list, lo: int, hi: int) -> torch.Tensor:
         """Pack+transfer scalars[lo:hi] once per scalar list: the Groth16
-        A / B-G1 MSMs run over the same assignment z, so the packed chunks
-        are cached keyed on list identity (a strong ref to the list keeps
-        the identity stable until the next list arrives)."""
+        A / B-G1 / B-G2 MSMs run over the same assignment z, so the packed
+        chunks are cached keyed on list identity (a strong ref to the list
+        keeps the identity stable until the next list arrives)."""
         from ..msm.pippenger import pack_scalars
 
         if self._sc_cache is None or self._sc_cache[0] is not scalars:
@@ -204,12 +209,26 @@ class TorchBackend:
         ax, ay = vec.device_chunk(lo, hi, hi - lo, self.device)
         c, L = self.msm_params(hi - lo)
         out = msm_gpu(ax, ay, sc, c=c, L=L)
-        self.ran["g1_msm_gpu"] += 1
+        self.ran[f"{vec.curve.name}_msm_gpu"] += 1
         return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
 
     def fixed_base(self, base, scalars: list, g2: bool = False) -> list:
-        self.ran["fixed_base_host"] += 1
-        return self._host.fixed_base(base, scalars, g2)
+        from ..msm.pippenger import fixed_base_msm, fixed_base_table_host, pack_scalars, to_affine_device
+
+        curve = G2 if g2 else G1
+        key = (curve.name, base)
+        if key not in self._fb_tables:
+            tx, ty = fixed_base_table_host(base, curve)
+            self._fb_tables[key] = (torch.from_numpy(tx).to(self.device), torch.from_numpy(ty).to(self.device))
+        table = self._fb_tables[key]
+        out = []
+        for lo in range(0, len(scalars), self.FB_CHUNK):
+            part = scalars[lo : lo + self.FB_CHUNK]
+            sc = pack_scalars(list(part) + [0] * (4 - len(part))).to(self.device)
+            ax, ay = to_affine_device(curve, fixed_base_msm(curve, table, sc))
+            out.extend(curve.unpack_affine(ax, ay)[: len(part)])
+        self.ran["fixed_base_gpu"] += 1
+        return out
 
     def witness_map(self, a_evals, b_evals, c_evals) -> list:
         from ..fields import torch_field as tf

@@ -4,7 +4,9 @@ Copy of hekaton_tpu/cpgroth16/data_structures.py without JAX: the proof
 carries per-stage commitments `ds`; the VK has one delta per stage; the PK
 carries a CommitterKey with one commitment basis per stage. Group-element
 vectors are held as PointVec wrappers that keep host affine points and
-lazily cache packed int32 limb tensors for the port's G1 MSM. The pickled
+lazily cache packed int32 limb tensors for the port's MSMs ((n, 16) per
+coordinate on G1, (n, 2, 16) on G2, by the curve descriptor's
+`pack_affine`). The pickled
 form (host points + curve name) is the JAX package's, so key files written
 by either package load into the other's classes (runtime/keys.py).
 """
@@ -133,7 +135,7 @@ class Proof:
 
 
 def serialize_proof(proof: Proof) -> bytes:
-    from hekaton_tpu.curves.host import g1_to_bytes, g2_to_bytes
+    from ..curves.host import g1_to_bytes, g2_to_bytes
 
     out = g1_to_bytes(proof.a) + g2_to_bytes(proof.b) + g1_to_bytes(proof.c)
     out += len(proof.ds).to_bytes(8, "little")
@@ -143,7 +145,7 @@ def serialize_proof(proof: Proof) -> bytes:
 
 
 def deserialize_proof(data: bytes) -> Proof:
-    from hekaton_tpu.curves.host import g1_from_bytes, g2_from_bytes
+    from ..curves.host import g1_from_bytes, g2_from_bytes
 
     a = g1_from_bytes(data[:64])
     b = g2_from_bytes(data[64:192])

@@ -11,11 +11,11 @@ TPU via the table-based batch kernel when a TpuBackend is given.
 """
 from __future__ import annotations
 
-from hekaton_tpu.curves import host as ch
-from hekaton_tpu.fields.bn254 import R
-from hekaton_tpu.fields.host import fr_inv
-from hekaton_tpu.r1cs.builder import ConstraintSystem, MultiStageSynthesizer
-from hekaton_tpu.utils.rng import Rng
+from ..curves import host as ch
+from ..fields.bn254 import R
+from ..fields.host import fr_inv
+from ..r1cs.builder import ConstraintSystem, MultiStageSynthesizer
+from ..utils.rng import Rng
 
 from ..ntt.ntt import Domain
 from .backend import DEFAULT_BACKEND
@@ -72,7 +72,7 @@ def generate_parameters(
     ni = cs.num_instance
     # compile the (shape-defining, value-independent) matrices once: per
     # proof the worker then synthesizes values-only (r1cs/fastsynth.py)
-    from hekaton_tpu.r1cs.fastsynth import CompiledMatrices
+    from ..r1cs.fastsynth import CompiledMatrices
 
     compiled = CompiledMatrices(cs)
     # tau outside the domain

@@ -11,10 +11,10 @@ The MSMs and the witness-map NTTs route through the pluggable backend
 """
 from __future__ import annotations
 
-from hekaton_tpu.curves import host as ch
-from hekaton_tpu.fields.bn254 import R
-from hekaton_tpu.r1cs.builder import ConstraintSystem, MultiStageSynthesizer
-from hekaton_tpu.utils.rng import Rng
+from ..curves import host as ch
+from ..fields.bn254 import R
+from ..r1cs.builder import ConstraintSystem, MultiStageSynthesizer
+from ..utils.rng import Rng
 
 from .backend import DEFAULT_BACKEND
 from .data_structures import Proof, ProvingKey
@@ -52,7 +52,7 @@ def prove_last_stage(
     backend=DEFAULT_BACKEND,
 ) -> tuple:
     """Returns (A, B, C) group elements (no commitments attached yet)."""
-    from hekaton_tpu.utils.timing import print_timer
+    from ..utils.timing import print_timer
 
     with print_timer("prove: synthesize last stage"):
         circuit.generate_constraints(circuit.last_stage(), cs)

@@ -8,9 +8,9 @@ Pairings are tiny and latency-bound; they stay on host (SURVEY.md §7).
 """
 from __future__ import annotations
 
-from hekaton_tpu.curves import host as ch
-from hekaton_tpu.fields.bn254 import R
-from hekaton_tpu.pairing.host import multi_pairing, pairing
+from ..curves import host as ch
+from ..fields.bn254 import R
+from ..pairing.host import multi_pairing, pairing
 
 from .data_structures import Proof, VerifyingKey
 

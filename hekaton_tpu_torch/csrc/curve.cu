@@ -1,11 +1,14 @@
-// BN254 G1 kernels of the MSM: the complete batched-affine add, one round of
-// the level-1 halves pairing, and the window Horner fold.
+// BN254 G1 kernels: the MSM's complete batched-affine add, one round of its
+// level-1 halves pairing and its window Horner fold; and the Jacobian mixed
+// add of the fixed-base scalar muls.
 //
 // aff_add (root + fin) replaces curves/pallas_curve.py::aff_add_fused
 // (_aff_root_kernel :426, _aff_fin_tree_kernel :442). halves (root + fin)
 // replaces one round of curves/pallas_curve.py::l1_aff_halves
 // (_aff_halves_root_kernel :802, _aff_halves_fin_kernel :822, tr=False).
 // horner replaces curves/pallas_curve.py::horner_fold (_horner_kernel :583).
+// madd replaces curves/pallas_curve.py::madd (_madd_kernel :1178, formulas
+// _madd_tiles :164 with the _dbl_tiles escape :146).
 //
 // Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
 // (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
@@ -33,6 +36,13 @@
 // on 735K columns, the aff_add pair ~0.14 ms per call, horner ~2.2 ms at
 // W=20, c=13; the Fermat root inversion that every add and round waits on
 // (fields/cuda_field.py) costs more than any of them in total.
+//
+// madd is one thread per lane on the straight-line madd-2007-bl formulas
+// (11 products, 7 more on the rare doubling lanes, which the kernel computes
+// only where they are taken) against 512 bytes of (n, 16) limb rows in and
+// out: ~5.6 multiplies per byte, so bound by integer multiply throughput
+// once the card is full. Its edge overrides follow _madd_tiles in its order,
+// which fixes the limbs of infinity lanes (curves/cuda_curve.py::madd_plain).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -252,6 +262,69 @@ __global__ void horner_kernel(const int32_t* __restrict__ x, const int32_t* __re
   store_limbs(oz, acc.z);
 }
 
+// -- Jacobian mixed add with escapes (pallas_curve.py::_madd_tiles) ---------
+
+// dbl-2009-l (a=0), pallas_curve.py::_dbl_tiles
+__device__ void jac_dbl(const Fe& x, const Fe& y, const Fe& z, Fe& x3, Fe& y3, Fe& z3) {
+  Fe a = fe_sqr<FQ>(x);
+  Fe b = fe_sqr<FQ>(y);
+  Fe c = fe_sqr<FQ>(b);
+  Fe d0 = fe_sqr<FQ>(fe_add<FQ>(x, b));
+  Fe d1 = fe_sub<FQ>(fe_sub<FQ>(d0, a), c);
+  Fe d = fe_add<FQ>(d1, d1);
+  Fe e = fe_add<FQ>(fe_add<FQ>(a, a), a);
+  x3 = fe_sub<FQ>(fe_sqr<FQ>(e), fe_add<FQ>(d, d));
+  Fe c4 = fe_add<FQ>(fe_add<FQ>(c, c), fe_add<FQ>(c, c));
+  Fe c8 = fe_add<FQ>(c4, c4);
+  y3 = fe_sub<FQ>(fe_mul<FQ>(e, fe_sub<FQ>(d, x3)), c8);
+  z3 = fe_mul<FQ>(fe_add<FQ>(y, y), z);
+}
+
+__global__ void madd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                            const int32_t* __restrict__ z, const int32_t* __restrict__ ax,
+                            const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
+                            int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x1 = load_limbs(x + i * 16), y1 = load_limbs(y + i * 16), z1 = load_limbs(z + i * 16);
+  Fe qx = load_limbs(ax + i * 16), qy = load_limbs(ay + i * 16);
+  bool q_inf = fe_is_zero(qx) && fe_is_zero(qy);
+  bool p_inf = fe_is_zero(z1);
+
+  Fe z1z1 = fe_sqr<FQ>(z1);
+  Fe u2 = fe_mul<FQ>(qx, z1z1);
+  Fe s2 = fe_mul<FQ>(fe_mul<FQ>(qy, z1), z1z1);
+  Fe h = fe_sub<FQ>(u2, x1);
+  Fe rr = fe_sub<FQ>(s2, y1);
+  bool same_x = fe_is_zero(h);
+  bool same_y = fe_is_zero(rr);
+  Fe hh = fe_sqr<FQ>(h);
+  Fe i4 = fe_add<FQ>(fe_add<FQ>(hh, hh), fe_add<FQ>(hh, hh));
+  Fe j = fe_mul<FQ>(h, i4);
+  Fe r2 = fe_add<FQ>(rr, rr);
+  Fe v = fe_mul<FQ>(x1, i4);
+  Fe x3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(r2), j), fe_add<FQ>(v, v));
+  Fe yj = fe_mul<FQ>(y1, j);
+  Fe y3 = fe_sub<FQ>(fe_mul<FQ>(r2, fe_sub<FQ>(v, x3)), fe_add<FQ>(yj, yj));
+  Fe z3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(fe_add<FQ>(z1, h)), z1z1), hh);
+
+  if (same_x && same_y) jac_dbl(x1, y1, z1, x3, y3, z3);  // doubling escape
+  if (same_x && !same_y) z3 = fe_zero();                  // inverse pair: z3 only
+  if (p_inf) {                                             // P = inf: Q, z = 0 or 1
+    x3 = qx;
+    y3 = qy;
+    z3 = q_inf ? fe_zero() : fe_one<FQ>();
+  }
+  if (q_inf && !p_inf) {  // Q = inf: P
+    x3 = x1;
+    y3 = y1;
+    z3 = z1;
+  }
+  store_limbs(ox + i * 16, x3);
+  store_limbs(oy + i * 16, y3);
+  store_limbs(oz + i * 16, z3);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -293,5 +366,14 @@ extern "C" int hk_horner(const void* x, const void* y, const void* z, void* ox, 
   horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)x, (const int32_t*)y,
                                                    (const int32_t*)z, (int32_t*)ox,
                                                    (int32_t*)oy, (int32_t*)oz, W, c);
+  return (int)cudaGetLastError();
+}
+
+// n lanes of (16,) limb rows per coordinate; outputs must not alias inputs
+extern "C" int hk_madd(const void* x, const void* y, const void* z, const void* ax, const void* ay,
+                       void* ox, void* oy, void* oz, long long n, void* stream) {
+  madd_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)ax,
+      (const int32_t*)ay, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
   return (int)cudaGetLastError();
 }

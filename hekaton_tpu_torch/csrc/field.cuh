@@ -8,7 +8,8 @@
 //
 // Tensors at the kernel boundary are int32: either (n, 16) limb rows (one
 // 16-bit limb per word) or packed slab rows (two limbs per word, already the
-// 32-bit words used here).
+// 32-bit words used here). An Fq2 = Fq[u]/(u^2+1) element is a pair of Fq
+// elements (c0, c1), at the boundary an (n, 2, 16) limb row of 32 limbs.
 #pragma once
 
 #include <cstdint>
@@ -200,6 +201,70 @@ __device__ __forceinline__ Fe fe_inv(const Fe& a) {
     if ((w >> (bit & 31)) & 1u) acc = fe_mul<F>(acc, a);
   }
   return acc;
+}
+
+// -- Fq2 = Fq[u]/(u^2+1) (pallas_curve.py::f2_add/f2_sub/f2_mul, :982-1005) --
+
+struct Fe2 {
+  Fe c0, c1;
+};
+
+// 3b' = 9/(9+u), the RCB mul-by-3b constant of the BN254 G2 twist
+// b' = 3/(9+u), in Montgomery form (pallas_curve.py::_b3_g2_limbs, :1008)
+static __constant__ uint32_t B3_G2_WORDS[2][8] = {
+    {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+     0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
+    {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+     0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au},
+};
+
+__device__ __forceinline__ Fe2 f2_b3() {
+  Fe2 r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    r.c0.w[i] = B3_G2_WORDS[0][i];
+    r.c1.w[i] = B3_G2_WORDS[1][i];
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fe2 f2_add(const Fe2& a, const Fe2& b) {
+  return Fe2{fe_add<FQ>(a.c0, b.c0), fe_add<FQ>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fe2 f2_sub(const Fe2& a, const Fe2& b) {
+  return Fe2{fe_sub<FQ>(a.c0, b.c0), fe_sub<FQ>(a.c1, b.c1)};
+}
+
+// Karatsuba: 3 Fq products (jax_field.py::fq2_mul)
+__device__ __forceinline__ Fe2 f2_mul(const Fe2& a, const Fe2& b) {
+  Fe t0 = fe_mul<FQ>(a.c0, b.c0);
+  Fe t1 = fe_mul<FQ>(a.c1, b.c1);
+  Fe s = fe_mul<FQ>(fe_add<FQ>(a.c0, a.c1), fe_add<FQ>(b.c0, b.c1));
+  return Fe2{fe_sub<FQ>(t0, t1), fe_sub<FQ>(fe_sub<FQ>(s, t0), t1)};
+}
+
+// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 Fq products; the same
+// canonical values as f2_mul(a, a)
+__device__ __forceinline__ Fe2 f2_sqr(const Fe2& a) {
+  Fe m = fe_mul<FQ>(a.c0, a.c1);
+  return Fe2{fe_mul<FQ>(fe_add<FQ>(a.c0, a.c1), fe_sub<FQ>(a.c0, a.c1)), fe_add<FQ>(m, m)};
+}
+
+__device__ __forceinline__ bool f2_is_zero(const Fe2& a) { return fe_is_zero(a.c0) && fe_is_zero(a.c1); }
+
+__device__ __forceinline__ Fe2 f2_select(bool c, const Fe2& a, const Fe2& b) {
+  return Fe2{fe_select(c, a.c0, b.c0), fe_select(c, a.c1, b.c1)};
+}
+
+// (2, 16) limb row (c0 limbs then c1 limbs) -> Fq2, and back
+__device__ __forceinline__ Fe2 load_limbs2(const int32_t* src) {
+  return Fe2{load_limbs(src), load_limbs(src + 16)};
+}
+
+__device__ __forceinline__ void store_limbs2(int32_t* dst, const Fe2& a) {
+  store_limbs(dst, a.c0);
+  store_limbs(dst + 16, a.c1);
 }
 
 }  // namespace hk

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (hekaton_tpu_torch/csrc/*.cu).
 
 The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+interface, loaded with ctypes: one nvcc per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/hekaton_tpu_torch/libhk_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o <build>/<source>.o csrc/<source>.cu
+
+then one link, `nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
+build/hekaton_tpu_torch/libhk_<hash>.so <build>/*.o`.
 
 The library is keyed by a sha256 of the sources (as hekaton_tpu/native keys
 its host library), so an edited source builds a new library at its first
@@ -25,10 +28,8 @@ import tempfile
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hekaton_tpu_torch")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
@@ -42,6 +43,10 @@ SIGNATURES = {
     "hk_halves_root": [_vp, _vp, _vp, _ll, _int, _vp],
     "hk_halves_fin": [_vp, _vp, _vp, _vp, _ll, _int, _vp],
     "hk_horner": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
+    "hk_madd": [_vp] * 8 + [_ll, _vp],
+    "hk_pmadd_rcb_g2": [_vp] * 8 + [_ll, _vp],
+    "hk_padd_rcb_g2": [_vp] * 9 + [_ll, _vp],
+    "hk_pdbl_rcb_g2": [_vp] * 6 + [_ll, _vp],
 }
 
 _LIB = None
@@ -75,16 +80,30 @@ def build() -> tuple:
     if os.path.exists(path):
         return path, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cu = [p for p in sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
-    os.replace(tmp, path)
-    return path, proc.stderr + proc.stdout
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        cu = [p for p in sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cu, objs)
+        ]
+        report = ""
+        failed = []
+        for p, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            report += out
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(p)} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{report}")
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
+        os.replace(so, path)
+    return path, report
 
 
 def lib() -> ctypes.CDLL:

@@ -31,15 +31,15 @@ class Aff(NamedTuple):
 
 
 def pack_words(a: torch.Tensor) -> torch.Tensor:
-    """(..., 16) limbs -> (..., 8) int32 words holding two limbs each."""
+    """(..., 2k) limbs -> (..., k) int32 words holding two limbs each."""
     w = a[..., 0::2].long() | (a[..., 1::2].long() << 16)
     return torch.where(w >= 1 << 31, w - (1 << 32), w).int()
 
 
 def unpack_words(w: torch.Tensor) -> torch.Tensor:
-    """(..., 8) int32 words -> (..., 16) limbs."""
+    """(..., k) int32 words -> (..., 2k) limbs."""
     w = w.long() & 0xFFFFFFFF
-    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(w.shape[:-1] + (16,)).int()
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(w.shape[:-1] + (2 * w.shape[-1],)).int()
 
 
 class AffineOps:

@@ -1,8 +1,10 @@
-"""G1 curve kernels of the MSM: the complete batched-affine add, the level-1
-halves pairing, and the window Horner fold.
+"""Curve kernels: the G1 MSM's complete batched-affine add, level-1 halves
+pairing and window Horner fold; the G1 Jacobian mixed add of the fixed-base
+muls; and the G2 MSM's three complete projective Fq2 ops.
 
 Port of the main-path kernels of hekaton_tpu/curves/pallas_curve.py. Source:
-csrc/curve.cu (kernels), csrc/field.cuh (field device functions).
+csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
+(Fq and Fq2 device functions).
 
 - `aff_add_fused` replaces `aff_add_fused` (pallas_curve.py:760; kernels
   `_aff_root_kernel` :426 and `_aff_fin_tree_kernel` :442).
@@ -10,17 +12,29 @@ csrc/curve.cu (kernels), csrc/field.cuh (field device functions).
   kernels `_aff_halves_root_kernel` :802 and `_aff_halves_fin_kernel` :822).
 - `horner_fold` replaces `horner_fold` (pallas_curve.py:625; kernel
   `_horner_kernel` :583).
+- `madd` replaces `madd` (pallas_curve.py:1281; kernel `_madd_kernel`
+  :1178 on `_madd_tiles` :164 with the `_dbl_tiles` escape :146).
+- `pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2` replace the wrappers of the
+  same names (pallas_curve.py:1315/1320/1324; kernels `_pmadd_rcb_g2_kernel`
+  :1115, `_padd_rcb_g2_kernel` :1130, `_pdbl_rcb_g2_kernel` :1148, all
+  through the one `pallas_call` of `_build` :1250). Their interface keeps
+  the JAX shape: (..., 2, 16) int32 Fq2 limbs per coordinate.
 
 Bounds on an H100 and the design that meets them are in the source note of
 csrc/curve.cu: the adds are bound by integer multiply throughput and run as a
 root kernel / batch_inv / finish kernel split with one thread per prefix
 chain; the Horner fold is one thread, bound by the latency of its chain.
+`madd` and the G2 ops are one thread per lane, straight-line formulas, bound
+by integer multiply throughput (csrc/curve.cu, csrc/curve_g2.cu).
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
 CUDA tensors to its kernels; nothing falls back. `launches` on each wrapper
-counts its kernel launches (one per add, per halves round, per fold).
+counts its kernel launches (one per add, per halves round, per fold, per
+batch of point ops).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,7 +43,9 @@ from ..fields import torch_field as tf
 from ..fields.cuda_field import check_limbs
 from ..fields.torch_field import FQ
 from .affine import Aff, AffineOps
+from .host import B_G2
 from .proj import Proj, ProjOps
+from .torch_curve import CurveOps, Jac
 
 K_ADD = 8  # lanes per thread (one prefix chain) in the aff_add kernel pair
 
@@ -99,9 +115,68 @@ def horner_fold_plain(x, y, z, c: int):
     return acc
 
 
+_PROJ_G2_PLAIN = ProjOps(tf.Fq2Plain, B_G2 * 3, "g2_proj_plain")
+_G1_PLAIN = CurveOps(tf.FqPlain, "g1_plain")  # its dbl is _dbl_tiles' dbl-2009-l
+
+
+def pmadd_rcb_g2_plain(x, y, z, ax, ay):
+    """G2 projective + affine on the plain RCB formulas (curves/proj.py)."""
+    return _PROJ_G2_PLAIN.add_mixed(Proj(x, y, z), ax, ay)
+
+
+def padd_rcb_g2_plain(x1, y1, z1, x2, y2, z2):
+    return _PROJ_G2_PLAIN.add(Proj(x1, y1, z1), Proj(x2, y2, z2))
+
+
+def pdbl_rcb_g2_plain(x, y, z):
+    return _PROJ_G2_PLAIN.dbl(Proj(x, y, z))
+
+
+def madd_plain(x1, y1, z1, ax, ay):
+    """G1 Jacobian + affine by madd-2007-bl with the edge overrides of
+    pallas_curve.py::_madd_tiles, in its order: the doubling escape; an
+    inverse pair zeroes only z3; P at infinity gives (ax, ay, 1), or
+    (0, 0, 0) when Q is the (0,0) sentinel too; Q at infinity (P finite)
+    gives P. The points equal torch_curve.CurveOps.add_mixed's; the limbs of
+    infinity lanes need not."""
+    f = tf.FqPlain
+    q_inf = f.is_zero(ax) & f.is_zero(ay)
+    p_inf = f.is_zero(z1)
+    (x3, y3, z3), same_x, same_y = _G1_PLAIN.madd_core(Jac(x1, y1, z1), ax, ay)
+    zero = torch.zeros_like(z3)
+    z3 = f.select(same_x & ~same_y, zero, z3)
+    qz = f.select(q_inf, zero, f.one(q_inf.shape, z3.device))
+    x3, y3, z3 = f.select(p_inf, ax, x3), f.select(p_inf, ay, y3), f.select(p_inf, qz, z3)
+    keep_p = q_inf & ~p_inf
+    return Jac(f.select(keep_p, x1, x3), f.select(keep_p, y1, y3), f.select(keep_p, z1, z3))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple):
+    """Launch the one-thread-per-lane point kernel `entry` on `args`, each a
+    contiguous int32 (..., *coord_shape) batch of one shape on one device;
+    count the launch on the wrapper `fn` and return the three output
+    coordinates."""
+    first = args[0]
+    for i, t in enumerate(args):
+        check_limbs(f"{fn.__name__} argument {i}", t, first.device)
+        if t.shape != first.shape or tuple(t.shape[t.dim() - len(coord_shape):]) != coord_shape:
+            raise ValueError(f"{fn.__name__}: argument {i} {tuple(t.shape)} is not (..., "
+                             f"{', '.join(map(str, coord_shape))}) of shape {tuple(first.shape)}")
+    n = first.numel() // math.prod(coord_shape)
+    outs = tuple(torch.empty_like(first) for _ in range(3))
+    if n:
+        rc = getattr(cuda_lib.lib(), entry)(
+            *(t.data_ptr() for t in args), *(o.data_ptr() for o in outs), n,
+            cuda_lib.stream_ptr(first.device),
+        )
+        cuda_lib.check(entry, rc)
+        fn.launches += 1
+    return outs
 
 
 def aff_add_fused(x1, y1, px, py):
@@ -202,3 +277,43 @@ def horner_fold(x, y, z, c: int):
 
 horner_fold.launches = 0
 
+
+def madd(x, y, z, ax, ay):
+    """G1 Jacobian (x, y, z) + affine (ax, ay), (..., 16) limbs, with the
+    edge handling of madd_plain."""
+    if not x.is_cuda:
+        return madd_plain(x, y, z, ax, ay)
+    return Jac(*_launch_point_op(madd, "hk_madd", (x, y, z, ax, ay), (16,)))
+
+
+madd.launches = 0
+
+
+def pmadd_rcb_g2(x, y, z, ax, ay):
+    """G2 projective (x, y, z) + affine (ax, ay), (..., 2, 16) limbs."""
+    if not x.is_cuda:
+        return pmadd_rcb_g2_plain(x, y, z, ax, ay)
+    return Proj(*_launch_point_op(pmadd_rcb_g2, "hk_pmadd_rcb_g2", (x, y, z, ax, ay), (2, 16)))
+
+
+pmadd_rcb_g2.launches = 0
+
+
+def padd_rcb_g2(x1, y1, z1, x2, y2, z2):
+    """G2 projective + projective, (..., 2, 16) limbs."""
+    if not x1.is_cuda:
+        return padd_rcb_g2_plain(x1, y1, z1, x2, y2, z2)
+    return Proj(*_launch_point_op(padd_rcb_g2, "hk_padd_rcb_g2", (x1, y1, z1, x2, y2, z2), (2, 16)))
+
+
+padd_rcb_g2.launches = 0
+
+
+def pdbl_rcb_g2(x, y, z):
+    """2 * G2 projective, (..., 2, 16) limbs."""
+    if not x.is_cuda:
+        return pdbl_rcb_g2_plain(x, y, z)
+    return Proj(*_launch_point_op(pdbl_rcb_g2, "hk_pdbl_rcb_g2", (x, y, z), (2, 16)))
+
+
+pdbl_rcb_g2.launches = 0

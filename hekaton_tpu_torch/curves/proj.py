@@ -1,12 +1,20 @@
-"""Homogeneous-projective G1 arithmetic with complete addition formulas
-(Renes-Costello-Batina 2015, j-invariant-0 algorithms 7 and 9).
+"""Homogeneous-projective curve arithmetic with complete addition formulas
+(Renes-Costello-Batina 2015, j-invariant-0 algorithms 7, 8 and 9), generic
+over the field adapter.
 
-Port of hekaton_tpu/curves/proj.py (`ProjOps`, :42-170) for BN254 G1:
-`from_affine`, `add`, `dbl` and `to_jacobian`. The formulas are complete:
-identity (0:1:0), doubling and inverse pairs flow through the same
-straight-line code. These are the plain formulas the Horner kernel
-(curves/cuda_curve.py::horner_fold) is held against; the MSM itself uses
-only `from_affine` and `to_jacobian` on its window sums.
+Port of hekaton_tpu/curves/proj.py (`ProjOps`, :42-170; `PallasProjG2Ops`
+and `proj_g2`, :212-283). The formulas are complete: identity (0:1:0),
+doubling and inverse pairs flow through the same straight-line code; only
+the affine operand of a mixed add needs one select, for the (0,0) sentinel.
+
+`PROJ_G1` (b3 = 9) runs the plain formulas; the G1 MSM uses it for
+`from_affine` and `to_jacobian` of its window sums, and the Horner kernel
+(curves/cuda_curve.py::horner_fold) is held against its `add` and `dbl`.
+`PROJ_G2` (b3 = 3 * B_G2 = 9/(9+u)) sends `add_mixed`, `add` and `dbl` to
+the three Fq2 kernel wrappers of curves/cuda_curve.py, which launch their
+CUDA kernels on CUDA tensors and run these formulas on CPU tensors, as
+`PallasProjG2Ops` reaches the Pallas kernels on a TPU. The G2 MSM
+accumulates in it.
 """
 from __future__ import annotations
 
@@ -14,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..fields.torch_field import FqOps
+from ..fields.torch_field import FqOps, Fq2Ops
+from .host import B_G2
 from .torch_curve import Jac
 
 
@@ -27,14 +36,18 @@ class Proj(NamedTuple):
 
 
 class ProjOps:
-    """Complete-formula group ops over a field adapter; `b3_host` is 3*b
-    (9 for BN254 G1)."""
+    """Complete-formula group ops over a field adapter; `b3_host` is 3*b of
+    the curve as a host value (9 for BN254 G1, an Fq2 for G2)."""
 
-    def __init__(self, fops, b3_host: int, name: str):
+    def __init__(self, fops, b3_host, name: str):
         self.f = fops
         self.name = name
         self.b3_host = b3_host
-        self._b3 = fops.pack([b3_host])[0]
+        self._b3 = torch.from_numpy(fops.pack([b3_host])[0])
+
+    def inf(self, batch_shape, device) -> Proj:
+        f = self.f
+        return Proj(f.zeros(batch_shape, device), f.one(batch_shape, device), f.zeros(batch_shape, device))
 
     def from_affine(self, ax, ay) -> Proj:
         """(0,0) sentinel lanes become the identity (0:1:0)."""
@@ -45,8 +58,18 @@ class ProjOps:
         z = f.select(inf_mask, f.zeros(batch, ax.device), f.one(batch, ax.device))
         return Proj(ax, y, z)
 
+    def is_inf(self, p: Proj):
+        return self.f.is_zero(p.z)
+
+    def select(self, cond, p: Proj, q: Proj) -> Proj:
+        f = self.f
+        return Proj(f.select(cond, p.x, q.x), f.select(cond, p.y, q.y), f.select(cond, p.z, q.z))
+
+    def neg(self, p: Proj) -> Proj:
+        return Proj(p.x, self.f.neg(p.y), p.z)
+
     def mul_b3(self, a):
-        return self.f.mul(a, torch.as_tensor(self._b3, device=a.device))
+        return self.f.mul(a, self._b3.to(a.device))
 
     def add(self, p: Proj, q: Proj) -> Proj:
         """Complete P + Q: RCB15 Algorithm 7 (a=0)."""
@@ -72,6 +95,30 @@ class ProjOps:
         y3 = f.add(f.mul(t1, z3), f.mul(y3, t0))
         z3 = f.add(f.mul(z3, t4), f.mul(t0, t3))
         return Proj(x3, y3, z3)
+
+    def add_mixed(self, p: Proj, ax, ay) -> Proj:
+        """P + (affine Q): RCB15 Algorithm 8 (a=0, Z2=1). Complete except for
+        the affine sentinel (0,0) (y = 0 only there on prime-order a=0
+        curves), resolved by one final select."""
+        f = self.f
+        x1, y1, z1 = p
+        q_inf = f.is_zero(ay)
+        t0 = f.mul(x1, ax)
+        t1 = f.mul(y1, ay)
+        t3 = f.mul(f.add(ax, ay), f.add(x1, y1))
+        t3 = f.sub(t3, f.add(t0, t1))
+        t4 = f.add(f.mul(ay, z1), y1)
+        y3 = f.add(f.mul(ax, z1), x1)
+        x3 = f.add(t0, t0)
+        t0 = f.add(x3, t0)
+        t2 = self.mul_b3(z1)
+        z3 = f.add(t1, t2)
+        t1 = f.sub(t1, t2)
+        y3 = self.mul_b3(y3)
+        x3 = f.sub(f.mul(t3, t1), f.mul(t4, y3))
+        y3 = f.add(f.mul(t1, z3), f.mul(y3, t0))
+        z3 = f.add(f.mul(z3, t4), f.mul(t0, t3))
+        return self.select(q_inf, p, Proj(x3, y3, z3))
 
     def dbl(self, p: Proj) -> Proj:
         """2P: RCB15 Algorithm 9 (a=0)."""
@@ -103,5 +150,31 @@ class ProjOps:
         z2 = f.sqr(p.z)
         return Jac(f.mul(p.x, p.z), f.mul(p.y, z2), p.z)
 
+    def from_jacobian(self, p: Jac) -> Proj:
+        """Jacobian (X, Y, Z) -> (XZ : Y : Z^3); Z = 0 maps to (0:Y:0) = inf."""
+        f = self.f
+        return Proj(f.mul(p.x, p.z), p.y, f.mul(f.sqr(p.z), p.z))
+
+
+class ProjG2Ops(ProjOps):
+    """BN254 G2 projective ops whose add_mixed / add / dbl are the Fq2 RCB
+    kernel wrappers (plain formulas on CPU tensors, kernels on CUDA)."""
+
+    def add(self, p: Proj, q: Proj) -> Proj:
+        from .cuda_curve import padd_rcb_g2
+
+        return Proj(*padd_rcb_g2(*(t.contiguous() for t in (*p, *q))))
+
+    def add_mixed(self, p: Proj, ax, ay) -> Proj:
+        from .cuda_curve import pmadd_rcb_g2
+
+        return Proj(*pmadd_rcb_g2(*(t.contiguous() for t in (*p, ax, ay))))
+
+    def dbl(self, p: Proj) -> Proj:
+        from .cuda_curve import pdbl_rcb_g2
+
+        return Proj(*pdbl_rcb_g2(*(t.contiguous() for t in p)))
+
 
 PROJ_G1 = ProjOps(FqOps, 9, "g1_proj")
+PROJ_G2 = ProjG2Ops(Fq2Ops, B_G2 * 3, "g2_proj")

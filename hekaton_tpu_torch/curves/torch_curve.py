@@ -1,15 +1,19 @@
-"""Curve descriptors and host interop for the device point layouts.
+"""Batched Jacobian curve arithmetic and host interop, generic over the field.
 
-Port of the interop part of hekaton_tpu/curves/jax_curve.py (`Jac`,
-`pack_affine`, `unpack_jacobian`, `unpack_affine`, :142-192). Device points
-are `(..., 16)` int32 limb tensors per coordinate (fields/torch_field.py);
-affine infinity is (0, 0), Jacobian infinity is z == 0.
+Port of hekaton_tpu/curves/jax_curve.py (`Jac`, `CurveOps`, :28-191, and
+`PallasG1Ops.add_mixed`, :227-232). G1 runs over Fq ((..., 16) int32 limb
+tensors, fields/torch_field.py), G2 over Fq2 ((..., 2, 16)); the
+short-Weierstrass a=0 formulas are the same, with every edge case
+(infinity, doubling, inverse points) handled by selects. Affine infinity is
+(0, 0), Jacobian infinity is z == 0.
 
-The port runs no Jacobian arithmetic: the G1 MSM accumulates in complete
-affine and projective coordinates (curves/affine.py, curves/proj.py), and the
-G2 MSM and the fixed-base scalar muls run on the host (cpgroth16/backend.py).
-So `G2` is a host-only descriptor: it names the curve for PointVec and packs
-nothing.
+The Jacobian group law serves the fixed-base scalar muls of setup
+(msm/pippenger.py::fixed_base_msm). `G1.add_mixed` is the madd kernel
+wrapper (curves/cuda_curve.py::madd): the CUDA kernel on CUDA tensors, its
+plain version on CPU tensors. Both mirror the Pallas `_madd_tiles`, which
+agrees with `CurveOps.add_mixed` as points but not as limbs on infinity
+lanes. `dbl`, `add` and G2's `add_mixed` stay the plain formulas (their
+Pallas kernels serve the compact `msm`, which the port does not run).
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..fields.torch_field import FqOps
+from ..fields.host import Fq2
+from ..fields.torch_field import FqOps, Fq2Ops
 
 
 class Jac(NamedTuple):
@@ -32,38 +37,155 @@ class CurveOps:
         self.f = fops
         self.name = name
 
-    def _field(self):
-        if self.f is None:
-            raise NotImplementedError(f"{self.name} points have no device layout in this port")
-        return self.f
+    # -- constructors -------------------------------------------------------
+    def inf(self, batch_shape, device) -> Jac:
+        f = self.f
+        return Jac(f.one(batch_shape, device), f.one(batch_shape, device), f.zeros(batch_shape, device))
+
+    def from_affine(self, ax, ay) -> Jac:
+        """Affine (x, y) -> Jacobian; (0,0) lanes become infinity."""
+        f = self.f
+        inf_mask = f.is_zero(ax) & f.is_zero(ay)
+        batch = ax.shape[: ax.dim() - f.ndim]
+        return Jac(ax, ay, f.select(inf_mask, f.zeros(batch, ax.device), f.one(batch, ax.device)))
+
+    def is_inf(self, p: Jac):
+        return self.f.is_zero(p.z)
+
+    def select(self, cond, p: Jac, q: Jac) -> Jac:
+        f = self.f
+        return Jac(f.select(cond, p.x, q.x), f.select(cond, p.y, q.y), f.select(cond, p.z, q.z))
+
+    def neg(self, p: Jac) -> Jac:
+        return Jac(p.x, self.f.neg(p.y), p.z)
+
+    # -- group law -----------------------------------------------------------
+    def dbl(self, p: Jac) -> Jac:
+        """2P via dbl-2009-l (a=0): 2M + 5S. Infinity-safe (z3 = 2yz = 0)."""
+        f = self.f
+        a = f.sqr(p.x)
+        b = f.sqr(p.y)
+        c = f.sqr(b)
+        d0 = f.sqr(f.add(p.x, b))
+        d1 = f.sub(f.sub(d0, a), c)
+        d = f.add(d1, d1)
+        e = f.add(f.add(a, a), a)
+        x3 = f.sub(f.sqr(e), f.add(d, d))
+        c8 = f.add(f.add(c, c), f.add(c, c))
+        c8 = f.add(c8, c8)
+        y3 = f.sub(f.mul(e, f.sub(d, x3)), c8)
+        z3 = f.mul(f.add(p.y, p.y), p.z)
+        return Jac(x3, y3, z3)
+
+    def add(self, p: Jac, q: Jac) -> Jac:
+        """P + Q via add-2007-bl with branchless edge handling."""
+        f = self.f
+        z1z1 = f.sqr(p.z)
+        z2z2 = f.sqr(q.z)
+        u1 = f.mul(p.x, z2z2)
+        u2 = f.mul(q.x, z1z1)
+        s1 = f.mul(f.mul(p.y, q.z), z2z2)
+        s2 = f.mul(f.mul(q.y, p.z), z1z1)
+        h = f.sub(u2, u1)
+        rr = f.sub(s2, s1)
+        same_x = f.is_zero(h)
+        same_y = f.is_zero(rr)
+        i = f.sqr(f.add(h, h))
+        j = f.mul(h, i)
+        r2 = f.add(rr, rr)
+        v = f.mul(u1, i)
+        x3 = f.sub(f.sub(f.sqr(r2), j), f.add(v, v))
+        s1j = f.mul(s1, j)
+        y3 = f.sub(f.mul(r2, f.sub(v, x3)), f.add(s1j, s1j))
+        z3 = f.mul(f.sub(f.sub(f.sqr(f.add(p.z, q.z)), z1z1), z2z2), h)
+        res = Jac(x3, y3, z3)
+        if bool((same_x & same_y).any()):  # the doubling escape, only where a lane takes it
+            res = self.select(same_x & same_y, self.dbl(p), res)
+        res = self.select(same_x & ~same_y, self.inf(same_x.shape, same_x.device), res)
+        res = self.select(self.is_inf(p), q, res)
+        return self.select(self.is_inf(q), p, res)
+
+    def madd_core(self, p: Jac, ax, ay):
+        """madd-2007-bl with the doubling escape, before any infinity
+        override: (result, same_x, same_y). add_mixed and the madd kernel's
+        plain version (cuda_curve.madd_plain) each add their own overrides."""
+        f = self.f
+        z1z1 = f.sqr(p.z)
+        u2 = f.mul(ax, z1z1)
+        s2 = f.mul(f.mul(ay, p.z), z1z1)
+        h = f.sub(u2, p.x)
+        rr = f.sub(s2, p.y)
+        same_x = f.is_zero(h)
+        same_y = f.is_zero(rr)
+        hh = f.sqr(h)
+        i = f.add(f.add(hh, hh), f.add(hh, hh))
+        j = f.mul(h, i)
+        r2 = f.add(rr, rr)
+        v = f.mul(p.x, i)
+        x3 = f.sub(f.sub(f.sqr(r2), j), f.add(v, v))
+        yj = f.mul(p.y, j)
+        y3 = f.sub(f.mul(r2, f.sub(v, x3)), f.add(yj, yj))
+        z3 = f.sub(f.sub(f.sqr(f.add(p.z, h)), z1z1), hh)
+        res = Jac(x3, y3, z3)
+        if bool((same_x & same_y).any()):  # the doubling escape, only where a lane takes it
+            res = self.select(same_x & same_y, self.dbl(p), res)
+        return res, same_x, same_y
+
+    def add_mixed(self, p: Jac, ax, ay) -> Jac:
+        """P + (affine Q) via madd-2007-bl with edge handling."""
+        f = self.f
+        q_inf = f.is_zero(ax) & f.is_zero(ay)
+        res, same_x, same_y = self.madd_core(p, ax, ay)
+        res = self.select(same_x & ~same_y, self.inf(same_x.shape, same_x.device), res)
+        batch = ax.shape[: ax.dim() - f.ndim]
+        q_jac = Jac(ax, ay, f.select(q_inf, f.zeros(batch, ax.device), f.one(batch, ax.device)))
+        res = self.select(self.is_inf(p), q_jac, res)
+        return self.select(q_inf, p, res)
+
+    # -- host interop ---------------------------------------------------------
+    def _zero(self):
+        return 0 if self.f.ndim == 1 else Fq2.zero()
 
     def pack_affine(self, host_points) -> tuple:
         """Host affine points (None = infinity) -> (ax, ay) int32 limb arrays."""
-        f = self._field()
-        xs = [0 if pt is None else pt[0] for pt in host_points]
-        ys = [0 if pt is None else pt[1] for pt in host_points]
+        f = self.f
+        zero = self._zero()
+        xs = [zero if pt is None else pt[0] for pt in host_points]
+        ys = [zero if pt is None else pt[1] for pt in host_points]
         return np.asarray(f.pack(xs)), np.asarray(f.pack(ys))
 
     def unpack_jacobian(self, p: Jac) -> list:
         """Device Jacobian points -> host affine points (None = infinity)."""
-        f = self._field()
-        mod = f.spec.modulus
+        f = self.f
         out = []
         for x, y, z in zip(f.unpack(p.x), f.unpack(p.y), f.unpack(p.z)):
-            if z == 0:
+            if z == self._zero():
                 out.append(None)
-                continue
-            zi = pow(z, mod - 2, mod)
-            zi2 = zi * zi % mod
-            out.append((x * zi2 % mod, y * zi2 * zi % mod))
+            elif f.ndim == 1:
+                mod = f.spec.modulus
+                zi = pow(z, mod - 2, mod)
+                zi2 = zi * zi % mod
+                out.append((x * zi2 % mod, y * zi2 * zi % mod))
+            else:
+                zi = z.inv()
+                zi2 = zi.square()
+                out.append((x * zi2, y * zi2 * zi))
         return out
 
     def unpack_affine(self, ax, ay) -> list:
-        f = self._field()
-        return [
-            None if (x == 0 and y == 0) else (x, y) for x, y in zip(f.unpack(ax), f.unpack(ay))
-        ]
+        f = self.f
+        zero = self._zero()
+        return [None if (x == zero and y == zero) else (x, y) for x, y in zip(f.unpack(ax), f.unpack(ay))]
 
 
-G1 = CurveOps(FqOps, "g1")
-G2 = CurveOps(None, "g2")
+class G1Ops(CurveOps):
+    """BN254 G1 ops whose mixed add is the madd kernel wrapper."""
+
+    def add_mixed(self, p: Jac, ax, ay) -> Jac:
+        from .cuda_curve import madd
+
+        return Jac(*madd(*(t.contiguous() for t in (*p, ax, ay))))
+
+
+G1 = G1Ops(FqOps, "g1")
+G2 = CurveOps(Fq2Ops, "g2")

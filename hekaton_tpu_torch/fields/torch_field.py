@@ -2,7 +2,8 @@
 
 Port of hekaton_tpu/fields/jax_field.py. Field elements are `(..., 16)`
 `torch.int32` tensors holding 16 little-endian 16-bit limbs in Montgomery
-form (radix R = 2^256), the JAX package's layout. Every function here is the
+form (radix R = 2^256), the JAX package's layout; Fq2 = Fq[u]/(u^2+1)
+elements are `(..., 2, 16)` (c0, c1). Every function here is the
 plain PyTorch formula: it runs on whatever device its tensors are on, computes
 in int64 and returns int32 limbs. The CUDA kernels (fields/cuda_field.py)
 compute the same canonical values on 32-bit words; since R = 2^256 either way,
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hekaton_tpu.fields.bn254 import LIMB_BITS, LIMB_MASK, NLIMBS, P, R, from_limbs, to_limbs
+from .bn254 import LIMB_BITS, LIMB_MASK, NLIMBS, P, R, from_limbs, to_limbs
 
 M16 = LIMB_MASK
 
@@ -376,3 +377,88 @@ class FpOps:
 
 FqOps = FpOps(FQ)
 FqPlain = FpOps(FQ, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# Fq2 = Fq[u]/(u^2+1): shape (..., 2, 16) (jax_field.py:464-497, 582-629)
+# ---------------------------------------------------------------------------
+
+
+class Fq2Field:
+    """Fq2 ops namespace, the G2 field adapter. `mul` is Karatsuba over three
+    Fq products and `sqr` takes two, each `FpOps(FQ, plain)`'s `mul`: the
+    mont_mul kernel on CUDA tensors, or (plain=True) the plain formula on
+    every device. Every result is canonical, so the two agree bit for bit."""
+
+    ndim = 2
+    spec = FQ
+
+    def __init__(self, plain: bool = False):
+        self.fp = FpOps(FQ, plain)
+
+    @staticmethod
+    def add(a, b):
+        return add(FQ, a, b)  # elementwise over the (2,) component dim
+
+    @staticmethod
+    def sub(a, b):
+        return sub(FQ, a, b)
+
+    @staticmethod
+    def neg(a):
+        return neg(FQ, a)
+
+    def mul(self, a, b):
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        b0, b1 = b[..., 0, :], b[..., 1, :]
+        t0 = self.fp.mul(a0, b0)
+        t1 = self.fp.mul(a1, b1)
+        c0 = sub(FQ, t0, t1)
+        s = self.fp.mul(add(FQ, a0, a1), add(FQ, b0, b1))
+        c1 = sub(FQ, sub(FQ, s, t0), t1)
+        return torch.stack([c0, c1], dim=-2)
+
+    def sqr(self, a):
+        """(a0 + a1)(a0 - a1) + 2 a0 a1 u: two Fq products (csrc/field.cuh::
+        f2_sqr), the same canonical values as mul(a, a)."""
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        m = self.fp.mul(a0, a1)
+        c0 = self.fp.mul(add(FQ, a0, a1), sub(FQ, a0, a1))
+        return torch.stack([c0, add(FQ, m, m)], dim=-2)
+
+    @staticmethod
+    def is_zero(a):
+        return (a == 0).all(-1).all(-1)
+
+    @staticmethod
+    def select(cond, a, b):
+        return select(cond, a, b)
+
+    @staticmethod
+    def zeros(batch_shape, device):
+        return torch.zeros(tuple(batch_shape) + (2, FQ.nlimbs), dtype=torch.int32, device=device)
+
+    @staticmethod
+    def one(batch_shape, device):
+        one = torch.zeros((2, FQ.nlimbs), dtype=torch.int32, device=device)
+        one[0] = consts(FQ, device)["one"]
+        return one.expand(tuple(batch_shape) + (2, FQ.nlimbs))
+
+    @staticmethod
+    def pack(vals) -> np.ndarray:
+        """Host Fq2 values -> (n, 2, 16) int32 Montgomery limbs."""
+        return np.stack([FQ.pack([v.c0 for v in vals]), FQ.pack([v.c1 for v in vals])], axis=1)
+
+    @staticmethod
+    def unpack(arr) -> list:
+        """(..., 2, 16) limbs -> list of host Fq2."""
+        from .host import Fq2
+
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        arr = np.asarray(arr).reshape(-1, 2, FQ.nlimbs)
+        return [Fq2(a, b) for a, b in zip(FQ.unpack(arr[:, 0]), FQ.unpack(arr[:, 1]))]
+
+
+Fq2Ops = Fq2Field()
+Fq2Plain = Fq2Field(plain=True)

@@ -1,23 +1,36 @@
-"""Variable-base Pippenger MSM for BN254 G1 on torch tensors.
+"""Variable-base Pippenger MSM and fixed-base batch scalar muls on torch
+tensors, for BN254 G1 and G2.
 
-Port of the v9 default route of hekaton_tpu/msm/pippenger.py::msm_tpu
-(:940-1143) under the name `msm_gpu`:
+`msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) along the
+route the JAX package takes for each curve:
 
   1. signed window digits (`signed_digits_for_windows`);
-  2. the per-window sorted plan (`_plan_sorted_w`): every (window, point)
-     pair and per-bucket alignment pads sorted by digit, so each L-run of
-     the slab is one bucket's points;
-  3. level 1: the halves pairing of curves/cuda_curve.py::l1_aff_halves
-     reduces every slab column to one affine point;
+  2. the sorted plan, `_plan_sorted_w` (the v9 `plan="wsort"`): per window,
+     the points and per-bucket alignment pads sorted by digit, so each L-run
+     of the slab is one bucket's points. The JAX G2 route takes the flat
+     `plan="sort"` instead; its columns hold the same bucket sums, and both
+     curves here share the one plan;
+  3. level 1 reduces every slab column to one point (G1: the halves pairing
+     of curves/cuda_curve.py::l1_aff_halves, `level1="pair"`; G2: L
+     sequential complete projective mixed adds, `_level1_rows`,
+     `level1="steps"`);
   4. `_collapse_columns`: stride-doubling adjacent-pair adds and compaction
      until every bucket owns one column, then the bucket readout;
   5. `_suffix_weighted`: sum_b b * B_b per window by a suffix scan and a
      halving tree;
-  6. curves/cuda_curve.py::horner_fold combines the windows.
+  6. the window Horner combine (G1: curves/cuda_curve.py::horner_fold; G2:
+     c projective doubles and one add per window on one lane).
 
-All accumulation is complete batched-affine (curves/affine.py), so on CUDA
-tensors every add runs the aff_add kernel pair and every root inversion the
-Fermat kernel; on CPU tensors the same code runs the plain versions.
+G1 accumulates in complete batched affine (curves/affine.py: the aff_add
+kernel pair and the Fermat kernel), G2 in complete projective coordinates
+over Fq2 (curves/proj.py::PROJ_G2: the three G2 RCB kernels), as
+`accum="affine"` / `accum="proj"` in the JAX package. Stages 4-5 take either
+ops object. On CPU tensors the same code runs the kernels' plain versions.
+
+`fixed_base_table_host`, `fixed_base_msm` and `to_affine_device` port the
+fixed-base batch scalar muls of setup (:1247-1309): 32 windows of 8 bits,
+one Jacobian mixed add per window (G1: the madd kernel), then one inversion
+per lane (the Fermat kernel).
 
 Scalars are (N, 16) int32 limbs in plain (non-Montgomery) form; digits and
 keys are int64 (this torch has no uint32 add, shift or searchsorted). Packed
@@ -27,13 +40,16 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..curves.affine import AFF_G1, Aff, pack_words
+from ..curves.affine import AFF_G1, pack_words, unpack_words
 from ..curves.cuda_curve import horner_fold, l1_aff_halves
-from ..curves.proj import PROJ_G1, Proj
+from ..curves.host import pt_add, pt_dbl
+from ..curves.proj import PROJ_G1, PROJ_G2, Proj
 from ..curves.torch_curve import Jac
 from ..fields import torch_field as tf
+from ..fields.cuda_field import fermat_inv
 
 SENT = 0xFFFFFFFF  # sort key of the tail padding (sorts last)
 
@@ -79,23 +95,45 @@ def signed_digits_for_windows(scalars: torch.Tensor, c: int, nbits: int = 254):
     return torch.stack(mags), torch.stack(negs)
 
 
+def _point_table(ax, ay) -> torch.Tensor:
+    """(2N+1, nw) packed rows: [0, N) = x||y, [N, 2N) = x||-y, 2N = zeros
+    (pads and tail). A G2 coordinate's (2, 16) limbs pack to 16 words."""
+    N = ax.shape[0]
+    px = pack_words(ax.reshape(N, -1))
+    return torch.cat([
+        torch.cat([px, pack_words(ay.reshape(N, -1))], dim=1),
+        torch.cat([px, pack_words(tf.neg(tf.FQ, ay).reshape(N, -1))], dim=1),
+        torch.zeros((1, 2 * px.shape[1]), dtype=torch.int32, device=ax.device),
+    ])
+
+
+def _pad_keys(counts: torch.Tensor, L: int) -> torch.Tensor:
+    """(..., B) per-bucket point counts -> (..., B*(L-1)) alignment pad
+    keys: bucket b gets (-count_b mod L) pads keyed b, the other slots SENT."""
+    *lead, B = counts.shape
+    pads = (L - counts % L) % L
+    ids = torch.arange(B, dtype=torch.int64, device=counts.device)
+    slot = torch.arange(L - 1, dtype=torch.int64, device=counts.device)
+    keys = torch.where(slot < pads[..., None], ids[:, None], SENT)
+    return keys.reshape(*lead, B * (L - 1))
+
+
 def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
     """The v9 plan: per window, the N digits plus per-bucket alignment pads
     (each bucket's run filled to a multiple of L) sorted by digit, carrying
     each element's packed point row, signed by its digit's sign.
 
     Returns (rows, col_bucket, (W, B, NB, n_in, ncols)): rows is the
-    (ncols, L*16) packed slab, col_bucket the sorted bucket id per column.
+    (ncols, L*nw) packed slab, col_bucket the sorted bucket id per column.
     Each window's tail-sentinel columns get id w*B + B, which for w < W-1
     aliases window w+1's digit-0 bucket (weight 0, dropped by
     _suffix_weighted) and for the last window is NB, the global sentinel.
 
     The JAX plan carries the payload words through a multi-operand
-    lax.sort; here one stable argsort of the keys orders an index into a
-    (2N+1)-row table of packed rows (x||y, x||-y, and a zero row for pads),
-    and one gather builds the slab. The order of points inside a bucket is
-    not fixed by either (the JAX sort is not stable); bucket ids and each
-    column's multiset of points are.
+    lax.sort; here one stable argsort of the keys orders an index into the
+    (2N+1)-row `_point_table`, and one gather builds the slab. The order of
+    points inside a bucket is not fixed by either (the JAX sort is not
+    stable); bucket ids and each column's multiset of points are.
     """
     N = ax.shape[0]
     dev = ax.device
@@ -106,27 +144,14 @@ def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
 
     counts = torch.zeros((W, B), dtype=torch.int64, device=dev)
     counts.scatter_add_(1, mag, torch.ones_like(mag))
-    pads = (L - counts % L) % L  # (W, B)
-    ids = torch.arange(B, dtype=torch.int64, device=dev)
-    if L > 1:
-        slot = torch.arange(L - 1, dtype=torch.int64, device=dev)
-        pad_keys = torch.where(slot[None, None, :] < pads[:, :, None], ids[None, :, None], SENT)
-        pad_keys = pad_keys.reshape(W, B * (L - 1))
-    else:
-        pad_keys = torch.zeros((W, 0), dtype=torch.int64, device=dev)
+    pad_keys = _pad_keys(counts, L)
     npad = pad_keys.shape[1]
     M0 = N + npad
     M = ((M0 + L - 1) // L) * L
     tail_n = M - M0
     keys = torch.cat([mag, pad_keys, torch.full((W, tail_n), SENT, dtype=torch.int64, device=dev)], 1)
 
-    # table rows: [0, N) = x||y, [N, 2N) = x||-y, 2N = zeros (pads, tail)
-    px = pack_words(ax)
-    table = torch.cat([
-        torch.cat([px, pack_words(ay)], dim=1),
-        torch.cat([px, pack_words(tf.neg(tf.FQ, ay))], dim=1),
-        torch.zeros((1, 16), dtype=torch.int32, device=dev),
-    ])
+    table = _point_table(ax, ay)
     src = torch.cat([
         torch.arange(N, dtype=torch.int64, device=dev)[None, :] + N * neg.long(),
         torch.full((W, npad + tail_n), 2 * N, dtype=torch.int64, device=dev),
@@ -139,22 +164,39 @@ def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
     wbase = (torch.arange(W, dtype=torch.int64, device=dev) * B)[:, None]
     col_bucket = torch.where(col_keys == SENT, wbase + B, wbase + col_keys).reshape(-1)
     ncols = W * mcols
-    rows = table[src.reshape(-1)].reshape(ncols, L * 16)
+    rows = table[src.reshape(-1)].reshape(ncols, L * table.shape[1])
     return rows, col_bucket, (W, B, NB, W * N, ncols)
 
 
-def _level1_pair(ops, rows, L: int) -> Aff:
-    """Stage 3: every bucket-pure slab column to one affine point."""
+def _level1_pair(ops, rows, L: int):
+    """Stage 3 (G1): every bucket-pure slab column to one affine point."""
     return ops.unpack_rows(l1_aff_halves(rows, L))
 
 
-def _collapse_columns(ops, d, acc: Aff, M: int, NB: int, L: int, N: int, n_in: int, p: int = 3):
+def _level1_rows(ops, rows, L: int, coord_shape: tuple) -> Proj:
+    """Stage 3 (G2, pippenger.py::_level1_rows, :832-851): L sequential
+    complete projective mixed adds; step g adds every column's g-th packed
+    element, the minor-dim slice [g*nw, (g+1)*nw) of the slab."""
+    ncols = rows.shape[0]
+    nw = rows.shape[1] // L  # packed words per element (x || y)
+    half = nw // 2
+    acc = ops.inf((ncols,), rows.device)
+    for g in range(L):
+        blk = rows[:, g * nw : (g + 1) * nw]
+        ax = unpack_words(blk[:, :half]).reshape((ncols,) + coord_shape)
+        ay = unpack_words(blk[:, half:]).reshape((ncols,) + coord_shape)
+        acc = ops.add_mixed(acc, ax, ay)
+    return acc
+
+
+def _collapse_columns(ops, d, acc, M: int, NB: int, L: int, N: int, n_in: int, p: int = 3):
     """Reduce every bucket to one column: stride-doubling adjacent-pair adds
     (strides 1, 2, .., 2^(p-1)) then one stream compaction per round, on a
     two-round schedule sized for the worst case (one bucket holding a whole
     window). `d` is the sorted (M,) bucket id per column, `acc` the
-    per-column sums. A stride at which no column has a partner is skipped:
-    its adds would all be selected away."""
+    per-column sums (affine or projective, as `ops` adds them). A stride at
+    which no column has a partner is skipped: its adds would all be
+    selected away."""
     dev = d.device
     max_cols = (min(N, n_in) + L - 1) // L
     levels = max(1, math.ceil(math.log2(max(2, max_cols))))
@@ -173,7 +215,7 @@ def _collapse_columns(ops, d, acc: Aff, M: int, NB: int, L: int, N: int, n_in: i
             can_pair = (win % (2 * s) == 0) & (d_next == d) & (d < NB)
             if not bool(can_pair.any()):
                 continue
-            nxt = Aff(*(torch.cat([a[s:], a[:s]]) for a in acc))
+            nxt = type(acc)(*(torch.cat([a[s:], a[:s]]) for a in acc))
             acc = ops.select(can_pair, ops.add(acc, nxt), acc)
         keep = (win % (1 << round_strides)) == 0
         M_next = min(M, M // (1 << round_strides) + NB)
@@ -182,61 +224,142 @@ def _collapse_columns(ops, d, acc: Aff, M: int, NB: int, L: int, N: int, n_in: i
         take = torch.arange(1, M_next + 1, dtype=csum.dtype, device=dev)
         perm = torch.clamp(torch.searchsorted(csum, take, side="left"), max=M - 1)
         d = torch.where(torch.arange(M_next, device=dev) < kept_count, d[perm], NB)
-        acc = Aff(*(a[perm] for a in acc))
+        acc = type(acc)(*(a[perm] for a in acc))
         M = M_next
     return d, acc, M
 
 
-def _plain_sum_axis1(ops, b: Aff) -> Aff:
+def _plain_sum_axis1(ops, b):
     """Tree-reduce a (W, m) point batch over axis 1 by halving pair-adds."""
+    pt = type(b)
     m = b.x.shape[1]
     while m > 1:
         if m % 2:
             inf = ops.inf((b.x.shape[0], 1), b.x.device)
-            b = Aff(*(torch.cat([a, i], dim=1) for a, i in zip(b, inf)))
+            b = pt(*(torch.cat([a, i], dim=1) for a, i in zip(b, inf)))
             m += 1
-        b = ops.add(Aff(*(a[:, 0::2] for a in b)), Aff(*(a[:, 1::2] for a in b)))
+        b = ops.add(pt(*(a[:, 0::2] for a in b)), pt(*(a[:, 1::2] for a in b)))
         m //= 2
-    return Aff(*(a[:, 0] for a in b))
+    return pt(*(a[:, 0] for a in b))
 
 
-def _suffix_weighted(ops, buckets: Aff, W: int, B: int) -> Aff:
+def _suffix_weighted(ops, buckets, W: int, B: int):
     """sum_b b * B_b per window from (W*B,) digit-ordered bucket sums: an
     inclusive suffix scan along the bucket axis, then a halving-tree sum of
     T_1..T_{B-1} per window."""
-    t = Aff(*(a.reshape(W, B, 16) for a in buckets))
+    pt = type(buckets)
+    t = pt(*(a.reshape((W, B) + a.shape[1:]) for a in buckets))
     steps = max(1, int(math.ceil(math.log2(B))))
     idx = torch.arange(B, device=buckets.x.device)
     for i in range(steps):
         sh = 1 << i
-        shifted = Aff(*(torch.roll(a, -sh, dims=1) for a in t))
+        shifted = pt(*(torch.roll(a, -sh, dims=1) for a in t))
         valid = (idx + sh < B)[None, :].expand(W, B)
         t = ops.select(valid, ops.add(t, shifted), t)
-    return _plain_sum_axis1(ops, Aff(*(a[:, 1:] for a in t)))
+    return _plain_sum_axis1(ops, pt(*(a[:, 1:] for a in t)))
 
 
 def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254) -> Jac:
-    """sum_i scalars[i] * P_i over BN254 G1.
+    """sum_i scalars[i] * P_i over BN254 G1 or G2.
 
-    ax, ay: (N, 16) int32 affine limbs ((0,0) = infinity); scalars: (N, 16)
-    int32 plain limbs, on the same device. Returns a Jacobian point of (16,)
-    tensors. L must be a power of two."""
+    ax, ay: affine limbs, (N, 16) for G1 or (N, 2, 16) Fq2 for G2 ((0,0) =
+    infinity); the coordinate shape picks the curve's route (module
+    docstring). scalars: (N, 16) int32 plain limbs on the same device.
+    Returns a Jacobian point of unbatched tensors. L must be a power of two
+    for G1."""
     N = ax.shape[0]
-    ops = AFF_G1
+    dev = ax.device
+    coord_shape = tuple(ax.shape[1:])
+    g2 = len(coord_shape) == 2
     rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits)
-    acc = _level1_pair(ops, rows, L)
+    if g2:
+        ops = PROJ_G2
+        acc = _level1_rows(ops, rows, L, coord_shape)
+    else:
+        ops = AFF_G1
+        acc = _level1_pair(ops, rows, L)
+    del rows
     d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in)
 
     # one column per bucket now; buckets with no point have no column
-    bucket_ids = torch.arange(NB, dtype=d.dtype, device=d.device)
+    bucket_ids = torch.arange(NB, dtype=d.dtype, device=dev)
     first_pos = torch.clamp(torch.searchsorted(d, bucket_ids, side="left"), max=M - 1)
     present = d[first_pos] == bucket_ids
-    buckets = ops.select(present, Aff(*(a[first_pos] for a in acc)), ops.inf((NB,), d.device))
+    buckets = ops.select(present, type(acc)(*(a[first_pos] for a in acc)), ops.inf((NB,), dev))
 
     ws = _suffix_weighted(ops, buckets, W, B)
+    if g2:
+        # the generic Horner (pippenger.py:1145-1154) on one lane
+        a = Proj(*(t[W - 1 : W] for t in ws))
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                a = ops.dbl(a)
+            a = ops.add(a, Proj(*(t[w : w + 1] for t in ws)))
+        return Jac(*(t[0] for t in ops.to_jacobian(a)))
     ws = PROJ_G1.from_affine(ws.x, ws.y)
     if W > 1:
         a = horner_fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c)
     else:
         a = Proj(ws.x[0], ws.y[0], ws.z[0])
     return PROJ_G1.to_jacobian(a)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base batch scalar multiplication (setup)
+# ---------------------------------------------------------------------------
+
+FB_WINDOW = 8  # table windows of 8 bits: 32 windows x 256 entries
+
+
+def fixed_base_table_host(base_host, curve):
+    """Host table T[j][b] = b * 2^(8j) * base, packed as (32, 256, ...) int32
+    limb arrays (tx, ty); T[j][0] is the (0,0) sentinel."""
+    windows = (254 + FB_WINDOW - 1) // FB_WINDOW
+    tbl = []
+    cur = base_host
+    for _ in range(windows):
+        row = [None]
+        acc = None
+        for _ in range(255):
+            acc = pt_add(acc, cur)
+            row.append(acc)
+        tbl.append(row)
+        for _ in range(FB_WINDOW):
+            cur = pt_dbl(cur)
+    packed = [curve.pack_affine(row) for row in tbl]
+    return np.stack([x for x, _ in packed]), np.stack([y for _, y in packed])
+
+
+def fixed_base_msm(curve, table, scalars) -> Jac:
+    """out[i] = scalars[i] * base for every lane: one Jacobian mixed add of
+    the table entry of each 8-bit digit, window by window.
+
+    table: (tx, ty) tensors of shape (32, 256, ...) on the scalars' device;
+    scalars: (N, 16) int32 plain limbs. Returns an (N,)-batched Jac."""
+    tx, ty = table
+    digits = digits_for_windows(scalars, FB_WINDOW)  # (32, N)
+    acc = curve.inf((scalars.shape[0],), scalars.device)
+    for j in range(tx.shape[0]):
+        acc = curve.add_mixed(acc, tx[j][digits[j]], ty[j][digits[j]])
+    return acc
+
+
+def to_affine_device(curve, p: Jac):
+    """Batched Jacobian -> affine with one Fermat inversion per lane (the
+    fermat_inv kernel on CUDA tensors; G2 inverts the norm z0^2 + z1^2 of
+    its Fq2 z); infinity -> (0,0)."""
+    f = curve.f
+    if f.ndim == 1:
+        zinv = fermat_inv(tf.FQ, p.z.contiguous())
+    else:
+        fp = f.fp
+        z0, z1 = p.z[..., 0, :], p.z[..., 1, :]
+        ninv = fermat_inv(tf.FQ, tf.add(tf.FQ, fp.sqr(z0), fp.sqr(z1)).contiguous())
+        zinv = torch.stack([fp.mul(z0, ninv), fp.mul(tf.neg(tf.FQ, z1), ninv)], dim=-2)
+    zi2 = f.sqr(zinv)
+    ax = f.mul(p.x, zi2)
+    ay = f.mul(p.y, f.mul(zi2, zinv))
+    inf = curve.is_inf(p)
+    batch = ax.shape[: ax.dim() - f.ndim]
+    zero = f.zeros(batch, ax.device)
+    return f.select(inf, zero, ax), f.select(inf, zero, ay)

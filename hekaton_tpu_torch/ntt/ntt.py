@@ -23,8 +23,8 @@ import functools
 import numpy as np
 import torch
 
-from hekaton_tpu.fields.bn254 import FR_TWO_ADIC_ROOT, NLIMBS, R, TWO_ADICITY
-from hekaton_tpu.fields.host import fr_batch_inv, fr_inv
+from ..fields.bn254 import FR_TWO_ADIC_ROOT, NLIMBS, R, TWO_ADICITY
+from ..fields.host import fr_batch_inv, fr_inv
 
 from ..fields import torch_field as tf
 from ..fields.cuda_field import mont_mul

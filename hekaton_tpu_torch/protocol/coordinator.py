@@ -19,10 +19,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from hekaton_tpu.protocol.eval_tree import ExecTreeLeaf, MerklePath, MerkleTree
-from hekaton_tpu.protocol.ipp import IppCom, IppCommitmentKey, commit_only_left
-from hekaton_tpu.protocol.transcript import RamTranscriptEntry, new_running_evaluation, padding_entry
-from hekaton_tpu.utils.rng import Rng
+from ..protocol.eval_tree import ExecTreeLeaf, MerklePath, MerkleTree
+from ..protocol.ipp import IppCom, IppCommitmentKey, commit_only_left
+from ..protocol.transcript import RamTranscriptEntry, new_running_evaluation, padding_entry
+from ..utils.rng import Rng
 
 from ..cpgroth16.backend import DEFAULT_BACKEND
 from ..cpgroth16.generator import generate_parameters
@@ -35,7 +35,7 @@ class G16ProvingKeyGenerator:
         self.time_ordered_subtraces = circ.get_portal_subtraces()
 
     def gen_pk(self, rng: Rng, subcircuit_idx: int):
-        from hekaton_tpu.protocol.subcircuit import SubcircuitWithPortalsProver
+        from ..protocol.subcircuit import SubcircuitWithPortalsProver
 
         n = self.circ.num_subcircuits()
         subcirc = SubcircuitWithPortalsProver(type(self.circ), n)
@@ -202,7 +202,7 @@ class FinalAggState:
         self.super_com = super_com
 
     def gen_agg_proof(self, agg_ck, resps: list):
-        from hekaton_tpu.protocol.aggregation import agg_subcircuit_proofs, agg_transcript
+        from ..protocol.aggregation import agg_subcircuit_proofs, agg_transcript
 
         buf = sorted(resps, key=lambda r: r.subcircuit_idx)
         proofs = [r.proof for r in buf]

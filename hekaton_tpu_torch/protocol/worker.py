@@ -14,8 +14,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from hekaton_tpu.protocol.subcircuit import SubcircuitWithPortalsProver
-from hekaton_tpu.utils.rng import Rng
+from ..protocol.subcircuit import SubcircuitWithPortalsProver
+from ..utils.rng import Rng
 
 from ..cpgroth16.backend import DEFAULT_BACKEND
 from ..cpgroth16.data_structures import Proof

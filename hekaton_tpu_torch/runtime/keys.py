@@ -6,11 +6,12 @@ across identical subcircuit shapes). Serialized with pickle — the package is
 a local trusted artifact produced and consumed by this framework only.
 
 `ProvingKeys.load` also reads a key file written by the JAX package's
-`ProvingKeys.save`, without importing JAX: its unpickler maps the JAX
-package's key classes (hekaton_tpu.cpgroth16.data_structures.* and
-hekaton_tpu.runtime.keys.ProvingKeys) onto the port's. Host points, the
-circuit params and the r1cs.fastsynth.CompiledMatrices come through as they
-are (their modules import no JAX).
+`ProvingKeys.save`, without importing the JAX package: its unpickler maps
+every class of a `hekaton_tpu.<module>` onto the same class of the port's
+`hekaton_tpu_torch.<module>` (the key classes, `fields.host.Fq2` inside G2
+points, `r1cs.fastsynth.CompiledMatrices`, the workloads' params), so a
+loaded key holds no object of the JAX package. A class whose module the port
+has no copy of fails to load.
 """
 from __future__ import annotations
 
@@ -18,16 +19,15 @@ import pickle
 
 FORMAT_VERSION = 1
 
-_CLASS_MAP = {
-    "hekaton_tpu.cpgroth16.data_structures": "hekaton_tpu_torch.cpgroth16.data_structures",
-}
+_JAX_PKG = "hekaton_tpu."
+_PORT_PKG = "hekaton_tpu_torch."
 
 
 class _PortUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        if (module, name) == ("hekaton_tpu.runtime.keys", "ProvingKeys"):
-            return ProvingKeys
-        return super().find_class(_CLASS_MAP.get(module, module), name)
+        if module.startswith(_JAX_PKG):
+            module = _PORT_PKG + module[len(_JAX_PKG):]
+        return super().find_class(module, name)
 
 
 class ProvingKeys:

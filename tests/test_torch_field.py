@@ -110,6 +110,33 @@ def test_inversions_match_jax(spec_j, spec_t):
     assert torch.equal(got, tf.mont_inv(spec_t, nz))
 
 
+def test_fq2_ops_match_jax():
+    """Fq2Ops (the mont_mul wrapper underneath) and Fq2Plain against
+    jax_field's fq2 functions, with 0, 1, u and p-1 components."""
+    from hekaton_tpu.fields.host import Fq2 as JaxFq2
+
+    c0, c1 = _vals(P, 24, 6), list(reversed(_vals(P, 24, 7)))
+    a_vals = [JaxFq2(x, y) for x, y in zip(c0, c1)] + [JaxFq2(0, 0), JaxFq2(1, 0), JaxFq2(0, 1)]
+    b_vals = list(reversed(a_vals))
+    a_np, b_np = jf.Fq2Ops.pack(a_vals), jf.Fq2Ops.pack(b_vals)
+    assert np.array_equal(tf.Fq2Ops.pack(a_vals).astype(np.uint32), a_np)  # duck-typed (c0, c1)
+    a, b = _t(a_np), _t(b_np)
+    ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
+    ref = jax.jit(lambda x, y: (jf.fq2_add(x, y), jf.fq2_sub(x, y), jf.fq2_neg(x), jf.fq2_mul(x, y),
+                                jf.fq2_sqr(x), jf.fq2_is_zero(x)))(ja, jb)
+    for ops in (tf.Fq2Ops, tf.Fq2Plain):
+        got = (ops.add(a, b), ops.sub(a, b), ops.neg(a), ops.mul(a, b), ops.sqr(a), ops.is_zero(a))
+        for g, r in zip(got[:5], ref[:5]):
+            assert _same(g, r)
+        assert np.array_equal(got[5].numpy(), np.asarray(ref[5]))
+        assert _same(ops.mul(a, b[3]), jf.fq2_mul(ja, jb[3]))  # a broadcast constant
+    unpacked = tf.Fq2Ops.unpack(a)
+    assert [(v.c0, v.c1) for v in unpacked] == [(v.c0, v.c1) for v in a_vals]
+    assert _same(tf.Fq2Ops.one((3,), "cpu"), jf.Fq2Ops.one((3,)))
+    assert _same(tf.Fq2Ops.zeros((3,), "cpu"), jf.Fq2Ops.zeros((3,)))
+    assert torch.equal(tf.Fq2Ops.select(a[:, 0, 0] > 100, a, b), torch.where((a[:, 0, 0] > 100)[:, None, None], a, b))
+
+
 def test_wrappers_refuse_bad_input():
     a = _t(tf.FQ.pack([1, 2]))
     meta = a.to("meta")

@@ -1,13 +1,14 @@
-"""The port imports and runs with JAX blocked.
+"""The port imports and runs with JAX and the JAX package blocked.
 
-A subprocess installs a meta-path hook that refuses `jax` and `jaxlib`,
+A subprocess installs a meta-path hook that refuses `jax`, `jaxlib` and
+`hekaton_tpu` (the port keeps its own copies of the host modules it needs),
 imports every hekaton_tpu_torch module, and runs the whole
 PortalChainParams(2) flow on the CPU with the port alone: setup and stage 0
 with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
 stateless recommit must reproduce TorchBackend's stage-0 commitments),
 per-proof verify, aggregation and aggregate verify. A lazy import that
-reaches JAX at run time (in the port or in the JAX package's host modules
-it uses) fails it. tests/test_torch_slice.py runs stage 1 on TorchBackend.
+reaches JAX or the JAX package at run time fails it.
+tests/test_torch_slice.py runs stage 1 on TorchBackend.
 """
 import os
 import pathlib
@@ -24,24 +25,23 @@ SCRIPT = textwrap.dedent(
 
     torch.set_num_threads(1)
 
-    class _BlockJax:
+    BLOCKED = ("jax", "jaxlib", "hekaton_tpu")
+
+    class _Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"blocked import of {name}")
             return None
 
-    sys.meta_path.insert(0, _BlockJax())
+    sys.meta_path.insert(0, _Block())
 
     import hekaton_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(hekaton_tpu_torch.__path__, "hekaton_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
 
-    from hekaton_tpu.protocol.aggregation import AggProvingKey, agg_transcript
-    from hekaton_tpu.protocol.ipp import ipp_setup
-    from hekaton_tpu.protocol.tipa import tipa_key_from_ipp
-    from hekaton_tpu.utils.rng import Rng
-    from hekaton_tpu.workloads.chain import PortalChainCircuit, PortalChainParams
+    from hekaton_tpu_torch.host import (AggProvingKey, PortalChainCircuit, PortalChainParams, Rng,
+                                        agg_transcript, ipp_setup, tipa_key_from_ipp)
     from hekaton_tpu_torch.cpgroth16.backend import HostBackend, TorchBackend
     from hekaton_tpu_torch.cpgroth16.verifier import prepare_verifying_key, verify_proof
     from hekaton_tpu_torch.protocol.coordinator import CoordinatorStage0State
@@ -68,7 +68,7 @@ SCRIPT = textwrap.dedent(
     agg_pk = AggProvingKey(tipa_key_from_ipp(ipp_ck), keys.get_pk)
     agg_proof = agg_state.gen_agg_proof(agg_pk, resps1)
     assert agg_pk.verify_aggregate(agg_transcript(), agg_state.super_com, agg_proof, agg_state.public_inputs)
-    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("modules", len(names), "ran", backend.ran)
     """
 )
@@ -81,6 +81,7 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout and "'g1_msm_gpu': 2" in proc.stdout, proc.stdout
+    assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 
 def _imports(path: pathlib.Path) -> list:
@@ -94,7 +95,7 @@ def _imports(path: pathlib.Path) -> list:
 
 
 def test_no_port_source_imports_jax():
+    """No port source and not chip_smoke.py names jax, jaxlib or the JAX
+    package in an import line (the port's own imports are relative)."""
     for path in list((REPO / "hekaton_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
-        assert not {"jax", "jaxlib"} & set(_imports(path)), path
-    # the smoke script reaches the JAX package's host modules only through the port
-    assert "hekaton_tpu" not in _imports(REPO / "chip_smoke.py")
+        assert not {"jax", "jaxlib", "hekaton_tpu"} & set(_imports(path)), path

@@ -7,12 +7,16 @@ at first use, one nvcc per source, all at once) and a host C++ compiler (the
 native host library). Phases, one line each, every failure raises:
 
   1. device: the card's name and power limit; build the kernels;
-  2. kernels: each of the nine CUDA kernels against its plain PyTorch version
-     on the card, at the main paths' shapes, bit for bit, with both times and
-     the kernel's bound;
+  2. kernels: each of the eleven CUDA kernel entry points against its plain
+     PyTorch version on the card, at the main paths' shapes, bit for bit,
+     with both times and the kernel's bound;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
+     - msm_compact: the compact msm (TorchBackend's route up to 2,048
+       points) on G1 at 32 (the ladder), 33 and 2,048 points and on G2 at 33
+       points, with zero scalars, r-1, a repeated and an infinity point,
+       against curves/host.py::msm_host;
      - msm_g2: the G2 MSM at 2^20 points (4,096 distinct points k_j * G2
        tiled 256 times, an infinity row) against (sum_i s_i k_(i mod 4096))
        * G2 by one host mul;
@@ -24,6 +28,11 @@ native host library). Phases, one line each, every failure raises:
        stage 0, stage 1, per-proof verify, SnarkPack aggregation and
        aggregate verify; a tampered proof is rejected; the stage-1 proofs
        equal HostBackend's bit for bit; backend.ran shows no host route;
+     - cli: BASELINE.json configuration 4 (VM, cut) and configuration 1
+       through the port's CLI in-process (CLI_RUNS): `setup-*`, then `work
+       --spill-dir`, which must print that the aggregate proof verified and
+       round-trip stage 0 through the wire format; configuration 1's stage-0
+       commitments take the compact msm;
   4. coverage: every kernel of each path was launched in that path's run.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
@@ -32,11 +41,14 @@ result, where torch.cuda.is_available() is false.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +63,21 @@ N_PLAN = 1 << 16  # points of the plan whose level-1 slab phase 2 reduces
 N_FB = 1 << 18  # fixed-base scalars per curve
 N_G2_DISTINCT = 4096  # distinct G2 points of the G2 MSM, tiled to N_MSM
 N_SAMPLE = 4096  # fixed-base lanes checked against the host
+N_COMPACT = ((1, 32), (1, 33), (1, 2048), (2, 33))  # (curve, points) of the compact msm checks
+# The [cli] phase's CLI runs: (label, setup command). BASELINE.json
+# configuration 4 (VM, 32 subcircuits, 1,024 cycles per subcircuit) is cut to
+# fit the script's time limit: a VM subcircuit holds ~1,000 constraints per
+# cycle, and at full size setup took ~300 s and stage 1 did not end within
+# 900 s (host synthesis and matrix evaluation of ~1M constraints per
+# subcircuit). Subcircuits are cut first, then cycles. Every MSM of a VM
+# subcircuit has more than 2,048 points, so configuration 1 (uncut) runs
+# through the CLI as well: its stage-0 commitments take the compact msm.
+CLI_RUNS = (
+    ("configuration 4 cut to VM, 8 subcircuits, 256 cycles each",
+     ["setup-vm", "--num-subcircuits", "8", "--num-cycles-per-subcircuit", "256"]),
+    ("configuration 1 (Big-Merkle, 4 subcircuits, 1 SHA2 iteration, 8 portals)",
+     ["setup-big-merkle", "--num-subcircuits", "4", "--num-sha2-iters", "1", "--num-portals", "8"]),
+)
 
 # The bound of a kernel: the larger of its bytes over the card's memory rate
 # and its 32-bit multiplies over the card's integer multiply rate.
@@ -237,6 +264,30 @@ def g1_edge_lanes(tf, ax, ay, gen):
     return p, (qx, qy)
 
 
+def g1_jacobian_pairs(tf, ax, ay, gen):
+    """Phase 2's dbl and add inputs: N_LANES Jacobian P and Q, each (x z^2,
+    y z^3, z) with its own random z, Q_i = P_(i+N_LANES) but for the edges:
+    lanes 0-63 P = inf (1, 1, 0), 64-127 Q = inf, 128-191 Q = P under another
+    z (the doubling escape), 192-255 Q = -P, 256-319 P = Q = inf."""
+    n = N_LANES
+    f = tf.FqPlain
+    x, y = ax[:n].clone(), ay[:n].clone()
+    qx, qy = ax[n : 2 * n].clone(), ay[n : 2 * n].clone()
+    qx[128:256], qy[128:192], qy[192:256] = x[128:256], y[128:192], tf.neg(tf.FQ, y[192:256])
+
+    def jac(px, py):
+        z = rand_limbs(n, gen)
+        z2 = f.sqr(z)
+        return [f.mul(px, z2), f.mul(py, f.mul(z2, z)), z]
+
+    p, q = jac(x, y), jac(qx, qy)
+    one = f.one((64,), DEVICE)
+    for pt, lanes in ((p, (0, 256)), (q, (64, 256))):
+        for lo in lanes:
+            pt[0][lo : lo + 64], pt[1][lo : lo + 64], pt[2][lo : lo + 64] = one, one, 0
+    return p, q
+
+
 def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> list:
     """Every kernel against its plain version at the main paths' shapes."""
     rows = []
@@ -333,6 +384,19 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
            cuda_ms(lambda: cc.madd(*margs), 10), cuda_ms(lambda: cc.madd_plain(*margs), 1), err,
            (8 * 64 * n, 11 * n + 7 * 64))
 
+    # dbl and add: 2^18 Jacobian lanes with infinity, doubling and inverse
+    # lanes; add computes the doubling (7 products) on its 64 escape lanes only
+    jp, jq = g1_jacobian_pairs(tf, ax, ay, gen)
+    err = max_abs_err(cc.dbl(*jp), cc.dbl_plain(*jp))
+    record("dbl", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1285",
+           cuda_ms(lambda: cc.dbl(*jp), 10), cuda_ms(lambda: cc.dbl_plain(*jp), 1), err,
+           (6 * 64 * n, 7 * n))
+    aargs = (*jp, *jq)
+    err = max_abs_err(cc.add(*aargs), cc.add_plain(*aargs))
+    record("add", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1289",
+           cuda_ms(lambda: cc.add(*aargs), 10), cuda_ms(lambda: cc.add_plain(*aargs), 1), err,
+           (9 * 64 * n, 16 * n + 7 * 64))
+
     # the three G2 RCB ops: 2^18 lanes with test_pallas.py:58's completeness lanes
     gp, gq, (bx, by) = g2_edge_lanes(tf, proj, *g2_pts, gen)
     for name, line, kargs, fn, plain, nio, prods in (
@@ -382,6 +446,56 @@ def run_work(h, keys, backend, circ):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     return resps0, resps1, ipp_ck, agg_state, {"stage0": t1 - t0, "exec_tree": t2 - t1, "stage1": t3 - t2}
+
+
+class Tee(io.StringIO):
+    """stdout that is kept as well as printed."""
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        sys.__stdout__.flush()
+        return super().write(s)
+
+
+def cli_phase(card: str) -> None:
+    """CLI_RUNS through the port's CLI, in-process, on the card: each a
+    setup, then work with the stage-0 state spilled to disk. The G1
+    compact msm must have run."""
+    from hekaton_tpu_torch import cli
+
+    made = []
+    make_backend = cli._backend
+    cli._backend = lambda name: made.append(make_backend(name)) or made[-1]  # keep the work backend's `ran`
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    compact = 0
+    for label, setup in CLI_RUNS:
+        out = Tee()
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp, contextlib.redirect_stdout(out):
+            key = os.path.join(tmp, "keys")
+            cli.main(["--backend", "gpu", *setup, "--key-out", key])
+            t_setup = time.perf_counter() - t
+            cli.main(["--backend", "gpu", "work", "--key-file", key, "--spill-dir", os.path.join(tmp, "spill")])
+        t_all = time.perf_counter() - t
+        text = out.getvalue()
+        require("[work] aggregate proof verified: True" in text, f"cli, {label}: the aggregate proof did not verify")
+        require("(wire format)" in text, f"cli, {label}: stage 0 was not spilled through the wire format")
+
+        def secs(pattern):
+            m = re.search(pattern, text)
+            require(m is not None, f"cli, {label}: no line matches {pattern!r}")
+            return float(m.group(1))
+
+        setup_s = secs(r"\[setup\] .*, ([\d.]+)s -> ")
+        s0, s1, agg = (secs(rf"\[work\] {k} done \(([\d.]+)s\)") for k in ("stage0", "stage1", "aggregation"))
+        ran = made[-1].ran
+        compact += ran["g1_msm_compact"]
+        log(f"[cli] {label} on {card}: setup {setup_s} s (CLI line; {t_setup:.1f} s in all), stage 0 {s0} s, "
+            f"stage 1 {s1 - s0:.1f} s (with the spill), aggregation {agg - s1:.1f} s, the whole run {t_all:.1f} s; "
+            f"work backend.ran {ran}")
+    cli._backend = make_backend
+    require(compact > 0, "cli: no G1 MSM took the compact route")
 
 
 def timed_methods(backend) -> dict:
@@ -465,7 +579,8 @@ def main() -> int:
     # tiled to 2^20 rows on the card, row 5 the infinity sentinel
     t = time.perf_counter()
     kg2 = [int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(N_G2_DISTINCT)]
-    g2x_np, g2y_np = G2.pack_affine(h.accel.mul_batch([h.ch.g2_gen()] * N_G2_DISTINCT, kg2))
+    g2_host = h.accel.mul_batch([h.ch.g2_gen()] * N_G2_DISTINCT, kg2)
+    g2x_np, g2y_np = G2.pack_affine(g2_host)
     reps = N // N_G2_DISTINCT
     g2x = torch.from_numpy(g2x_np).to(DEVICE).repeat(reps, 1, 1)
     g2y = torch.from_numpy(g2y_np).to(DEVICE).repeat(reps, 1, 1)
@@ -479,7 +594,8 @@ def main() -> int:
 
     kernels = {"mont_mul": cf.mont_mul, "fermat_inv": cf.fermat_inv, "aff_add_fused": cc.aff_add_fused,
                "l1_aff_halves": cc.l1_aff_halves, "horner_fold": cc.horner_fold, "madd": cc.madd,
-               "pmadd_rcb_g2": cc.pmadd_rcb_g2, "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2}
+               "pmadd_rcb_g2": cc.pmadd_rcb_g2, "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2,
+               "dbl": cc.dbl, "add": cc.add}
     totals = dict.fromkeys(kernels, 0)
 
     def main_path(name: str, expect: list, run):
@@ -520,6 +636,32 @@ def main() -> int:
 
     main_path("msm_g1", ["mont_mul", "fermat_inv", "aff_add_fused", "l1_aff_halves", "horner_fold"],
               lambda: msm_path("G1", ax, ay, expected, G1))
+
+    # the compact msm at TorchBackend's window widths; the first rows of the
+    # G1 and G2 sets hold scalars 0, 1 and r-1, an infinity row and a
+    # repeated point with a repeated scalar
+    def compact_path():
+        for curve_id, n in N_COMPACT:
+            curve, label = (G1, "G1") if curve_id == 1 else (G2, "G2")
+            pts = list(host_pts[:n]) if curve_id == 1 else [g2_host[i % N_G2_DISTINCT] for i in range(n)]
+            pts[5] = None
+            pts[7] = pts[6]
+            px, py = (torch.from_numpy(a).to(DEVICE) for a in curve.pack_affine(pts))
+            psc = sc[:n].contiguous()
+            c = TorchBackend.compact_window(n)
+            times = []
+            for _ in range(2 if curve_id == 1 else 1):  # a G2 one runs plain Fq2 formulas: seconds
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = pip.msm(curve, px, py, psc, c=c)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            got = curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+            require(got == h.ch.msm_host(pts, scalars[:n]), f"compact {label} msm of {n} points differs from msm_host")
+            log(f"[msm_compact] {label} {n} points ({'ladder' if n <= pip.MSM_LADDER_THRESHOLD else f'c={c}'}) "
+                f"equals msm_host; {', '.join(f'{t * 1e3:.1f}' for t in times)} ms (first, warm) on {card}")
+
+    main_path("msm_compact", ["dbl", "add", "madd"], compact_path)
     del ax, ay
     torch.cuda.reset_peak_memory_stats()
     main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"],
@@ -591,9 +733,11 @@ def main() -> int:
             f"B-G2 MSMs {secs['msm_g2']:.2f} s over stages 0-1), verify {verify_s:.2f} s, aggregate "
             f"{agg_s:.2f} s, aggregate verify {agg_verify_s:.2f} s -> {ok}; tampered proof rejected")
         log(f"[slice] backend.ran {backend.ran}")
-        require(set(backend.ran) == {"g1_msm_gpu", "g2_msm_gpu", "fixed_base_gpu", "witness_map_gpu"},
-                f"unexpected backend routes {backend.ran}")
-        require(backend.ran["g2_msm_gpu"] == n and all(v > 0 for v in backend.ran.values()),
+        require(set(backend.ran) == {"g1_msm_compact", "g2_msm_compact", "g1_msm_gpu", "g2_msm_gpu",
+                                     "fixed_base_gpu", "witness_map_gpu"}, f"unexpected backend routes {backend.ran}")
+        require(backend.ran["g2_msm_gpu"] + backend.ran["g2_msm_compact"] == n
+                and all(backend.ran[k] > 0 for k in ("g1_msm_compact", "g1_msm_gpu", "fixed_base_gpu",
+                                                      "witness_map_gpu")),
                 f"a device route did not run: {backend.ran}")
         slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
 
@@ -609,6 +753,8 @@ def main() -> int:
         require((p.a, p.b, p.c, p.ds) == (q.a, q.b, q.c, q.ds), f"stage-1 proof {i} differs from HostBackend's")
     log(f"[slice] all {n} stage-1 proofs equal HostBackend's bit for bit (HostBackend stage1 "
         f"{hsecs['stage1']:.2f} s)")
+
+    main_path("cli", ["dbl", "add", "madd"], lambda: cli_phase(card))
 
     log(f"[coverage] kernel launches over the main paths: {totals}")
     for row in rows:

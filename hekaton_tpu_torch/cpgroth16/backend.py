@@ -134,21 +134,25 @@ class TorchBackend:
     """The port's backend: every MSM, fixed-base batch and witness map on
     `device`; no route runs on the host.
 
-    - `msm` runs msm/pippenger.py::msm_gpu on `device` for every length and
-      both curves, in chunks of G1_CHUNK / G2_CHUNK points whose partial
-      sums are folded on the host (the JAX TpuBackend's chunking; its G2
-      chunk of 2^18 was a TPU memory limit, and a 2^20-point G2 chunk's
-      ~3 GB slab fits the card). A chunk is not padded to a power of two:
-      nothing here compiles per shape.
-    - Window width c and column length L come from the chunk length n by a
-      fixed rule (`msm_params`): with lg = ceil(log2(n)),
+    - `msm` routes as the JAX TpuBackend does, by the length n of the MSM
+      padded as TpuBackend pads it, m = next_pow2(max(n, 4)): below
+      COMPACT_PAD = 4,096 (n <= 2,048) it runs the compact
+      msm/pippenger.py::msm on the curve's Jacobian group law (G1: the dbl,
+      add and madd kernels), with the window width `msm` derives from m;
+      otherwise msm/pippenger.py::msm_gpu, in chunks of G1_CHUNK / G2_CHUNK
+      points whose partial sums are folded on the host (the JAX
+      TpuBackend's chunking; its G2 chunk of 2^18 was a TPU memory limit,
+      and a 2^20-point G2 chunk's ~3 GB slab fits the card). Nothing is
+      padded: nothing here compiles per shape.
+    - msm_gpu's window width c and column length L come from the chunk
+      length n by a fixed rule (`msm_params`): with lg = ceil(log2(n)),
       c = min(13, max(4, lg - 5)), and L = 32 from 2^12 points on, else
       L = 8. Each bucket then receives about 2^(lg - c + 1) = 64 points per
       window, and from 2^18 points on c = 13, L = 32, the JAX defaults. At
       2^16 points c = 11: c = 13 would leave most slab slots padding. Below
-      2^12 points the slab is small and a bucket's pads (L/2 on average)
-      are the larger cost: L = 8 runs a 1K-point G1 MSM ~20% faster than
-      L = 32 on the plain CPU path.
+      2^12 points (a short last chunk) the slab is small and a bucket's pads
+      (L/2 on average) are the larger cost: L = 8 runs a 1K-point G1 MSM
+      ~20% faster than L = 32 on the plain CPU path.
     - The packed scalars of one list are cached (A, B-G1, B-G2 share z).
     - `fixed_base` runs msm/pippenger.py::fixed_base_msm and
       to_affine_device on `device` in chunks of FB_CHUNK scalars (each
@@ -162,6 +166,7 @@ class TorchBackend:
     """
 
     name = "torch"
+    COMPACT_PAD = 1 << 12
     G1_CHUNK = 1 << 20
     G2_CHUNK = 1 << 20
     FB_CHUNK = 1 << 18
@@ -170,20 +175,33 @@ class TorchBackend:
         self.device = torch.device(device)
         self._sc_cache = None
         self._fb_tables = {}
-        self.ran = {"g1_msm_gpu": 0, "g2_msm_gpu": 0, "fixed_base_gpu": 0, "witness_map_gpu": 0}
+        self.ran = {"g1_msm_compact": 0, "g2_msm_compact": 0, "g1_msm_gpu": 0, "g2_msm_gpu": 0,
+                    "fixed_base_gpu": 0, "witness_map_gpu": 0}
 
     @staticmethod
     def msm_params(n: int) -> tuple:
-        """(c, L) for an n-point chunk (rule in the class docstring)."""
+        """(c, L) of msm_gpu for an n-point chunk (rule in the class
+        docstring); the last chunk of a long MSM may be short."""
         lg = max(1, math.ceil(math.log2(max(n, 2))))
         return min(13, max(4, lg - 5)), (32 if n >= 1 << 12 else 8)
 
+    @classmethod
+    def compact_window(cls, n: int):
+        """The compact msm's window width for an n-point MSM, derived from
+        TpuBackend's padded length m = next_pow2(max(n, 4)) as the JAX msm
+        derives it, or None where m reaches COMPACT_PAD (msm_gpu's route)."""
+        m = 1 << max(2, (n - 1).bit_length())
+        return max(2, min(13, m.bit_length() - 4)) if m < cls.COMPACT_PAD else None
+
     def msm(self, vec: PointVec, scalars: list) -> object:
+        n = len(scalars)
+        c = self.compact_window(n)
+        if c is not None:
+            return self._msm_compact(vec, scalars, c)
         chunk = self.G1_CHUNK if vec.curve.name == "g1" else self.G2_CHUNK
         acc = None
-        for lo in range(0, len(scalars), chunk):
-            hi = min(lo + chunk, len(scalars))
-            acc = ch.pt_add(acc, self._msm_chunk(vec, scalars, lo, hi))
+        for lo in range(0, n, chunk):
+            acc = ch.pt_add(acc, self._msm_chunk(vec, scalars, lo, min(lo + chunk, n)))
         return acc
 
     def _packed_scalars(self, scalars: list, lo: int, hi: int) -> torch.Tensor:
@@ -200,17 +218,28 @@ class TorchBackend:
             cache[(lo, hi)] = pack_scalars(scalars[lo:hi]).to(self.device)
         return cache[(lo, hi)]
 
+    def _unpack(self, vec: PointVec, out):
+        return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+
+    def _msm_compact(self, vec: PointVec, scalars: list, c: int):
+        from ..msm.pippenger import msm
+
+        n = len(scalars)
+        if n == 0:
+            return None
+        ax, ay = vec.device_chunk(0, n, n, self.device)
+        out = msm(vec.curve, ax, ay, self._packed_scalars(scalars, 0, n), c=c)
+        self.ran[f"{vec.curve.name}_msm_compact"] += 1
+        return self._unpack(vec, out)
+
     def _msm_chunk(self, vec: PointVec, scalars: list, lo: int, hi: int):
         from ..msm.pippenger import msm_gpu
 
-        if hi == lo:
-            return None
-        sc = self._packed_scalars(scalars, lo, hi)
         ax, ay = vec.device_chunk(lo, hi, hi - lo, self.device)
         c, L = self.msm_params(hi - lo)
-        out = msm_gpu(ax, ay, sc, c=c, L=L)
+        out = msm_gpu(ax, ay, self._packed_scalars(scalars, lo, hi), c=c, L=L)
         self.ran[f"{vec.curve.name}_msm_gpu"] += 1
-        return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+        return self._unpack(vec, out)
 
     def fixed_base(self, base, scalars: list, g2: bool = False) -> list:
         from ..msm.pippenger import fixed_base_msm, fixed_base_table_host, pack_scalars, to_affine_device

@@ -8,7 +8,9 @@
 // (_aff_halves_root_kernel :802, _aff_halves_fin_kernel :822, tr=False).
 // horner replaces curves/pallas_curve.py::horner_fold (_horner_kernel :583).
 // madd replaces curves/pallas_curve.py::madd (_madd_kernel :1178, formulas
-// _madd_tiles :164 with the _dbl_tiles escape :146).
+// _madd_tiles :164 with the _dbl_tiles escape :146). dbl and add replace
+// curves/pallas_curve.py::dbl and ::add (_dbl_kernel :1188 on _dbl_tiles
+// :146, _add_kernel :1196 on _add_tiles :210).
 //
 // Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
 // (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
@@ -43,6 +45,11 @@
 // out: ~5.6 multiplies per byte, so bound by integer multiply throughput
 // once the card is full. Its edge overrides follow _madd_tiles in its order,
 // which fixes the limbs of infinity lanes (curves/cuda_curve.py::madd_plain).
+// dbl (dbl-2009-l, 7 products) and add (add-2007-bl, 16 products, 7 more on
+// doubling lanes only) are the same one-thread-per-lane design; add's
+// overrides follow _add_tiles (curves/cuda_curve.py::add_plain). The compact
+// msm launches them at 1 to a few thousand lanes, where launch latency, not
+// the multiplies, sets their time.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -325,6 +332,68 @@ __global__ void madd_kernel(const int32_t* __restrict__ x, const int32_t* __rest
   store_limbs(oz + i * 16, z3);
 }
 
+__global__ void dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                           const int32_t* __restrict__ z, int32_t* __restrict__ ox,
+                           int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x3, y3, z3;
+  jac_dbl(load_limbs(x + i * 16), load_limbs(y + i * 16), load_limbs(z + i * 16), x3, y3, z3);
+  store_limbs(ox + i * 16, x3);
+  store_limbs(oy + i * 16, y3);
+  store_limbs(oz + i * 16, z3);
+}
+
+// -- Jacobian add with escapes (pallas_curve.py::_add_tiles) -----------------
+
+__global__ void add_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                           const int32_t* __restrict__ z, const int32_t* __restrict__ x2,
+                           const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
+                           int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                           int32_t* __restrict__ oz, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x1 = load_limbs(x + i * 16), y1 = load_limbs(y + i * 16), z1 = load_limbs(z + i * 16);
+  Fe qx = load_limbs(x2 + i * 16), qy = load_limbs(y2 + i * 16), qz = load_limbs(z2 + i * 16);
+  bool p_inf = fe_is_zero(z1);
+  bool q_inf = fe_is_zero(qz);
+
+  Fe z1z1 = fe_sqr<FQ>(z1);
+  Fe z2z2 = fe_sqr<FQ>(qz);
+  Fe u1 = fe_mul<FQ>(x1, z2z2);
+  Fe u2 = fe_mul<FQ>(qx, z1z1);
+  Fe s1 = fe_mul<FQ>(fe_mul<FQ>(y1, qz), z2z2);
+  Fe s2 = fe_mul<FQ>(fe_mul<FQ>(qy, z1), z1z1);
+  Fe h = fe_sub<FQ>(u2, u1);
+  Fe rr = fe_sub<FQ>(s2, s1);
+  bool same_x = fe_is_zero(h);
+  bool same_y = fe_is_zero(rr);
+  Fe ii = fe_sqr<FQ>(fe_add<FQ>(h, h));
+  Fe j = fe_mul<FQ>(h, ii);
+  Fe r2 = fe_add<FQ>(rr, rr);
+  Fe v = fe_mul<FQ>(u1, ii);
+  Fe x3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(r2), j), fe_add<FQ>(v, v));
+  Fe s1j = fe_mul<FQ>(s1, j);
+  Fe y3 = fe_sub<FQ>(fe_mul<FQ>(r2, fe_sub<FQ>(v, x3)), fe_add<FQ>(s1j, s1j));
+  Fe z3 = fe_mul<FQ>(fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(fe_add<FQ>(z1, qz)), z1z1), z2z2), h);
+
+  if (same_x && same_y) jac_dbl(x1, y1, z1, x3, y3, z3);  // doubling escape
+  if (same_x && !same_y) z3 = fe_zero();                  // inverse pair: z3 only
+  if (p_inf) {                                             // P = inf: Q
+    x3 = qx;
+    y3 = qy;
+    z3 = qz;
+  }
+  if (q_inf && !p_inf) {  // Q = inf: P
+    x3 = x1;
+    y3 = y1;
+    z3 = z1;
+  }
+  store_limbs(ox + i * 16, x3);
+  store_limbs(oy + i * 16, y3);
+  store_limbs(oz + i * 16, z3);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -375,5 +444,22 @@ extern "C" int hk_madd(const void* x, const void* y, const void* z, const void* 
   madd_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)ax,
       (const int32_t*)ay, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_dbl(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
+                      long long n, void* stream) {
+  dbl_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
+      (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_add(const void* x1, const void* y1, const void* z1, const void* x2,
+                      const void* y2, const void* z2, void* ox, void* oy, void* oz, long long n,
+                      void* stream) {
+  add_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
+      (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
   return (int)cudaGetLastError();
 }

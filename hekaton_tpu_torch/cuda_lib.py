@@ -44,6 +44,8 @@ SIGNATURES = {
     "hk_halves_fin": [_vp, _vp, _vp, _vp, _ll, _int, _vp],
     "hk_horner": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     "hk_madd": [_vp] * 8 + [_ll, _vp],
+    "hk_dbl": [_vp] * 6 + [_ll, _vp],
+    "hk_add": [_vp] * 9 + [_ll, _vp],
     "hk_pmadd_rcb_g2": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb_g2": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb_g2": [_vp] * 6 + [_ll, _vp],

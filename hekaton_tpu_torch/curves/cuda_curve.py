@@ -14,6 +14,9 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
   `_horner_kernel` :583).
 - `madd` replaces `madd` (pallas_curve.py:1281; kernel `_madd_kernel`
   :1178 on `_madd_tiles` :164 with the `_dbl_tiles` escape :146).
+- `dbl` and `add` replace `dbl` and `add` (pallas_curve.py:1285/1289;
+  kernels `_dbl_kernel` :1188 on `_dbl_tiles` :146 and `_add_kernel` :1196
+  on `_add_tiles` :210).
 - `pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2` replace the wrappers of the
   same names (pallas_curve.py:1315/1320/1324; kernels `_pmadd_rcb_g2_kernel`
   :1115, `_padd_rcb_g2_kernel` :1130, `_pdbl_rcb_g2_kernel` :1148, all
@@ -24,8 +27,9 @@ Bounds on an H100 and the design that meets them are in the source note of
 csrc/curve.cu: the adds are bound by integer multiply throughput and run as a
 root kernel / batch_inv / finish kernel split with one thread per prefix
 chain; the Horner fold is one thread, bound by the latency of its chain.
-`madd` and the G2 ops are one thread per lane, straight-line formulas, bound
-by integer multiply throughput (csrc/curve.cu, csrc/curve_g2.cu).
+`madd`, `dbl`, `add` and the G2 ops are one thread per lane, straight-line
+formulas, bound by integer multiply throughput once the card is full
+(csrc/curve.cu, csrc/curve_g2.cu).
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
 CUDA tensors to its kernels; nothing falls back. `launches` on each wrapper
@@ -147,6 +151,28 @@ def madd_plain(x1, y1, z1, ax, ay):
     z3 = f.select(same_x & ~same_y, zero, z3)
     qz = f.select(q_inf, zero, f.one(q_inf.shape, z3.device))
     x3, y3, z3 = f.select(p_inf, ax, x3), f.select(p_inf, ay, y3), f.select(p_inf, qz, z3)
+    keep_p = q_inf & ~p_inf
+    return Jac(f.select(keep_p, x1, x3), f.select(keep_p, y1, y3), f.select(keep_p, z1, z3))
+
+
+def dbl_plain(x, y, z):
+    """2 * G1 Jacobian (x, y, z) by dbl-2009-l (pallas_curve.py::_dbl_tiles,
+    the same formula as torch_curve.CurveOps.dbl)."""
+    return _G1_PLAIN.dbl(Jac(x, y, z))
+
+
+def add_plain(x1, y1, z1, x2, y2, z2):
+    """G1 Jacobian P + Q by add-2007-bl with the edge overrides of
+    pallas_curve.py::_add_tiles, in its order: the doubling escape; an
+    inverse pair zeroes only z3; P at infinity gives Q; Q at infinity (P
+    finite) gives P, so two infinite inputs give Q. The points equal
+    torch_curve.CurveOps.add's; the limbs of those lanes need not."""
+    f = tf.FqPlain
+    p_inf = f.is_zero(z1)
+    q_inf = f.is_zero(z2)
+    (x3, y3, z3), same_x, same_y = _G1_PLAIN.add_core(Jac(x1, y1, z1), Jac(x2, y2, z2))
+    z3 = f.select(same_x & ~same_y, torch.zeros_like(z3), z3)
+    x3, y3, z3 = f.select(p_inf, x2, x3), f.select(p_inf, y2, y3), f.select(p_inf, z2, z3)
     keep_p = q_inf & ~p_inf
     return Jac(f.select(keep_p, x1, x3), f.select(keep_p, y1, y3), f.select(keep_p, z1, z3))
 
@@ -287,6 +313,27 @@ def madd(x, y, z, ax, ay):
 
 
 madd.launches = 0
+
+
+def dbl(x, y, z):
+    """2 * G1 Jacobian (x, y, z), (..., 16) limbs."""
+    if not x.is_cuda:
+        return dbl_plain(x, y, z)
+    return Jac(*_launch_point_op(dbl, "hk_dbl", (x, y, z), (16,)))
+
+
+dbl.launches = 0
+
+
+def add(x1, y1, z1, x2, y2, z2):
+    """G1 Jacobian P + Q, (..., 16) limbs, with the edge handling of
+    add_plain."""
+    if not x1.is_cuda:
+        return add_plain(x1, y1, z1, x2, y2, z2)
+    return Jac(*_launch_point_op(add, "hk_add", (x1, y1, z1, x2, y2, z2), (16,)))
+
+
+add.launches = 0
 
 
 def pmadd_rcb_g2(x, y, z, ax, ay):

@@ -8,12 +8,15 @@ short-Weierstrass a=0 formulas are the same, with every edge case
 (0, 0), Jacobian infinity is z == 0.
 
 The Jacobian group law serves the fixed-base scalar muls of setup
-(msm/pippenger.py::fixed_base_msm). `G1.add_mixed` is the madd kernel
-wrapper (curves/cuda_curve.py::madd): the CUDA kernel on CUDA tensors, its
-plain version on CPU tensors. Both mirror the Pallas `_madd_tiles`, which
-agrees with `CurveOps.add_mixed` as points but not as limbs on infinity
-lanes. `dbl`, `add` and G2's `add_mixed` stay the plain formulas (their
-Pallas kernels serve the compact `msm`, which the port does not run).
+(msm/pippenger.py::fixed_base_msm) and the compact `msm`. G1's `dbl`, `add`
+and `add_mixed` are the dbl, add and madd kernel wrappers
+(curves/cuda_curve.py): the CUDA kernel on CUDA tensors, its plain version on
+CPU tensors, as `PallasG1Ops` dispatches to the Pallas kernels. The plain
+versions of `add` and `add_mixed` mirror the Pallas `_add_tiles` and
+`_madd_tiles`, which agree with `CurveOps.add` and `CurveOps.add_mixed` as
+points but not as limbs on infinity lanes; `dbl` is the same formula in all
+of them. G2 keeps the plain formulas, as the JAX package's `G2` has no
+kernel either.
 """
 from __future__ import annotations
 
@@ -79,6 +82,15 @@ class CurveOps:
 
     def add(self, p: Jac, q: Jac) -> Jac:
         """P + Q via add-2007-bl with branchless edge handling."""
+        res, same_x, same_y = self.add_core(p, q)
+        res = self.select(same_x & ~same_y, self.inf(same_x.shape, same_x.device), res)
+        res = self.select(self.is_inf(p), q, res)
+        return self.select(self.is_inf(q), p, res)
+
+    def add_core(self, p: Jac, q: Jac):
+        """add-2007-bl with the doubling escape, before any infinity
+        override: (result, same_x, same_y). add and the add kernel's plain
+        version (cuda_curve.add_plain) each add their own overrides."""
         f = self.f
         z1z1 = f.sqr(p.z)
         z2z2 = f.sqr(q.z)
@@ -101,9 +113,7 @@ class CurveOps:
         res = Jac(x3, y3, z3)
         if bool((same_x & same_y).any()):  # the doubling escape, only where a lane takes it
             res = self.select(same_x & same_y, self.dbl(p), res)
-        res = self.select(same_x & ~same_y, self.inf(same_x.shape, same_x.device), res)
-        res = self.select(self.is_inf(p), q, res)
-        return self.select(self.is_inf(q), p, res)
+        return res, same_x, same_y
 
     def madd_core(self, p: Jac, ax, ay):
         """madd-2007-bl with the doubling escape, before any infinity
@@ -179,12 +189,23 @@ class CurveOps:
 
 
 class G1Ops(CurveOps):
-    """BN254 G1 ops whose mixed add is the madd kernel wrapper."""
+    """BN254 G1 ops whose group law is the dbl, add and madd kernel
+    wrappers."""
+
+    def dbl(self, p: Jac) -> Jac:
+        from .cuda_curve import dbl
+
+        return dbl(*(t.contiguous() for t in p))
+
+    def add(self, p: Jac, q: Jac) -> Jac:
+        from .cuda_curve import add
+
+        return add(*(t.contiguous() for t in (*p, *q)))
 
     def add_mixed(self, p: Jac, ax, ay) -> Jac:
         from .cuda_curve import madd
 
-        return Jac(*madd(*(t.contiguous() for t in (*p, ax, ay))))
+        return madd(*(t.contiguous() for t in (*p, ax, ay)))
 
 
 G1 = G1Ops(FqOps, "g1")

@@ -148,16 +148,31 @@ def _carry(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
     mod 2^(16W) (callers widen x by one zero column to keep a carry out).
 
     Each pass moves every column's excess one limb up: columns < 2^(16k+16)
-    settle in k passes, which callers pass from their bounds. A run of
-    0xFFFF limbs then takes one more pass per limb; the loop ends when no
-    column exceeds 16 bits."""
+    settle in k passes, which callers pass from their bounds. What is left
+    is carries of at most 1 rippling through runs of 0xFFFF limbs (after
+    one more pass if any column still exceeds 16 bits), which
+    `_ripple_units` resolves at once instead of one pass per limb."""
     for _ in range(passes):
         x = (x & M16) + F.pad(x >> LIMB_BITS, (1, -1))
     hi = x >> LIMB_BITS
-    while bool(hi.any()):
-        x = (x & M16) + F.pad(hi, (1, -1))
-        hi = x >> LIMB_BITS
+    if bool(hi.any()):
+        x = _ripple_units((x & M16) + F.pad(hi, (1, -1)))
     return x
+
+
+def _ripple_units(x: torch.Tensor) -> torch.Tensor:
+    """Columns <= 0x1FFFE (a 16-bit limb plus a carry of at most 1) ->
+    canonical limbs mod 2^(16W), by carry lookahead over bit masks: limb i
+    generates a carry when it exceeds 16 bits (its low part is then at most
+    0xFFFE) and propagates one when its low part is 0xFFFF, so with G and P
+    those bits, the carries into the limbs are the bits of (P + 2G) ^ P."""
+    W = x.shape[-1]
+    bit = 1 << torch.arange(W, device=x.device)
+    low = x & M16
+    p = ((low == M16).long() * bit).sum(-1)
+    g = ((x >> LIMB_BITS) * bit).sum(-1) << 1
+    cin = (((p + g) ^ p).unsqueeze(-1) & bit) != 0
+    return (low + cin.long()) & M16
 
 
 def _broadcast(a, b):

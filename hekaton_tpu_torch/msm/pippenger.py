@@ -1,5 +1,18 @@
-"""Variable-base Pippenger MSM and fixed-base batch scalar muls on torch
+"""Variable-base Pippenger MSMs and fixed-base batch scalar muls on torch
 tensors, for BN254 G1 and G2.
+
+`msm` ports the compact MSM of hekaton_tpu/msm/pippenger.py (`msm`, :232-268,
+with `_msm_ladder`, `_segmented_accumulate`, `_weighted_bucket_sum` and
+`_tree_reduce`), which the JAX TpuBackend runs below 4,096 padded points: a
+per-point double-and-add ladder up to MSM_LADDER_THRESHOLD points, else per
+window a digit sort, a segmented reduce-by-key of the sorted stream into
+Jacobian buckets (complete runs scatter-set, lane-boundary runs stitched by
+recursion), a suffix scan and tree sum of the weighted buckets, and a Horner
+combine. It runs on the curve's Jacobian group law (curves/torch_curve.py:
+G1 on the dbl, add and madd kernels, G2 on the plain Fq2 formulas). The JAX
+code scans the windows one after another; here every window is one row of a
+leading window axis, so each step of the reduce-by-key is one batched point
+op over all windows.
 
 `msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) along the
 route the JAX package takes for each curve:
@@ -47,7 +60,7 @@ from ..curves.affine import AFF_G1, pack_words, unpack_words
 from ..curves.cuda_curve import horner_fold, l1_aff_halves
 from ..curves.host import pt_add, pt_dbl
 from ..curves.proj import PROJ_G1, PROJ_G2, Proj
-from ..curves.torch_curve import Jac
+from ..curves.torch_curve import CurveOps, Jac
 from ..fields import torch_field as tf
 from ..fields.cuda_field import fermat_inv
 
@@ -93,6 +106,188 @@ def signed_digits_for_windows(scalars: torch.Tensor, c: int, nbits: int = 254):
         mags.append(torch.where(neg, (1 << c) - d, d))
         negs.append(neg)
     return torch.stack(mags), torch.stack(negs)
+
+
+# ---------------------------------------------------------------------------
+# The compact MSM
+# ---------------------------------------------------------------------------
+
+MSM_LADDER_THRESHOLD = 32
+
+
+def _tree_map(fn, *trees):
+    """fn over the matching coordinate tensors of point tuples (a Jac, or an
+    affine (ax, ay) pair)."""
+    out = [fn(*arrs) for arrs in zip(*trees)]
+    return Jac(*out) if isinstance(trees[0], Jac) else tuple(out)
+
+
+def _tree_index(tree, i):
+    return _tree_map(lambda a: a[i], tree)
+
+
+def _tree_set(tree, idx, val):
+    """tree[idx] = val in every coordinate, in place. Within one idx only
+    the trash slot may repeat (which write lands there is unspecified)."""
+    for a, v in zip(tree, val):
+        a[idx] = v
+
+
+def _segmented_accumulate(curve: CurveOps, digits, vals, buckets, dummy: int, mixed: bool, K: int = 32):
+    """Reduce-by-key of each window's digit-sorted stream into its buckets
+    (scatter-set, in place).
+
+    digits: (W, M) int64, each row sorted; vals: affine (ax, ay) if mixed
+    else a Jac, (W, M, ...) each; buckets: a Jac of (W, dummy + 2, ...),
+    slot dummy + 1 the trash slot. Complete runs are scatter-set; the two
+    runs at each lane's ends recurse on a 2C-element stream."""
+    W, M = digits.shape
+    dev = digits.device
+    rows = torch.arange(W, device=dev)
+    if M > K and M % K:
+        # pad the stream to a lane multiple with dummy-digit identity elements
+        pad = K - M % K
+        digits = torch.cat([digits, digits.new_full((W, pad), dummy)], 1)
+        if mixed:
+            vals = _tree_map(lambda a: torch.cat([a, a.new_zeros((W, pad) + a.shape[2:])], 1), vals)
+        else:
+            vals = _tree_map(lambda a, i: torch.cat([a, i], 1), vals, curve.inf((W, pad), dev))
+        M += pad
+    if M <= K:
+        # single-lane sequential pass; every run here is complete
+        acc = curve.inf((W,), dev)
+        cur = digits.new_full((W,), dummy)
+        for j in range(M):
+            dj = digits[:, j]
+            boundary = dj != cur
+            _tree_set(buckets, (rows, torch.where(boundary, cur, dummy + 1)), acc)
+            acc = curve.select(boundary, curve.inf((W,), dev), acc)
+            if mixed:
+                acc = curve.add_mixed(acc, vals[0][:, j], vals[1][:, j])
+            else:
+                acc = curve.add(acc, _tree_index(vals, (slice(None), j)))
+            cur = dj
+        _tree_set(buckets, (rows, cur), acc)
+        return buckets
+
+    C = M // K
+    d_cols = digits.reshape(W, C, K).permute(2, 0, 1)  # (K, W, C): column j of every lane
+    cols = _tree_map(lambda a: a.reshape((W, C, K) + a.shape[2:]).movedim(2, 0), vals)
+    inf_c = curve.inf((W, C), dev)
+    acc = prefix = inf_c
+    prefix_digit = digits.new_zeros((W, C))
+    flushed = torch.zeros((W, C), dtype=torch.bool, device=dev)
+    lane_rows = rows[:, None].expand(W, C)
+    for j in range(K):
+        if j > 0:  # column 0 has no boundary
+            dprev = d_cols[j - 1]
+            boundary = d_cols[j] != dprev
+            first = boundary & ~flushed
+            # first flush of a lane -> boundary-stitch set
+            prefix = curve.select(first, acc, prefix)
+            prefix_digit = torch.where(first, dprev, prefix_digit)
+            # later flushes are complete runs -> straight into buckets
+            _tree_set(buckets, (lane_rows, torch.where(boundary & flushed, dprev, dummy + 1)), acc)
+            flushed = flushed | boundary
+            acc = curve.select(boundary, inf_c, acc)
+        if mixed:
+            acc = curve.add_mixed(acc, cols[0][j], cols[1][j])
+        else:
+            acc = curve.add(acc, _tree_index(cols, j))
+
+    suffix_digit = d_cols[K - 1]
+    # lanes that never flushed contribute an identity prefix at the suffix digit
+    prefix_digit = torch.where(flushed, prefix_digit, suffix_digit)
+    prefix = curve.select(flushed, prefix, inf_c)
+    # interleave (prefix_i, suffix_i): still sorted by digit
+    e_digits = torch.stack([prefix_digit, suffix_digit], 2).reshape(W, 2 * C)
+    e_vals = _tree_map(lambda p, q: torch.stack([p, q], 2).reshape((W, 2 * C) + p.shape[2:]), prefix, acc)
+    return _segmented_accumulate(curve, e_digits, e_vals, buckets, dummy, mixed=False, K=K)
+
+
+def _tree_reduce(curve: CurveOps, pts: Jac, K: int = 64) -> Jac:
+    """Sum of a (W, M) Jac batch over its second axis -> (W,), by chunked
+    sequential adds."""
+    W, M = pts.x.shape[:2]
+    dev = pts.x.device
+    while M > 1:
+        pad = (-M) % K if M > K else 0
+        if pad:
+            pts = _tree_map(lambda a, i: torch.cat([a, i], 1), pts, curve.inf((W, pad), dev))
+            M += pad
+        if M <= K:
+            acc = curve.inf((W,), dev)
+            for j in range(M):
+                acc = curve.add(acc, _tree_index(pts, (slice(None), j)))
+            return acc
+        C = M // K
+        cols = _tree_map(lambda a: a.reshape((W, C, K) + a.shape[2:]).movedim(2, 0), pts)
+        acc = curve.inf((W, C), dev)
+        for j in range(K):
+            acc = curve.add(acc, _tree_index(cols, j))
+        pts, M = acc, C
+    return _tree_index(pts, (slice(None), 0))
+
+
+def _weighted_bucket_sum(curve: CurveOps, buckets: Jac, nbuckets: int) -> Jac:
+    """sum_{k=1}^{nb-1} k * B_k per window via a suffix scan then a
+    reduction: (W, nb + 2) buckets -> (W,)."""
+    # drop bucket 0 and the trash slots; operate on B_1..B_{nb-1}
+    b = _tree_map(lambda a: a[:, 1:nbuckets], buckets)
+    W, m = b.x.shape[:2]
+    idx = torch.arange(m, device=b.x.device)
+    for i in range(max(1, math.ceil(math.log2(m)))):
+        d = 1 << i
+        shifted = _tree_map(lambda a: torch.roll(a, -d, dims=1), b)
+        b = curve.select((idx + d < m).expand(W, m), curve.add(b, shifted), b)
+    return _tree_reduce(curve, b)
+
+
+def _msm_ladder(curve: CurveOps, ax, ay, scalars, nbits: int = 254) -> Jac:
+    """Small-N MSM: batched per-point double-and-add ladders (lane i computes
+    s_i * P_i MSB-first) and a tree reduction of the lanes."""
+    N = ax.shape[0]
+    s = scalars.long()
+    acc = curve.inf((N,), ax.device)
+    for k in range(nbits):
+        j = nbits - 1 - k
+        bit = ((s[:, j // 16] >> (j % 16)) & 1) == 1
+        acc = curve.dbl(acc)
+        acc = curve.select(bit, curve.add_mixed(acc, ax, ay), acc)
+    return _tree_index(_tree_reduce(curve, _tree_map(lambda a: a[None], acc)), 0)
+
+
+def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbits: int = 254) -> Jac:
+    """Compact variable-base MSM: sum_i scalars[i] * P_i.
+
+    ax, ay: (N, ...) affine limbs ((0,0) = infinity); scalars: (N, 16) int32
+    plain limbs on the same device. c defaults to the JAX package's rule
+    for N points. Returns a Jacobian point of unbatched tensors."""
+    N = ax.shape[0]
+    if N <= MSM_LADDER_THRESHOLD:
+        return _msm_ladder(curve, ax, ay, scalars, nbits)
+    if c is None:
+        c = max(2, min(13, int(math.log2(max(N, 2))) - 3))
+    nbuckets = 1 << c
+    digits = digits_for_windows(scalars, c, nbits)  # (W, N)
+    W = digits.shape[0]
+    sd, order = torch.sort(digits, dim=1)
+    buckets = _tree_map(lambda a: a.clone(memory_format=torch.contiguous_format),
+                        curve.inf((W, nbuckets + 2), ax.device))
+    buckets = _segmented_accumulate(curve, sd, (ax[order], ay[order]), buckets, nbuckets, mixed=True, K=K)
+    window_sums = _weighted_bucket_sum(curve, buckets, nbuckets)
+    # Horner combine from the top window down
+    acc = _tree_index(window_sums, W - 1)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            acc = curve.dbl(acc)
+        acc = curve.add(acc, _tree_index(window_sums, w))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# msm_gpu: the v9 msm_tpu route
+# ---------------------------------------------------------------------------
 
 
 def _point_table(ax, ay) -> torch.Tensor:

@@ -11,9 +11,14 @@ and r-1 scalars, a duplicated (point, scalar) pair, an infinity row) at the
 same c=6, L=8. That test holds the JAX msm_tpu(plan="wsort", level1="pair")
 equal to ch.msm_host on this set, so equality with ch.msm_host here is
 equality with msm_tpu, without a second ~150 s XLA:CPU compile of it.
+
+The compact msm (TorchBackend's route up to 2,048 points) is held against
+the jitted JAX `msm` at one ladder size here, and against the host on more
+sizes in tests/test_torch_compact_msm.py.
 """
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +29,7 @@ from hekaton_tpu.curves.jax_curve import G1 as JG1
 from hekaton_tpu.fields import jax_field as jf
 from hekaton_tpu.fields.bn254 import R
 from hekaton_tpu.msm import pippenger as jmsm
-from hekaton_tpu_torch.curves.torch_curve import G1
+from hekaton_tpu_torch.curves.torch_curve import G1, Jac
 from hekaton_tpu_torch.msm import pippenger as tmsm
 
 # small tensors: one thread each, since pytest-xdist runs several workers at once
@@ -111,3 +116,16 @@ def test_msm_gpu_small_shapes(n, c, L):
     ax, ay = G1.pack_affine(pts)
     out = tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars), c=c, L=L)
     assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars)
+
+
+def test_compact_msm_matches_jax_msm():
+    """The JAX msm, jitted (its ladder body compiles once), at one size,
+    with a zero scalar, 1, r-1 and an infinity point."""
+    pts, sc = PTS[:6], SCALARS[:6]
+    ax, ay = G1.pack_affine(pts)
+    s = tmsm.pack_scalars(sc)
+    out = tmsm.msm(G1, _t(ax), _t(ay), s)
+    ref = jax.jit(lambda x, y, k: jmsm.msm(JG1, x, y, k))(_j(ax), _j(ay), _j(s.numpy()))
+    expected = ch.msm_host(pts, sc)
+    assert JG1.unpack_jacobian(jax.tree.map(lambda a: a[None], ref))[0] == expected
+    assert G1.unpack_jacobian(Jac(*(a[None] for a in out)))[0] == expected

@@ -2,7 +2,8 @@
 
 A subprocess installs a meta-path hook that refuses `jax`, `jaxlib` and
 `hekaton_tpu` (the port keeps its own copies of the host modules it needs),
-imports every hekaton_tpu_torch module, and runs the whole
+imports every hekaton_tpu_torch module (the CLI, the workloads and the wire
+format among them), and runs the whole
 PortalChainParams(2) flow on the CPU with the port alone: setup and stage 0
 with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
 stateless recommit must reproduce TorchBackend's stage-0 commitments),
@@ -39,6 +40,9 @@ SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(hekaton_tpu_torch.__path__, "hekaton_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    assert {"hekaton_tpu_torch.cli", "hekaton_tpu_torch.workloads.vm", "hekaton_tpu_torch.workloads.vkd.vkd",
+            "hekaton_tpu_torch.workloads.partitioned_r1cs", "hekaton_tpu_torch.circom.r1cs_file",
+            "hekaton_tpu_torch.protocol.wire", "hekaton_tpu_torch.protocol.serialization"} <= set(names)
 
     from hekaton_tpu_torch.host import (AggProvingKey, PortalChainCircuit, PortalChainParams, Rng,
                                         agg_transcript, ipp_setup, tipa_key_from_ipp)
@@ -80,7 +84,7 @@ def test_port_runs_with_jax_blocked():
         [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "modules" in proc.stdout and "'g1_msm_gpu': 2" in proc.stdout, proc.stdout
+    assert "modules" in proc.stdout and "'g1_msm_compact': 2" in proc.stdout, proc.stdout
     assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 

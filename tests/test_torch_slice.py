@@ -1,20 +1,19 @@
 """The port's slice as a whole, against the JAX package's HostBackend:
 
 - a key file written by the JAX package loads into the port and holds no
-  object of the JAX package, and stage 0 + stage 1 through the port's
-  worker with TorchBackend("cpu") (G1 and G2 MSMs through msm_gpu, the
-  witness map through the NTT) prove from it the JAX HostBackend's proofs,
-  bit for bit;
+  object of the JAX package, and the port's CLI, `--backend cpu work
+  --spill-dir` (TorchBackend("cpu"): every MSM of this circuit through the
+  compact msm, the witness map through the NTT; stage 0 round-tripped
+  through the wire format and recommitted in stage 1), proves from it the
+  JAX HostBackend's proofs, bit for bit, and prints that the aggregate
+  proof verified;
 - the port's setup with TorchBackend("cpu") (every fixed-base batch through
   msm/pippenger.py::fixed_base_msm) gives the JAX HostBackend's CRS point
   for point, G2 points compared as bytes.
 
-The flow is `cmd_work`'s (hekaton_tpu/cli.py), with the same seeds and
-coordinator calls, driven once through each package. Stage 1 reuses the
-stage-0 commitment builder (`process_stage1_request_with_cb`) instead of
-recommitting: the stateless recommit is covered by
-tests/test_torch_no_jax.py and chip_smoke.py, and skipping it here saves
-two plain-PyTorch MSMs on the CPU."""
+The JAX side runs `cmd_work`'s flow (hekaton_tpu/cli.py) with the same
+seeds and coordinator calls; its stage 1 reuses the stage-0 commitment
+builder (`process_stage1_request_with_cb`) instead of recommitting."""
 import pytest
 import torch
 
@@ -22,6 +21,7 @@ import hekaton_tpu.cpgroth16.backend as jbackend
 import hekaton_tpu.protocol.coordinator as jcoord
 import hekaton_tpu.protocol.worker as jworker
 import hekaton_tpu.runtime.keys as jkeys
+import hekaton_tpu_torch.cli as tcli
 import hekaton_tpu_torch.cpgroth16.backend as tbackend
 import hekaton_tpu_torch.cpgroth16.data_structures as tds
 import hekaton_tpu_torch.protocol.coordinator as tcoord
@@ -34,7 +34,6 @@ from hekaton_tpu.workloads.chain import PortalChainCircuit as JPortalChainCircui
 from hekaton_tpu.workloads.chain import PortalChainParams as JPortalChainParams
 from hekaton_tpu_torch.cpgroth16.verifier import prepare_verifying_key, verify_proof
 from hekaton_tpu_torch.curves import host as ch
-from hekaton_tpu_torch.protocol.ipp import ipp_setup
 from hekaton_tpu_torch.utils.rng import Rng
 from hekaton_tpu_torch.workloads.chain import PortalChainCircuit, PortalChainParams
 
@@ -113,11 +112,27 @@ def test_port_setup_equals_jax_host(jax_key_file):
     # per unique CRS: a_g, b_g, b_h, h_g, gamma_abc, deltas_g, deltas_h and
     # one basis per stage, every one on the backend's device
     n_stages = len(keys.get_pk(0).ck.deltas_abc_g)
-    assert backend.ran == {"g1_msm_gpu": 0, "g2_msm_gpu": 0, "witness_map_gpu": 0,
-                           "fixed_base_gpu": len(keys.minimal_pks) * (7 + n_stages)}
+    assert backend.ran == {"g1_msm_compact": 0, "g2_msm_compact": 0, "g1_msm_gpu": 0, "g2_msm_gpu": 0,
+                           "witness_map_gpu": 0, "fixed_base_gpu": len(keys.minimal_pks) * (7 + n_stages)}
 
 
-def test_port_proves_from_jax_key_file(jax_key_file):
+def _run_cli(monkeypatch, argv: list) -> dict:
+    """Run the port's CLI in-process and keep what `work` made: its backend,
+    the stage-0 and stage-1 responses, the final aggregation state."""
+    seen = {"resps0": [], "resps1": []}
+    make = tcli._backend
+    monkeypatch.setattr(tcli, "_backend", lambda name: seen.setdefault("backend", make(name)))
+    for stage, fn in ((0, tworker.process_stage0_request), (1, tworker.process_stage1_request)):
+        monkeypatch.setattr(tworker, f"process_stage{stage}_request",
+                            lambda *a, _fn=fn, _out=seen[f"resps{stage}"]: _out.append(_fn(*a)) or _out[-1])
+    into = tcoord.CoordinatorStage1State.into_agg_state
+    monkeypatch.setattr(tcoord.CoordinatorStage1State, "into_agg_state",
+                        lambda self: seen.setdefault("agg_state", into(self)))
+    tcli.main(argv)
+    return seen
+
+
+def test_port_proves_from_jax_key_file(jax_key_file, monkeypatch, capsys, tmp_path):
     jax_keys, path = jax_key_file
     keys = tkeys.ProvingKeys.load(path)
     assert isinstance(keys, tkeys.ProvingKeys) and isinstance(keys.params, PortalChainParams)
@@ -132,8 +147,10 @@ def test_port_proves_from_jax_key_file(jax_key_file):
             jax_keys.minimal_pks[i], jch.g1_to_bytes, jch.g2_to_bytes
         ), i
 
-    backend = tbackend.TorchBackend("cpu")
-    resps0, resps1, public_inputs = _work(tcoord, tworker, keys, backend, PortalChainCircuit, Rng, ipp_setup)
+    seen = _run_cli(monkeypatch, ["--backend", "cpu", "work", "--key-file", path, "--spill-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[work] aggregate proof verified: True" in out and "(wire format)" in out, out
+    resps0, resps1, public_inputs = seen["resps0"], seen["resps1"], seen["agg_state"].public_inputs
     jresps0, jresps1, jpublic_inputs = _work(
         jcoord, jworker, jkeys.ProvingKeys.load(path), jbackend.HostBackend(), JPortalChainCircuit, JRng, jipp_setup
     )
@@ -147,9 +164,11 @@ def test_port_proves_from_jax_key_file(jax_key_file):
         assert tds.serialize_proof(p) == tds.serialize_proof(jp), i
         pvk = prepare_verifying_key(keys.get_pk(i).vk)
         assert verify_proof(pvk, p, public_inputs), i
-    # per subcircuit: the stage-0 commit and the A, B-G1, L and H MSMs on
-    # G1, B-G2 on G2; no host route is left
-    assert backend.ran == {"g1_msm_gpu": 5 * n, "g2_msm_gpu": n, "fixed_base_gpu": 0, "witness_map_gpu": n}
+    # per subcircuit, every MSM of this circuit is at most 2,048 points long,
+    # so all take the compact route: the stage-0 commit and its recommit and
+    # the A, B-G1, L and H MSMs on G1, B-G2 on G2; no host route is left
+    assert seen["backend"].ran == {"g1_msm_compact": 6 * n, "g2_msm_compact": n, "g1_msm_gpu": 0,
+                                   "g2_msm_gpu": 0, "fixed_base_gpu": 0, "witness_map_gpu": n}
 
     bad = resps1[0].proof
     bad.c = ch.pt_add(bad.c, ch.g1_gen())

@@ -7,12 +7,14 @@ at first use, one nvcc per source, all at once) and a host C++ compiler (the
 native host library). Phases, one line each, every failure raises:
 
   1. device: the card's name and power limit; build the kernels;
-  2. kernels: each of the eleven CUDA kernel entry points against its plain
+  2. kernels: each of the fifteen CUDA kernel entry points against its plain
      PyTorch version on the card, at the main paths' shapes, bit for bit,
      with both times and the kernel's bound;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
+     - msm_routes: the same MSM along msm_gpu's projective and mega routes
+       (ROUTES), each against the same host result;
      - msm_compact: the compact msm (TorchBackend's route up to 2,048
        points) on G1 at 32 (the ladder), 33 and 2,048 points and on G2 at 33
        points, with zero scalars, r-1, a repeated and an infinity point,
@@ -33,7 +35,8 @@ native host library). Phases, one line each, every failure raises:
        --spill-dir`, which must print that the aggregate proof verified and
        round-trip stage 0 through the wire format; configuration 1's stage-0
        commitments take the compact msm;
-  4. coverage: every kernel of each path was launched in that path's run.
+  4. coverage: every kernel of each path was launched in that path's run,
+     and no path but msm_routes launched one of ROUTE_KERNELS.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -64,6 +67,13 @@ N_FB = 1 << 18  # fixed-base scalars per curve
 N_G2_DISTINCT = 4096  # distinct G2 points of the G2 MSM, tiled to N_MSM
 N_SAMPLE = 4096  # fixed-base lanes checked against the host
 N_COMPACT = ((1, 32), (1, 33), (1, 2048), (2, 33))  # (curve, points) of the compact msm checks
+# msm_routes: (label, L, msm_gpu route arguments) at the msm_g1 set's c
+ROUTES = (
+    ("(a)", 32, {"accum": "proj"}),  # resolves to level1="mega"
+    ("(b)", 24, {}),  # L not a power of two: mega, then affine accumulation
+    ("(c)", 32, {"accum": "proj", "level1": "steps"}),  # one pmadd_rcb launch per slab row
+)
+ROUTE_KERNELS = ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega")  # only msm_routes launches them
 # The [cli] phase's CLI runs: (label, setup command). BASELINE.json
 # configuration 4 (VM, 32 subcircuits, 1,024 cycles per subcircuit) is cut to
 # fit the script's time limit: a VM subcircuit holds ~1,000 constraints per
@@ -221,19 +231,21 @@ class Bound:
         return 3 * (mp - top) + top * self.fermat
 
 
-def g2_edge_lanes(tf, proj, gx, gy, gen):
-    """Phase 2's G2 inputs: n = N_LANES lanes of P (projective, random z) and
-    Q (affine and projective, another random z), Q_i = k_(i+1 mod 4096) G2.
-    Lanes 0-63 double (Q = P), 64-127 are inverse pairs, 128-191 have the
-    identity accumulator (0 : z : 0), 192-255 the (0,0) sentinel operand
-    (identity in projective), 256-319 both."""
+def proj_edge_lanes(tf, proj, gx, gy, gen):
+    """Phase 2's RCB inputs on G1 ((N, 16) affine points gx, gy) or G2 ((N,
+    2, 16)): n = N_LANES lanes of P (projective, random z) and Q (affine and
+    projective, another random z), Q_i = the affine point of row i+n+1. Lanes
+    0-63 double (Q = P), 64-127 are inverse pairs, 128-191 have the identity
+    accumulator (0 : z : 0), 192-255 the (0,0) sentinel operand (identity in
+    projective), 256-319 both."""
     n = N_LANES
-    f = tf.Fq2Plain
+    coord = tuple(gx.shape[1:-1])  # () on G1, (2,) on G2
+    f = tf.Fq2Plain if coord else tf.FqPlain
     ax, ay = gx[:n].clone(), gy[:n].clone()
     bx, by = gx[n + 1 : 2 * n + 1].clone(), gy[n + 1 : 2 * n + 1].clone()
     bx[:64], by[:64] = ax[:64], ay[:64]
     bx[64:128], by[64:128] = ax[64:128], tf.neg(tf.FQ, ay[64:128])
-    z1, z2 = rand_limbs((n, 2), gen), rand_limbs((n, 2), gen)
+    z1, z2 = rand_limbs((n, *coord), gen), rand_limbs((n, *coord), gen)
     p = proj.Proj(f.mul(ax, z1), f.mul(ay, z1), z1.clone())
     q = proj.Proj(f.mul(bx, z2), f.mul(by, z2), z2.clone())
     for lo, hi in ((128, 192), (256, 320)):
@@ -397,17 +409,27 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
            cuda_ms(lambda: cc.add(*aargs), 10), cuda_ms(lambda: cc.add_plain(*aargs), 1), err,
            (9 * 64 * n, 16 * n + 7 * 64))
 
-    # the three G2 RCB ops: 2^18 lanes with test_pallas.py:58's completeness lanes
-    gp, gq, (bx, by) = g2_edge_lanes(tf, proj, *g2_pts, gen)
-    for name, line, kargs, fn, plain, nio, prods in (
-        ("pmadd_rcb_g2", 1315, (*gp, bx, by), cc.pmadd_rcb_g2, cc.pmadd_rcb_g2_plain, 8, 39),
-        ("padd_rcb_g2", 1320, (*gp, *gq), cc.padd_rcb_g2, cc.padd_rcb_g2_plain, 9, 42),
-        ("pdbl_rcb_g2", 1324, tuple(gp), cc.pdbl_rcb_g2, cc.pdbl_rcb_g2_plain, 6, 25),
+    # the three RCB ops on G2, then on G1: 2^18 lanes with test_pallas.py:58's
+    # completeness lanes
+    for sfx, pts, src, lines, coord_bytes, products in (
+        ("_g2", g2_pts, "curve_g2.cu", (1315, 1320, 1324), 128, (39, 42, 25)),
+        ("", g1_pts, "curve.cu", (1293, 1297, 1301), 64, (11, 12, 8)),
     ):
-        err = max_abs_err(fn(*kargs), plain(*kargs))
-        record(name, "hekaton_tpu_torch/csrc/curve_g2.cu", f"hekaton_tpu/curves/pallas_curve.py:{line}",
-               cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err,
-               (nio * 128 * n, prods * n))
+        gp, gq, (bx, by) = proj_edge_lanes(tf, proj, *pts, gen)
+        for op, line, kargs, nio, prods in zip(("pmadd_rcb", "padd_rcb", "pdbl_rcb"), lines,
+                                               ((*gp, bx, by), (*gp, *gq), tuple(gp)), (8, 9, 6), products):
+            fn, plain = getattr(cc, op + sfx), getattr(cc, op + sfx + "_plain")
+            err = max_abs_err(fn(*kargs), plain(*kargs))
+            record(op + sfx, f"hekaton_tpu_torch/csrc/{src}", f"hekaton_tpu/curves/pallas_curve.py:{line}",
+                   cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err,
+                   (nio * coord_bytes * n, prods * n))
+
+    # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products per row,
+    # sentinel rows included
+    err = max_abs_err(cc.l1_rcb_mega(slab, L), cc.l1_rcb_mega_plain(slab, L))
+    record("l1_rcb_mega", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:572",
+           cuda_ms(lambda: cc.l1_rcb_mega(slab, L), 10), cuda_ms(lambda: cc.l1_rcb_mega_plain(slab, L), 1),
+           err, (ncols * (L * 64 + 192), 11 * L * ncols))
     return rows
 
 
@@ -595,12 +617,13 @@ def main() -> int:
     kernels = {"mont_mul": cf.mont_mul, "fermat_inv": cf.fermat_inv, "aff_add_fused": cc.aff_add_fused,
                "l1_aff_halves": cc.l1_aff_halves, "horner_fold": cc.horner_fold, "madd": cc.madd,
                "pmadd_rcb_g2": cc.pmadd_rcb_g2, "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2,
-               "dbl": cc.dbl, "add": cc.add}
+               "dbl": cc.dbl, "add": cc.add, "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb,
+               "pdbl_rcb": cc.pdbl_rcb, "l1_rcb_mega": cc.l1_rcb_mega}
     totals = dict.fromkeys(kernels, 0)
 
-    def main_path(name: str, expect: list, run):
+    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
-        one of its kernels was not launched."""
+        one of its kernels was not launched, or one of `absent` was."""
         for fn in kernels.values():
             fn.launches = 0
         run()
@@ -611,13 +634,16 @@ def main() -> int:
         log(f"[coverage] {name}: {counts}")
         missing = [k for k in expect if counts[k] <= 0]
         require(not missing, f"{name}: kernels never launched on this path: {missing}")
+        stray = [k for k in absent if counts[k] > 0]
+        require(not stray, f"{name}: kernels of another route launched on this path: {stray}")
 
     c, L = TorchBackend.msm_params(N)
 
-    def msm_path(label, x, y, exp, curve):
+    def msm_path(label, x, y, exp, curve, L=L, **route):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        out = pip.msm_gpu(x, y, sc, c=c, L=L)
+        out = pip.msm_gpu(x, y, sc, c=c, L=L, **route)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t
         got = curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
@@ -626,7 +652,7 @@ def main() -> int:
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            pip.msm_gpu(x, y, sc, c=c, L=L)
+            pip.msm_gpu(x, y, sc, c=c, L=L, **route)
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t)
         best = min(warm)
@@ -636,6 +662,15 @@ def main() -> int:
 
     main_path("msm_g1", ["mont_mul", "fermat_inv", "aff_add_fused", "l1_aff_halves", "horner_fold"],
               lambda: msm_path("G1", ax, ay, expected, G1))
+
+    def routes_path():
+        for label, route_L, route in ROUTES:
+            accum, level1, plan = pip.resolve_route(False, route_L, **route)
+            msm_path(f"G1 route {label} accum={accum}, level1={level1}, plan={plan}", ax, ay, expected, G1,
+                     L=route_L, **route)
+
+    main_path("msm_routes", ["l1_rcb_mega", "padd_rcb", "pmadd_rcb", "mont_mul", "fermat_inv", "aff_add_fused",
+                             "horner_fold"], routes_path, absent=())
 
     # the compact msm at TorchBackend's window widths; the first rows of the
     # G1 and G2 sets hold scalars 0, 1 and r-1, an infinity row and a
@@ -663,7 +698,6 @@ def main() -> int:
 
     main_path("msm_compact", ["dbl", "add", "madd"], compact_path)
     del ax, ay
-    torch.cuda.reset_peak_memory_stats()
     main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"],
               lambda: msm_path("G2", g2x, g2y, expected_g2, G2))
     del g2x, g2y, sc
@@ -741,7 +775,7 @@ def main() -> int:
                 f"a device route did not run: {backend.ran}")
         slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
 
-    main_path("slice", list(kernels), slice_path)
+    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS], slice_path)
 
     host = HostBackend()
     keys, circ, n = slice_out["keys"], slice_out["circ"], slice_out["n"]

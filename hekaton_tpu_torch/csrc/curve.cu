@@ -7,7 +7,11 @@
 // replaces one round of curves/pallas_curve.py::l1_aff_halves
 // (_aff_halves_root_kernel :802, _aff_halves_fin_kernel :822, tr=False).
 // horner replaces curves/pallas_curve.py::horner_fold (_horner_kernel :583).
-// madd replaces curves/pallas_curve.py::madd (_madd_kernel :1178, formulas
+// pmadd_rcb, padd_rcb and pdbl_rcb replace curves/pallas_curve.py::pmadd_rcb,
+// ::padd_rcb and ::pdbl_rcb (_pmadd_rcb_kernel :1206 on _pmadd_rcb_tiles
+// :264, _padd_rcb_kernel :1216 on _padd_rcb_tiles :291, _pdbl_rcb_kernel
+// :1226 on _pdbl_rcb_tiles :314). l1_rcb_mega replaces
+// curves/pallas_curve.py::l1_rcb_mega (_l1_mega_kernel :470). madd replaces curves/pallas_curve.py::madd (_madd_kernel :1178, formulas
 // _madd_tiles :164 with the _dbl_tiles escape :146). dbl and add replace
 // curves/pallas_curve.py::dbl and ::add (_dbl_kernel :1188 on _dbl_tiles
 // :146, _add_kernel :1196 on _add_tiles :210).
@@ -50,6 +54,31 @@
 // overrides follow _add_tiles (curves/cuda_curve.py::add_plain). The compact
 // msm launches them at 1 to a few thousand lanes, where launch latency, not
 // the multiplies, sets their time.
+//
+// The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
+// projective formulas of curves/proj.py, with no escapes) are the same
+// design: one thread per lane on (n, 16) limb rows. A mixed add is 11
+// products against 512 bytes in and out, an add 12 against 576, a double 8
+// (2 of them squares) against 384: 5.6-6.4 multiplies per byte, bound by
+// integer multiply throughput once the card is full. They reuse the padd_rcb
+// and pdbl_rcb device functions of the Horner fold; pmadd_rcb mirrors the G2
+// one in curve_g2.cu, with its one select for the affine (0,0) sentinel.
+//
+// l1_rcb_mega is MSM level 1 on the accum="proj" routes: per column of the
+// (ncols, L*16) packed slab, the L packed rows added in order into the
+// identity (0:1:0) by pmadd_rcb. The Pallas kernel keeps a block of 1,024
+// columns' accumulators in VMEM across a fori_loop over L and reads the slab
+// transposed, (L*16, ncols), so each step is a sublane band; its plan pads
+// the columns to a multiple of that block (pippenger.py:1085-1087). Here
+// one thread owns one column: the accumulator stays in registers for all L
+// steps, the column's row is one contiguous L*64-byte run, and a bounds
+// check masks the ragged edge, so the port's plan keeps col_pad = 1 (fewer
+// columns than the JAX plan, the same bucket sums) and takes the slab in its
+// own (ncols, L*16) layout. Per column it is L x 11 products against L x 64
+// bytes in and 192 out: ~45 multiplies per byte, so bound by integer
+// multiply throughput. The L adds of a column depend on each other; the
+// card hides that chain with the ~735K independent columns of a 2^20-point
+// MSM.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -254,6 +283,40 @@ __device__ Proj pdbl_rcb(const Proj& p) {
   return Proj{x3, y3, z3};
 }
 
+// RCB15 Algorithm 8 (a=0, Z2=1; pallas_curve.py::_pmadd_rcb_tiles): the
+// affine (0,0) sentinel (ay == 0 only there) keeps P, by one select
+__device__ Proj pmadd_rcb(const Proj& p, const Fe& ax, const Fe& ay) {
+  Fe t0 = fe_mul<FQ>(p.x, ax);
+  Fe t1 = fe_mul<FQ>(p.y, ay);
+  Fe t3 = fe_mul<FQ>(fe_add<FQ>(ax, ay), fe_add<FQ>(p.x, p.y));
+  t3 = fe_sub<FQ>(t3, fe_add<FQ>(t0, t1));
+  Fe t4 = fe_add<FQ>(fe_mul<FQ>(ay, p.z), p.y);
+  Fe y3 = fe_add<FQ>(fe_mul<FQ>(ax, p.z), p.x);
+  Fe x3 = fe_add<FQ>(t0, t0);
+  t0 = fe_add<FQ>(x3, t0);
+  Fe t2 = mul9(p.z);
+  Fe z3 = fe_add<FQ>(t1, t2);
+  t1 = fe_sub<FQ>(t1, t2);
+  y3 = mul9(y3);
+  Proj r;
+  r.x = fe_sub<FQ>(fe_mul<FQ>(t3, t1), fe_mul<FQ>(t4, y3));
+  r.y = fe_add<FQ>(fe_mul<FQ>(t1, z3), fe_mul<FQ>(y3, t0));
+  r.z = fe_add<FQ>(fe_mul<FQ>(z3, t4), fe_mul<FQ>(t0, t3));
+  return fe_is_zero(ay) ? p : r;
+}
+
+__device__ __forceinline__ Proj load_proj(const int32_t* x, const int32_t* y, const int32_t* z,
+                                          long long i) {
+  return Proj{load_limbs(x + i * 16), load_limbs(y + i * 16), load_limbs(z + i * 16)};
+}
+
+__device__ __forceinline__ void store_proj(int32_t* x, int32_t* y, int32_t* z, long long i,
+                                           const Proj& p) {
+  store_limbs(x + i * 16, p.x);
+  store_limbs(y + i * 16, p.y);
+  store_limbs(z + i * 16, p.z);
+}
+
 __global__ void horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                               const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                               int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
@@ -267,6 +330,55 @@ __global__ void horner_kernel(const int32_t* __restrict__ x, const int32_t* __re
   store_limbs(ox, acc.x);
   store_limbs(oy, acc.y);
   store_limbs(oz, acc.z);
+}
+
+// -- the G1 RCB ops, one lane per thread -------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+    pmadd_rcb_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                     const int32_t* __restrict__ z, const int32_t* __restrict__ ax,
+                     const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
+                     int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_proj(ox, oy, oz, i,
+             pmadd_rcb(load_proj(x, y, z, i), load_limbs(ax + i * 16), load_limbs(ay + i * 16)));
+}
+
+__global__ void __launch_bounds__(THREADS)
+    padd_rcb_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                    const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
+                    const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
+                    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                    long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_proj(ox, oy, oz, i, padd_rcb(load_proj(x1, y1, z1, i), load_proj(x2, y2, z2, i)));
+}
+
+__global__ void __launch_bounds__(THREADS)
+    pdbl_rcb_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                    const int32_t* __restrict__ z, int32_t* __restrict__ ox,
+                    int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_proj(ox, oy, oz, i, pdbl_rcb(load_proj(x, y, z, i)));
+}
+
+// -- MSM level 1 on projective accumulators: one thread per slab column ------
+
+__global__ void __launch_bounds__(THREADS)
+    l1_rcb_mega_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ ox,
+                       int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long ncols, int L) {
+  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncols) return;
+  const int32_t* row = v + c * (16LL * L);
+  Proj acc{fe_zero(), fe_one<FQ>(), fe_zero()};
+  for (int r = 0; r < L; r++) {
+    Aff q = load_packed(row + r * 16);
+    acc = pmadd_rcb(acc, q.x, q.y);
+  }
+  store_proj(ox, oy, oz, c, acc);
 }
 
 // -- Jacobian mixed add with escapes (pallas_curve.py::_madd_tiles) ---------
@@ -461,5 +573,41 @@ extern "C" int hk_add(const void* x1, const void* y1, const void* z1, const void
   add_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// n lanes of (16,) limb rows per coordinate; outputs must not alias inputs
+extern "C" int hk_pmadd_rcb(const void* x, const void* y, const void* z, const void* ax,
+                            const void* ay, void* ox, void* oy, void* oz, long long n,
+                            void* stream) {
+  pmadd_rcb_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)ax,
+      (const int32_t*)ay, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_padd_rcb(const void* x1, const void* y1, const void* z1, const void* x2,
+                           const void* y2, const void* z2, void* ox, void* oy, void* oz,
+                           long long n, void* stream) {
+  padd_rcb_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
+      (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_pdbl_rcb(const void* x, const void* y, const void* z, void* ox, void* oy,
+                           void* oz, long long n, void* stream) {
+  pdbl_rcb_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
+      (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// (ncols, L*16) packed slab -> the three (ncols, 16) limb rows of each
+// column's projective sum
+extern "C" int hk_l1_rcb_mega(const void* v, void* ox, void* oy, void* oz, long long ncols, int L,
+                              void* stream) {
+  l1_rcb_mega_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, ncols, L);
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,10 @@ SIGNATURES = {
     "hk_madd": [_vp] * 8 + [_ll, _vp],
     "hk_dbl": [_vp] * 6 + [_ll, _vp],
     "hk_add": [_vp] * 9 + [_ll, _vp],
+    "hk_pmadd_rcb": [_vp] * 8 + [_ll, _vp],
+    "hk_padd_rcb": [_vp] * 9 + [_ll, _vp],
+    "hk_pdbl_rcb": [_vp] * 6 + [_ll, _vp],
+    "hk_l1_rcb_mega": [_vp] * 4 + [_ll, _int, _vp],
     "hk_pmadd_rcb_g2": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb_g2": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb_g2": [_vp] * 6 + [_ll, _vp],

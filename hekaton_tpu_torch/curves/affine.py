@@ -1,8 +1,9 @@
 """Batched complete affine G1 ops: the MSM's bucket-accumulation arithmetic.
 
-Port of hekaton_tpu/curves/affine.py (`Aff`, `AffineOps`, :51-186) for BN254
-G1. An add costs ~3 products plus a share of one batch inversion
-(Montgomery's trick), against 13 for a complete projective mixed add.
+Port of hekaton_tpu/curves/affine.py (`Aff`, `AffineOps`, :51-186, with
+`from_proj`, :165-177) for BN254 G1. An add costs ~3 products plus a share
+of one batch inversion (Montgomery's trick), against 13 for a complete
+projective mixed add.
 Completeness is branchless: (0,0) is infinity (y = 0 never occurs on the
 prime-order a=0 curve), equal-x lanes take the tangent, inverse pairs give
 (0,0).
@@ -20,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..fields import torch_field as tf
 from ..fields.torch_field import FqOps
 
 
@@ -63,6 +65,17 @@ class AffineOps:
 
         args = [t.contiguous() for t in (p.x, p.y, q.x, q.y)]
         return Aff(*aff_add_fused(*args))
+
+    def from_proj(self, x, y, z) -> Aff:
+        """Batched projective (x : y : z) -> affine by one batch inversion
+        of the z's (the mont_mul and Fermat kernels on CUDA tensors); z = 0
+        lanes give the (0,0) sentinel."""
+        f = self.f
+        batch = x.shape[:-1]
+        inf = f.is_zero(z)
+        zinv = tf.batch_inv(f.spec, f.select(inf, f.one(batch, z.device), z))
+        zero = f.zeros(batch, x.device)
+        return Aff(f.select(inf, zero, f.mul(x, zinv)), f.select(inf, zero, f.mul(y, zinv)))
 
     @staticmethod
     def unpack_rows(rows) -> Aff:

@@ -1,6 +1,8 @@
 """Curve kernels: the G1 MSM's complete batched-affine add, level-1 halves
-pairing and window Horner fold; the G1 Jacobian mixed add of the fixed-base
-muls; and the G2 MSM's three complete projective Fq2 ops.
+pairing and window Horner fold; its three complete projective ops and
+projective level 1 (the accum="proj" and level1="mega" routes); the G1
+Jacobian mixed add of the fixed-base muls; and the G2 MSM's three complete
+projective Fq2 ops.
 
 Port of the main-path kernels of hekaton_tpu/curves/pallas_curve.py. Source:
 csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
@@ -17,6 +19,14 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
 - `dbl` and `add` replace `dbl` and `add` (pallas_curve.py:1285/1289;
   kernels `_dbl_kernel` :1188 on `_dbl_tiles` :146 and `_add_kernel` :1196
   on `_add_tiles` :210).
+- `pmadd_rcb`, `padd_rcb`, `pdbl_rcb` replace the wrappers of the same names
+  (pallas_curve.py:1293/1297/1301; kernels `_pmadd_rcb_kernel` :1206 on
+  `_pmadd_rcb_tiles` :264, `_padd_rcb_kernel` :1216, `_pdbl_rcb_kernel`
+  :1226). Their interface keeps the JAX shape: (..., 16) int32 Montgomery
+  limbs per coordinate.
+- `l1_rcb_mega` replaces `l1_rcb_mega` (pallas_curve.py:572; kernel
+  `_l1_mega_kernel` :470) on the port's own (ncols, L*16) slab, not JAX's
+  transposed (L*16, ncols) one.
 - `pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2` replace the wrappers of the
   same names (pallas_curve.py:1315/1320/1324; kernels `_pmadd_rcb_g2_kernel`
   :1115, `_padd_rcb_g2_kernel` :1130, `_pdbl_rcb_g2_kernel` :1148, all
@@ -27,14 +37,15 @@ Bounds on an H100 and the design that meets them are in the source note of
 csrc/curve.cu: the adds are bound by integer multiply throughput and run as a
 root kernel / batch_inv / finish kernel split with one thread per prefix
 chain; the Horner fold is one thread, bound by the latency of its chain.
-`madd`, `dbl`, `add` and the G2 ops are one thread per lane, straight-line
-formulas, bound by integer multiply throughput once the card is full
-(csrc/curve.cu, csrc/curve_g2.cu).
+`madd`, `dbl`, `add`, the G1 RCB ops and the G2 ops are one thread per
+lane, straight-line formulas, bound by integer multiply throughput once the
+card is full; `l1_rcb_mega` is one thread per slab column, its accumulator
+in registers for all L adds (csrc/curve.cu, csrc/curve_g2.cu).
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
 CUDA tensors to its kernels; nothing falls back. `launches` on each wrapper
 counts its kernel launches (one per add, per halves round, per fold, per
-batch of point ops).
+level-1 slab, per batch of point ops).
 """
 from __future__ import annotations
 
@@ -106,10 +117,14 @@ def l1_aff_halves_plain(rows, L: int):
     return rows
 
 
+_PROJ_G1_PLAIN = ProjOps(tf.FqPlain, 9, "g1_proj_plain")
+_PROJ_G2_PLAIN = ProjOps(tf.Fq2Plain, B_G2 * 3, "g2_proj_plain")
+
+
 def horner_fold_plain(x, y, z, c: int):
     """(W, 16) projective window sums -> sum_w 2^(c*w) * S_w, MSB window
     first, on the plain complete RCB formulas (curves/proj.py)."""
-    proj = ProjOps(tf.FqPlain, 9, "g1_proj_plain")
+    proj = _PROJ_G1_PLAIN
     W = x.shape[0]
     acc = Proj(x[W - 1], y[W - 1], z[W - 1])
     for w in range(W - 2, -1, -1):
@@ -119,7 +134,30 @@ def horner_fold_plain(x, y, z, c: int):
     return acc
 
 
-_PROJ_G2_PLAIN = ProjOps(tf.Fq2Plain, B_G2 * 3, "g2_proj_plain")
+def pmadd_rcb_plain(x, y, z, ax, ay):
+    """G1 projective + affine on the plain RCB formulas (curves/proj.py)."""
+    return _PROJ_G1_PLAIN.add_mixed(Proj(x, y, z), ax, ay)
+
+
+def padd_rcb_plain(x1, y1, z1, x2, y2, z2):
+    return _PROJ_G1_PLAIN.add(Proj(x1, y1, z1), Proj(x2, y2, z2))
+
+
+def pdbl_rcb_plain(x, y, z):
+    return _PROJ_G1_PLAIN.dbl(Proj(x, y, z))
+
+
+def l1_rcb_mega_plain(rows, L: int) -> Proj:
+    """(ncols, L*16) packed slab -> each column's L packed rows added in
+    order into the identity (0:1:0) on the plain formulas: projective
+    (x, y, z), each (ncols, 16)."""
+    ncols = rows.shape[0]
+    v = rows.reshape(ncols, L, 16)
+    acc = _PROJ_G1_PLAIN.inf((ncols,), rows.device)
+    for g in range(L):
+        q = AffineOps.unpack_rows(v[:, g])
+        acc = _PROJ_G1_PLAIN.add_mixed(acc, q.x, q.y)
+    return acc
 _G1_PLAIN = CurveOps(tf.FqPlain, "g1_plain")  # its dbl is _dbl_tiles' dbl-2009-l
 
 
@@ -334,6 +372,60 @@ def add(x1, y1, z1, x2, y2, z2):
 
 
 add.launches = 0
+
+
+def pmadd_rcb(x, y, z, ax, ay):
+    """G1 projective (x, y, z) + affine (ax, ay), (..., 16) limbs."""
+    if not x.is_cuda:
+        return pmadd_rcb_plain(x, y, z, ax, ay)
+    return Proj(*_launch_point_op(pmadd_rcb, "hk_pmadd_rcb", (x, y, z, ax, ay), (16,)))
+
+
+pmadd_rcb.launches = 0
+
+
+def padd_rcb(x1, y1, z1, x2, y2, z2):
+    """G1 projective + projective, (..., 16) limbs."""
+    if not x1.is_cuda:
+        return padd_rcb_plain(x1, y1, z1, x2, y2, z2)
+    return Proj(*_launch_point_op(padd_rcb, "hk_padd_rcb", (x1, y1, z1, x2, y2, z2), (16,)))
+
+
+padd_rcb.launches = 0
+
+
+def pdbl_rcb(x, y, z):
+    """2 * G1 projective, (..., 16) limbs."""
+    if not x.is_cuda:
+        return pdbl_rcb_plain(x, y, z)
+    return Proj(*_launch_point_op(pdbl_rcb, "hk_pdbl_rcb", (x, y, z), (16,)))
+
+
+pdbl_rcb.launches = 0
+
+
+def l1_rcb_mega(rows, L: int) -> Proj:
+    """MSM level 1 on projective accumulators: each column of the (ncols,
+    L*16) packed slab to the projective sum of its L rows, added in order
+    into the identity ((ncols, 16) each)."""
+    if not rows.is_cuda:
+        return l1_rcb_mega_plain(rows, L)
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != L * 16:
+        raise ValueError(f"l1_rcb_mega: expected an int32 (ncols, {L * 16}) slab, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if not rows.is_contiguous():
+        raise ValueError("l1_rcb_mega: expected a contiguous slab")
+    ncols = rows.shape[0]
+    outs = tuple(torch.empty((ncols, 16), dtype=torch.int32, device=rows.device) for _ in range(3))
+    if ncols:
+        rc = cuda_lib.lib().hk_l1_rcb_mega(rows.data_ptr(), *(o.data_ptr() for o in outs), ncols, L,
+                                           cuda_lib.stream_ptr(rows.device))
+        cuda_lib.check("hk_l1_rcb_mega", rc)
+        l1_rcb_mega.launches += 1
+    return Proj(*outs)
+
+
+l1_rcb_mega.launches = 0
 
 
 def pmadd_rcb_g2(x, y, z, ax, ay):

@@ -2,19 +2,19 @@
 (Renes-Costello-Batina 2015, j-invariant-0 algorithms 7, 8 and 9), generic
 over the field adapter.
 
-Port of hekaton_tpu/curves/proj.py (`ProjOps`, :42-170; `PallasProjG2Ops`
-and `proj_g2`, :212-283). The formulas are complete: identity (0:1:0),
-doubling and inverse pairs flow through the same straight-line code; only
-the affine operand of a mixed add needs one select, for the (0,0) sentinel.
+Port of hekaton_tpu/curves/proj.py (`ProjOps`, :42-170; `PallasProjG1Ops`,
+:171-209; `PallasProjG2Ops` and `proj_g2`, :212-283). The formulas are
+complete: identity (0:1:0), doubling and inverse pairs flow through the same
+straight-line code; only the affine operand of a mixed add needs one
+select, for the (0,0) sentinel.
 
-`PROJ_G1` (b3 = 9) runs the plain formulas; the G1 MSM uses it for
-`from_affine` and `to_jacobian` of its window sums, and the Horner kernel
-(curves/cuda_curve.py::horner_fold) is held against its `add` and `dbl`.
-`PROJ_G2` (b3 = 3 * B_G2 = 9/(9+u)) sends `add_mixed`, `add` and `dbl` to
-the three Fq2 kernel wrappers of curves/cuda_curve.py, which launch their
-CUDA kernels on CUDA tensors and run these formulas on CPU tensors, as
-`PallasProjG2Ops` reaches the Pallas kernels on a TPU. The G2 MSM
-accumulates in it.
+`PROJ_G1` (b3 = 9) and `PROJ_G2` (b3 = 3 * B_G2 = 9/(9+u)) send
+`add_mixed`, `add` and `dbl` to the three kernel wrappers of their curve in
+curves/cuda_curve.py, which launch their CUDA kernels on CUDA tensors and
+run these formulas on CPU tensors, as `PallasProjG1Ops` and
+`PallasProjG2Ops` reach the Pallas kernels on a TPU. The G2 MSM and the G1
+MSM's accum="proj" routes accumulate in them; every G1 route takes
+`from_affine` and `to_jacobian` of its window sums from `PROJ_G1`.
 """
 from __future__ import annotations
 
@@ -156,25 +156,41 @@ class ProjOps:
         return Proj(f.mul(p.x, p.z), p.y, f.mul(f.sqr(p.z), p.z))
 
 
-class ProjG2Ops(ProjOps):
-    """BN254 G2 projective ops whose add_mixed / add / dbl are the Fq2 RCB
-    kernel wrappers (plain formulas on CPU tensors, kernels on CUDA)."""
+class KernelProjOps(ProjOps):
+    """Projective ops whose add_mixed / add / dbl are a curve's three RCB
+    kernel wrappers (plain formulas on CPU tensors, kernels on CUDA);
+    `_kernels` returns them as (mixed add, add, double)."""
+
+    def _kernels(self):
+        raise NotImplementedError
 
     def add(self, p: Proj, q: Proj) -> Proj:
-        from .cuda_curve import padd_rcb_g2
-
-        return Proj(*padd_rcb_g2(*(t.contiguous() for t in (*p, *q))))
+        return Proj(*self._kernels()[1](*(t.contiguous() for t in (*p, *q))))
 
     def add_mixed(self, p: Proj, ax, ay) -> Proj:
-        from .cuda_curve import pmadd_rcb_g2
-
-        return Proj(*pmadd_rcb_g2(*(t.contiguous() for t in (*p, ax, ay))))
+        return Proj(*self._kernels()[0](*(t.contiguous() for t in (*p, ax, ay))))
 
     def dbl(self, p: Proj) -> Proj:
-        from .cuda_curve import pdbl_rcb_g2
-
-        return Proj(*pdbl_rcb_g2(*(t.contiguous() for t in p)))
+        return Proj(*self._kernels()[2](*(t.contiguous() for t in p)))
 
 
-PROJ_G1 = ProjOps(FqOps, 9, "g1_proj")
+class ProjG1Ops(KernelProjOps):
+    """BN254 G1: the pmadd_rcb / padd_rcb / pdbl_rcb wrappers."""
+
+    def _kernels(self):
+        from .cuda_curve import padd_rcb, pdbl_rcb, pmadd_rcb
+
+        return pmadd_rcb, padd_rcb, pdbl_rcb
+
+
+class ProjG2Ops(KernelProjOps):
+    """BN254 G2: the Fq2 wrappers pmadd_rcb_g2 / padd_rcb_g2 / pdbl_rcb_g2."""
+
+    def _kernels(self):
+        from .cuda_curve import padd_rcb_g2, pdbl_rcb_g2, pmadd_rcb_g2
+
+        return pmadd_rcb_g2, padd_rcb_g2, pdbl_rcb_g2
+
+
+PROJ_G1 = ProjG1Ops(FqOps, 9, "g1_proj")
 PROJ_G2 = ProjG2Ops(Fq2Ops, B_G2 * 3, "g2_proj")

@@ -14,19 +14,23 @@ code scans the windows one after another; here every window is one row of a
 leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.
 
-`msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) along the
-route the JAX package takes for each curve:
+`msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) with its
+route parameters `accum`, `level1`, `plan` and `p_super`, which
+`resolve_route` resolves as msm_tpu does (:993-1051):
 
   1. signed window digits (`signed_digits_for_windows`);
   2. the sorted plan, `_plan_sorted_w` (the v9 `plan="wsort"`): per window,
      the points and per-bucket alignment pads sorted by digit, so each L-run
      of the slab is one bucket's points. The JAX G2 route takes the flat
-     `plan="sort"` instead; its columns hold the same bucket sums, and both
-     curves here share the one plan;
-  3. level 1 reduces every slab column to one point (G1: the halves pairing
-     of curves/cuda_curve.py::l1_aff_halves, `level1="pair"`; G2: L
-     sequential complete projective mixed adds, `_level1_rows`,
-     `level1="steps"`);
+     `plan="sort"` instead; its columns hold the same bucket sums, so the
+     port serves `plan="sort"` with this one plan on both curves;
+  3. level 1 reduces every slab column to one point: `level1="pair"` (the
+     G1 default for affine accumulation and a power-of-two L) by the halves
+     pairing of curves/cuda_curve.py::l1_aff_halves; `level1="mega"` (G1
+     otherwise) by curves/cuda_curve.py::l1_rcb_mega, L sequential complete
+     projective mixed adds per column in one kernel; `level1="steps"` by
+     `_level1_rows`, the same L adds as one launch of the curve's mixed-add
+     kernel per slab row;
   4. `_collapse_columns`: stride-doubling adjacent-pair adds and compaction
      until every bucket owns one column, then the bucket readout;
   5. `_suffix_weighted`: sum_b b * B_b per window by a suffix scan and a
@@ -34,11 +38,15 @@ route the JAX package takes for each curve:
   6. the window Horner combine (G1: curves/cuda_curve.py::horner_fold; G2:
      c projective doubles and one add per window on one lane).
 
-G1 accumulates in complete batched affine (curves/affine.py: the aff_add
-kernel pair and the Fermat kernel), G2 in complete projective coordinates
-over Fq2 (curves/proj.py::PROJ_G2: the three G2 RCB kernels), as
-`accum="affine"` / `accum="proj"` in the JAX package. Stages 4-5 take either
-ops object. On CPU tensors the same code runs the kernels' plain versions.
+`accum="affine"` (the G1 default) accumulates stages 3-5 in complete batched
+affine (curves/affine.py: the aff_add kernel pair and the Fermat kernel;
+after the mega level 1, `AffineOps.from_proj`), `accum="proj"` (always on
+G2) in complete projective coordinates (curves/proj.py: PROJ_G1 on the
+three G1 RCB kernels, PROJ_G2 on the three G2 RCB kernels). Stages 4-5 take
+either ops object. On CPU tensors the same code runs the kernels' plain
+versions. `plan="tsort"`, `plan="gather"` and `level1="steps"` with
+`accum="affine"` raise NotImplementedError: their kernels or plans are not
+ported yet (ROADMAP.md).
 
 `fixed_base_table_host`, `fixed_base_msm` and `to_affine_device` port the
 fixed-base batch scalar muls of setup (:1247-1309): 32 windows of 8 bits,
@@ -52,12 +60,13 @@ slab words are int32 bit patterns of uint32 words.
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from ..curves.affine import AFF_G1, pack_words, unpack_words
-from ..curves.cuda_curve import horner_fold, l1_aff_halves
+from ..curves.cuda_curve import horner_fold, l1_aff_halves, l1_rcb_mega
 from ..curves.host import pt_add, pt_dbl
 from ..curves.proj import PROJ_G1, PROJ_G2, Proj
 from ..curves.torch_curve import CurveOps, Jac
@@ -364,14 +373,15 @@ def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
 
 
 def _level1_pair(ops, rows, L: int):
-    """Stage 3 (G1): every bucket-pure slab column to one affine point."""
+    """Stage 3, `level1="pair"`: every bucket-pure slab column to one affine
+    point."""
     return ops.unpack_rows(l1_aff_halves(rows, L))
 
 
 def _level1_rows(ops, rows, L: int, coord_shape: tuple) -> Proj:
-    """Stage 3 (G2, pippenger.py::_level1_rows, :832-851): L sequential
-    complete projective mixed adds; step g adds every column's g-th packed
-    element, the minor-dim slice [g*nw, (g+1)*nw) of the slab."""
+    """Stage 3, `level1="steps"` (pippenger.py::_level1_rows, :832-851): L
+    sequential complete projective mixed adds; step g adds every column's
+    g-th packed element, the minor-dim slice [g*nw, (g+1)*nw) of the slab."""
     ncols = rows.shape[0]
     nw = rows.shape[1] // L  # packed words per element (x || y)
     half = nw // 2
@@ -454,27 +464,88 @@ def _suffix_weighted(ops, buckets, W: int, B: int):
     return _plain_sum_axis1(ops, pt(*(a[:, 1:] for a in t)))
 
 
-def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254) -> Jac:
+# the routes of msm_tpu whose kernels or plan the port does not have yet
+_UNPORTED_PLANS = {
+    "tsort": "plan='tsort' runs interleave_slab_t and l1_aff_halves_t, which are not ported yet "
+             "(ROADMAP.md queue 2, item 10)",
+    "gather": "plan='gather' (the v6 _plan_tpu / _level1_tpu path) is not ported yet "
+              "(ROADMAP.md queue 1, item 1)",
+}
+_UNPORTED_STEPS_AFFINE = ("level1='steps' with accum='affine' runs aff_add_mixed_packed, which is not "
+                          "ported yet (ROADMAP.md queue 2, item 9)")
+
+
+def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple:
+    """(accum, level1, plan) as msm_tpu resolves its arguments
+    (hekaton_tpu/msm/pippenger.py:993-1051) on BN254 G1 or (g2) G2.
+
+    G1: accum "affine", plan "wsort", level1 "pair" for affine accumulation
+    and a power-of-two L, else "mega". G2: accum is "proj" and level1
+    "steps" whatever is asked (the mega kernel is G1's), plan "sort". An
+    explicit "pair" that cannot run (projective accumulation, the gather
+    plan, L not a power of two) warns and becomes "steps"; "tsort" with
+    "steps" becomes "wsort" (its kernels serve the mega and pair routes)."""
+    if accum is None:
+        accum = "proj" if g2 else "affine"
+    if accum not in ("affine", "proj"):
+        raise ValueError(f"msm_gpu: accum={accum!r} is not 'affine' or 'proj'")
+    if g2:
+        accum = "proj"
+    if plan is None:
+        plan = "sort" if g2 else "wsort"
+    if plan not in ("sort", "wsort", "tsort", "gather"):
+        raise ValueError(f"msm_gpu: plan={plan!r} is not 'sort', 'wsort', 'tsort' or 'gather'")
+    pow2 = L & (L - 1) == 0
+    if level1 is None:
+        level1 = "steps" if g2 else ("pair" if accum == "affine" and pow2 else "mega")
+    if level1 not in ("pair", "mega", "steps"):
+        raise ValueError(f"msm_gpu: level1={level1!r} is not 'pair', 'mega' or 'steps'")
+    if level1 == "pair" and (accum != "affine" or plan == "gather" or not pow2):
+        warnings.warn(
+            f"msm_gpu: level1='pair' needs accum='affine', a sorted plan and power-of-two L "
+            f"(got accum={accum!r}, plan={plan!r}, L={L}); falling back to level1='steps'",
+            stacklevel=3,
+        )
+        level1 = "steps"
+    if g2 and level1 == "mega":
+        level1 = "steps"
+    if plan == "tsort" and level1 == "steps":
+        plan = "wsort"
+    return accum, level1, plan
+
+
+def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254, p_super: int = 3,
+            accum: str | None = None, level1: str | None = None, plan: str | None = None) -> Jac:
     """sum_i scalars[i] * P_i over BN254 G1 or G2.
 
     ax, ay: affine limbs, (N, 16) for G1 or (N, 2, 16) Fq2 for G2 ((0,0) =
-    infinity); the coordinate shape picks the curve's route (module
-    docstring). scalars: (N, 16) int32 plain limbs on the same device.
-    Returns a Jacobian point of unbatched tensors. L must be a power of two
-    for G1."""
+    infinity); the coordinate shape picks the curve. scalars: (N, 16) int32
+    plain limbs on the same device. `accum`, `level1` and `plan` pick the
+    route as in msm_tpu (`resolve_route`; module docstring); `p_super` is
+    the collapse's strides per round. Returns a Jacobian point of unbatched
+    tensors."""
     N = ax.shape[0]
     dev = ax.device
     coord_shape = tuple(ax.shape[1:])
     g2 = len(coord_shape) == 2
+    accum, level1, plan = resolve_route(g2, L, accum, level1, plan)
+    if plan in _UNPORTED_PLANS:
+        raise NotImplementedError(f"msm_gpu: {_UNPORTED_PLANS[plan]}")
+    if level1 == "steps" and accum == "affine":
+        raise NotImplementedError(f"msm_gpu: {_UNPORTED_STEPS_AFFINE}")
     rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits)
-    if g2:
-        ops = PROJ_G2
-        acc = _level1_rows(ops, rows, L, coord_shape)
-    else:
-        ops = AFF_G1
+    proj = PROJ_G2 if g2 else PROJ_G1
+    ops = AFF_G1 if accum == "affine" else proj
+    if level1 == "mega":
+        acc = l1_rcb_mega(rows, L)
+        if accum == "affine":
+            acc = ops.from_proj(*acc)
+    elif level1 == "pair":
         acc = _level1_pair(ops, rows, L)
+    else:
+        acc = _level1_rows(ops, rows, L, coord_shape)
     del rows
-    d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in)
+    d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in, p=p_super)
 
     # one column per bucket now; buckets with no point have no column
     bucket_ids = torch.arange(NB, dtype=d.dtype, device=dev)
@@ -483,20 +554,21 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254) -> Jac:
     buckets = ops.select(present, type(acc)(*(a[first_pos] for a in acc)), ops.inf((NB,), dev))
 
     ws = _suffix_weighted(ops, buckets, W, B)
+    if accum == "affine":
+        ws = proj.from_affine(ws.x, ws.y)
     if g2:
         # the generic Horner (pippenger.py:1145-1154) on one lane
         a = Proj(*(t[W - 1 : W] for t in ws))
         for w in range(W - 2, -1, -1):
             for _ in range(c):
-                a = ops.dbl(a)
-            a = ops.add(a, Proj(*(t[w : w + 1] for t in ws)))
-        return Jac(*(t[0] for t in ops.to_jacobian(a)))
-    ws = PROJ_G1.from_affine(ws.x, ws.y)
+                a = proj.dbl(a)
+            a = proj.add(a, Proj(*(t[w : w + 1] for t in ws)))
+        return Jac(*(t[0] for t in proj.to_jacobian(a)))
     if W > 1:
         a = horner_fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c)
     else:
         a = Proj(ws.x[0], ws.y[0], ws.z[0])
-    return PROJ_G1.to_jacobian(a)
+    return proj.to_jacobian(a)
 
 
 # ---------------------------------------------------------------------------

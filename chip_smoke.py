@@ -7,14 +7,18 @@ at first use, one nvcc per source, all at once) and a host C++ compiler (the
 native host library). Phases, one line each, every failure raises:
 
   1. device: the card's name and power limit; build the kernels;
-  2. kernels: each of the fifteen CUDA kernel entry points against its plain
+  2. kernels: each of the twenty CUDA kernel entry points against its plain
      PyTorch version on the card, at the main paths' shapes, bit for bit,
-     with both times and the kernel's bound;
+     with both times and the kernel's bound (and l1_rcb_mega on the
+     transposed slab as well);
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
-     - msm_routes: the same MSM along msm_gpu's projective and mega routes
-       (ROUTES), each against the same host result;
+     - msm_routes: the same MSM along msm_gpu's other routes (ROUTES:
+       projective, mega, tsort, gather and affine steps), each against the
+       same host result, with its peak memory;
+     - unfused_affine: aff_prep, batch_inv and aff_fin on 2^18 lanes
+       against aff_add_fused;
      - msm_compact: the compact msm (TorchBackend's route up to 2,048
        points) on G1 at 32 (the ladder), 33 and 2,048 points and on G2 at 33
        points, with zero scalars, r-1, a repeated and an infinity point,
@@ -36,7 +40,8 @@ native host library). Phases, one line each, every failure raises:
        round-trip stage 0 through the wire format; configuration 1's stage-0
        commitments take the compact msm;
   4. coverage: every kernel of each path was launched in that path's run,
-     and no path but msm_routes launched one of ROUTE_KERNELS.
+     no path but msm_routes launched one of ROUTE_KERNELS and none but
+     unfused_affine one of UNFUSED_KERNELS.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -53,6 +58,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -72,8 +78,16 @@ ROUTES = (
     ("(a)", 32, {"accum": "proj"}),  # resolves to level1="mega"
     ("(b)", 24, {}),  # L not a power of two: mega, then affine accumulation
     ("(c)", 32, {"accum": "proj", "level1": "steps"}),  # one pmadd_rcb launch per slab row
+    ("(d)", 32, {"plan": "tsort"}),  # interleave_slab_t, then l1_aff_halves_t
+    ("(e)", 32, {"plan": "tsort", "accum": "proj"}),  # interleave_slab_t, then mega on the transposed slab
+    ("(f)", 32, {"plan": "gather"}),  # warns: "pair" becomes "steps", one add_packed per gathered row
+    ("(g)", 32, {"plan": "gather", "level1": "mega"}),  # mega on the gathered slab
+    ("(h)", 32, {"level1": "steps"}),  # wsort, one aff_add_mixed_packed per slab row
 )
-ROUTE_KERNELS = ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega")  # only msm_routes launches them
+WARNS = ("(f)",)  # the routes that warn
+ROUTE_KERNELS = ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega", "aff_add_mixed_packed", "interleave_slab_t",
+                 "l1_aff_halves_t")  # only msm_routes launches them
+UNFUSED_KERNELS = ("aff_prep", "aff_fin")  # no MSM route runs them: only unfused_affine
 # The [cli] phase's CLI runs: (label, setup command). BASELINE.json
 # configuration 4 (VM, 32 subcircuits, 1,024 cycles per subcircuit) is cut to
 # fit the script's time limit: a VM subcircuit holds ~1,000 constraints per
@@ -124,7 +138,7 @@ def kernel_name(mangled: str) -> str:
     for start in range(end - len("_kernel"), 0, -1):
         if any(mangled[start - k : start].isdigit() and int(mangled[start - k : start]) == end - start
                for k in (1, 2, 3) if start >= k):
-            m = re.match(r"ILi(\d)E", mangled[end:])
+            m = re.match(r"IL[ib](\d)E", mangled[end:])
             return mangled[start:end] + (f"<{m.group(1)}>" if m else "")
     return mangled
 
@@ -300,18 +314,34 @@ def g1_jacobian_pairs(tf, ax, ay, gen):
     return p, q
 
 
+def aff_edge_lanes(tf, ax, ay) -> tuple:
+    """N_LANES affine pairs (x1, y1) + (x2, y2) of the G1 set, with doubling
+    lanes 0-63, inverse pairs 64-127, inf + Q 128-191, P + inf 192-255 and
+    inf + inf 256-319."""
+    n = N_LANES
+    x1, y1 = ax[:n].clone(), ay[:n].clone()
+    x2, y2 = ax[n:2 * n].clone(), ay[n:2 * n].clone()
+    x2[:64], y2[:64] = x1[:64], y1[:64]  # doubling lanes
+    x2[64:128], y2[64:128] = x1[64:128], tf.neg(tf.FQ, y1[64:128])  # inverse pairs
+    x1[128:192], y1[128:192] = 0, 0  # inf + Q
+    x2[192:256], y2[192:256] = 0, 0  # P + inf
+    x1[256:320], y1[256:320], x2[256:320], y2[256:320] = 0, 0, 0, 0  # inf + inf
+    return x1, y1, x2, y2
+
+
 def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> list:
     """Every kernel against its plain version at the main paths' shapes."""
     rows = []
 
-    def record(name, source, replaces, ms, plain_ms, err, work):
+    def record(name, source, replaces, ms, plain_ms, err, work, library_ms=None):
         require(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
         bound_ms, bound_by = bound(*work)
+        library = "none" if library_ms is None else f"{library_ms:.3f} ms"
         log(f"[kernels] {name}: bit-identical, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"library {library}, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": library_ms})
 
     # mont_mul: 2^20 lanes, Fq and Fr, with 0, 1 and p-1
     errs, times = 0, {}
@@ -348,18 +378,34 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
     # aff_add_fused: 2^18 lanes with infinity, doubling and inverse-pair lanes
     n = N_LANES
     ax, ay = g1_pts
-    x1, y1 = ax[:n].clone(), ay[:n].clone()
-    x2, y2 = ax[n:2 * n].clone(), ay[n:2 * n].clone()
-    x2[:64], y2[:64] = x1[:64], y1[:64]  # doubling lanes
-    x2[64:128], y2[64:128] = x1[64:128], tf.neg(tf.FQ, y1[64:128])  # inverse pairs
-    x1[128:192], y1[128:192] = 0, 0  # inf + Q
-    x2[192:256], y2[192:256] = 0, 0  # P + inf
-    x1[256:320], y1[256:320], x2[256:320], y2[256:320] = 0, 0, 0, 0  # inf + inf
-    args = (x1, y1, x2, y2)
+    args = aff_edge_lanes(tf, ax, ay)
+    x1, y1, x2, y2 = args
+    add_products = 6 * n + 64 + bound.batch_inv((n + cc.K_ADD - 1) // cc.K_ADD)
     err = max_abs_err(cc.aff_add_fused(*args), cc.aff_add_fused_plain(*args))
     record("aff_add_fused", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:760",
            cuda_ms(lambda: cc.aff_add_fused(*args), 10), cuda_ms(lambda: cc.aff_add_fused_plain(*args), 2),
-           err, (6 * 64 * n, 6 * n + 64 + bound.batch_inv((n + cc.K_ADD - 1) // cc.K_ADD)))
+           err, (6 * 64 * n, add_products))
+
+    # aff_add_mixed_packed: the same lanes, the second operand as packed slab
+    # rows (the sentinel lanes all-zero rows)
+    rows_q = cc.AffineOps.pack_rows(cc.Aff(x2, y2))
+    pargs = (x1, y1, rows_q)
+    err = max_abs_err(cc.aff_add_mixed_packed(*pargs), cc.aff_add_mixed_packed_plain(*pargs))
+    record("aff_add_mixed_packed", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:712",
+           cuda_ms(lambda: cc.aff_add_mixed_packed(*pargs), 10),
+           cuda_ms(lambda: cc.aff_add_mixed_packed_plain(*pargs), 2), err, (5 * 64 * n, add_products))
+
+    # aff_prep and aff_fin: the same lanes, fin on the batch inverse of prep's den
+    den, num = cc.aff_prep(*args)
+    err = max_abs_err((den, num), cc.aff_prep_plain(*args))
+    record("aff_prep", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1305",
+           cuda_ms(lambda: cc.aff_prep(*args), 10), cuda_ms(lambda: cc.aff_prep_plain(*args), 2), err,
+           (6 * 64 * n, 64))
+    fargs = (*args, tf.batch_inv(tf.FQ, den), num)
+    err = max_abs_err(cc.aff_fin(*fargs), cc.aff_fin_plain(*fargs))
+    record("aff_fin", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1310",
+           cuda_ms(lambda: cc.aff_fin(*fargs), 10), cuda_ms(lambda: cc.aff_fin_plain(*fargs), 2), err,
+           (8 * 64 * n, 3 * n))
 
     # l1_aff_halves: the level-1 slab of a 2^16-point plan at L=32
     m = N_PLAN
@@ -370,9 +416,35 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
     err = max_abs_err(cc.l1_aff_halves(slab, L), cc.l1_aff_halves_plain(slab, L))
     ncols = meta[4]
     log(f"[kernels] l1_aff_halves slab: {ncols} columns x L={L} ({m} points, c={c})")
+    halves_work = (ncols * (L + 1) * 64, 6 * ncols * (L - 1) + 5 * bound.batch_inv(ncols))
     record("l1_aff_halves", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:930",
            cuda_ms(lambda: cc.l1_aff_halves(slab, L), 5), cuda_ms(lambda: cc.l1_aff_halves_plain(slab, L), 1),
-           err, (ncols * (L + 1) * 64, 6 * ncols * (L - 1) + 5 * bound.batch_inv(ncols)))
+           err, halves_work)
+
+    # l1_aff_halves_t: the same slab, transposed to (L*16, ncols)
+    slab_t = slab.t().contiguous()
+    got = cc.l1_aff_halves_t(slab_t, L)
+    err = max(max_abs_err(got, cc.l1_aff_halves_t_plain(slab_t, L)), max_abs_err(got.t(), cc.l1_aff_halves(slab, L)))
+    record("l1_aff_halves_t", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:906",
+           cuda_ms(lambda: cc.l1_aff_halves_t(slab_t, L), 5),
+           cuda_ms(lambda: cc.l1_aff_halves_t_plain(slab_t, L), 1), err, halves_work)
+
+    # interleave_slab_t: the word planes of the tsort plan of the same points;
+    # one PyTorch copy (a permuted .contiguous()) computes the same function
+    planes, _, tmeta = pip._plan_sorted_t(ax[:m].contiguous(), ay[:m].contiguous(), scal, c, L)
+    err = max_abs_err(cc.interleave_slab_t(planes), cc.interleave_slab_t_plain(planes))
+    log(f"[kernels] interleave_slab_t planes: {tuple(planes.shape)} ({planes.numel() * 4 / 2**20:.1f} MiB), "
+        f"{tmeta[4]} columns")
+    # a view one word into its storage: not 16-byte aligned, so the word-a-thread path
+    odd = torch.empty(planes.numel() + 1, dtype=planes.dtype, device=DEVICE)[1:].view(planes.shape)
+    odd.copy_(planes)
+    err = max(err, max_abs_err(cc.interleave_slab_t(odd), cc.interleave_slab_t_plain(planes)))
+    del odd
+    record("interleave_slab_t", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:529",
+           cuda_ms(lambda: cc.interleave_slab_t(planes), 10),
+           cuda_ms(lambda: cc.interleave_slab_t_plain(planes), 10), err, (2 * 4 * planes.numel(), 0),
+           library_ms=cuda_ms(lambda: planes.permute(2, 0, 1, 3).contiguous(), 10))
+    del planes
 
     # horner_fold: W=20 windows at c=13, compared in affine
     W = 20
@@ -426,10 +498,21 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
 
     # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products per row,
     # sentinel rows included
-    err = max_abs_err(cc.l1_rcb_mega(slab, L), cc.l1_rcb_mega_plain(slab, L))
+    got = cc.l1_rcb_mega(slab, L)
+    err = max_abs_err(got, cc.l1_rcb_mega_plain(slab, L))
+    mega_work = (ncols * (L * 64 + 192), 11 * L * ncols)
     record("l1_rcb_mega", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:572",
            cuda_ms(lambda: cc.l1_rcb_mega(slab, L), 10), cuda_ms(lambda: cc.l1_rcb_mega_plain(slab, L), 1),
-           err, (ncols * (L * 64 + 192), 11 * L * ncols))
+           err, mega_work)
+    # the same kernel on the transposed slab (the tsort route's layout): a
+    # line of its own, not a row
+    got_t = cc.l1_rcb_mega(slab_t, L, transposed=True)
+    err = max(max_abs_err(got_t, cc.l1_rcb_mega_plain(slab_t, L, transposed=True)), max_abs_err(got_t, got))
+    require(err == 0, f"l1_rcb_mega (transposed): kernel differs from its plain version (max abs err {err})")
+    ms_t = cuda_ms(lambda: cc.l1_rcb_mega(slab_t, L, transposed=True), 10)
+    plain_t = cuda_ms(lambda: cc.l1_rcb_mega_plain(slab_t, L, transposed=True), 1)
+    log(f"[kernels] l1_rcb_mega (transposed, {L * 16} x {ncols}): bit-identical, kernel {ms_t:.3f} ms, "
+        f"plain {plain_t:.3f} ms, bound {bound(*mega_work)[0]:.4f} ms ({bound(*mega_work)[1]})")
     return rows
 
 
@@ -618,10 +701,13 @@ def main() -> int:
                "l1_aff_halves": cc.l1_aff_halves, "horner_fold": cc.horner_fold, "madd": cc.madd,
                "pmadd_rcb_g2": cc.pmadd_rcb_g2, "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2,
                "dbl": cc.dbl, "add": cc.add, "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb,
-               "pdbl_rcb": cc.pdbl_rcb, "l1_rcb_mega": cc.l1_rcb_mega}
+               "pdbl_rcb": cc.pdbl_rcb, "l1_rcb_mega": cc.l1_rcb_mega,
+               "aff_add_mixed_packed": cc.aff_add_mixed_packed, "interleave_slab_t": cc.interleave_slab_t,
+               "l1_aff_halves_t": cc.l1_aff_halves_t, "aff_prep": cc.aff_prep, "aff_fin": cc.aff_fin}
+    require(set(kernels) == {r["name"] for r in rows}, "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
 
-    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS):
+    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
         one of its kernels was not launched, or one of `absent` was."""
         for fn in kernels.values():
@@ -665,12 +751,36 @@ def main() -> int:
 
     def routes_path():
         for label, route_L, route in ROUTES:
-            accum, level1, plan = pip.resolve_route(False, route_L, **route)
-            msm_path(f"G1 route {label} accum={accum}, level1={level1}, plan={plan}", ax, ay, expected, G1,
-                     L=route_L, **route)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                accum, level1, plan = pip.resolve_route(False, route_L, **route)
+                msm_path(f"G1 route {label} accum={accum}, level1={level1}, plan={plan}", ax, ay, expected, G1,
+                         L=route_L, **route)
+            for w in {str(w.message) for w in seen}:
+                log(f"[msm] route {label} warned: {w}")
+            require(bool(seen) == (label in WARNS), f"route {label}: expected a warning: {label in WARNS}")
 
     main_path("msm_routes", ["l1_rcb_mega", "padd_rcb", "pmadd_rcb", "mont_mul", "fermat_inv", "aff_add_fused",
-                             "horner_fold"], routes_path, absent=())
+                             "horner_fold", "aff_add_mixed_packed", "interleave_slab_t", "l1_aff_halves_t"],
+              routes_path, absent=UNFUSED_KERNELS)
+
+    # the unfused affine add: aff_prep, batch_inv of the denominators, aff_fin
+    uargs = aff_edge_lanes(tf, ax, ay)
+
+    def unfused_path():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        den, num = cc.aff_prep(*uargs)
+        got = cc.aff_fin(*uargs, tf.batch_inv(tf.FQ, den), num)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        require(max_abs_err(got, cc.aff_add_fused(*uargs)) == 0, "aff_prep, batch_inv, aff_fin differ from aff_add_fused")
+        log(f"[unfused_affine] aff_prep, batch_inv, aff_fin on {N_LANES} lanes equal aff_add_fused; "
+            f"{secs * 1e3:.2f} ms on {card}")
+
+    main_path("unfused_affine", ["aff_prep", "aff_fin", "mont_mul", "fermat_inv"], unfused_path,
+              absent=ROUTE_KERNELS)
+    del uargs
 
     # the compact msm at TorchBackend's window widths; the first rows of the
     # G1 and G2 sets hold scalars 0, 1 and r-1, an infinity row and a
@@ -775,7 +885,7 @@ def main() -> int:
                 f"a device route did not run: {backend.ran}")
         slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
 
-    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS], slice_path)
+    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS], slice_path)
 
     host = HostBackend()
     keys, circ, n = slice_out["keys"], slice_out["circ"], slice_out["n"]

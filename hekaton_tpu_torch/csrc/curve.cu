@@ -79,6 +79,46 @@
 // multiply throughput. The L adds of a column depend on each other; the
 // card hides that chain with the ~735K independent columns of a 2^20-point
 // MSM.
+//
+// Slab layouts. The halves pair and l1_rcb_mega take a template flag TR:
+// false reads the port's (ncols, l*16) slab, where word w of element i of
+// column c is at v[c*l*16 + i*16 + w] (each thread walks its own 64-byte
+// runs); true reads the transposed (l*16, ncols) slab of the tsort plan,
+// word w of element i at v[(i*16 + w)*ncols + c], so the 32 threads of a
+// warp read 32 adjacent words for every word they load. The halves pair
+// with TR = true replaces curves/pallas_curve.py::l1_aff_halves_t (:906, the
+// same two bodies with tr=True) and emits the next round's (k*16, ncols)
+// slab; l1_rcb_mega with TR = true is the JAX l1_rcb_mega's own layout.
+//
+// interleave_slab_t replaces curves/pallas_curve.py::interleave_slab_t
+// (_interleave_slab_t_kernel :498): 16 (W, L, mcols) word planes to the
+// (L*16, W*mcols) transposed slab, slab_t[r*16 + j][w*mcols + m] =
+// planes[j][w][r][m]. It is pure data movement, bound by bytes (each word
+// read once and written once): a block copies one plane row's run of m into
+// one slab row, 16 bytes a thread where mcols % 4 == 0 and both pointers are
+// 16-byte aligned (msm_gpu pads mcols to a multiple of 32), so reads and writes are both coalesced along m and
+// no thread divides. The Pallas kernel's 8-row blocks exist for the TPU's
+// tiling; nothing here needs L a multiple of 8.
+//
+// aff_root / aff_fin with PACKED = true replace
+// curves/pallas_curve.py::aff_add_mixed_packed (:712; _aff_root_packed_kernel
+// :650, _aff_fin_tree_packed_kernel :661): the same complete add with the
+// second operand read as a packed (n, 16) slab row (8 x-words, 8 y-words),
+// so the steps route adds a slab row without unpacking it in torch. Bound
+// as the aff_add pair. No padding: the JAX wrapper pads n to a multiple of
+// 1,024 with (0,0) lanes, whose denominators are 1; here lanes past n are
+// masked to 1 as well, so every real lane gets the same sum.
+//
+// aff_prep and aff_finish replace curves/pallas_curve.py::aff_prep and
+// ::aff_fin (:1305/:1310; _aff_prep_kernel :957 on _aff_prep_tiles :374,
+// _aff_fin_kernel :963 on _aff_fin_tiles :392): the unfused halves of the
+// complete add around a caller's batch inversion, one thread per lane.
+// aff_prep writes the masked denominator and the numerator (3*x1^2 on
+// doubling lanes, dy elsewhere; _num_tiles' block-level lax.cond does not
+// change the values); aff_finish takes the numerator it is given. aff_prep
+// is subtractions (a square on doubling lanes only) against 256 bytes in and
+// 128 out, aff_finish three products against 384 in and 128 out: both bound
+// by bytes.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -88,6 +128,7 @@ using namespace hk;
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int COPY_THREADS = 256;  // the interleave copy
 
 struct Aff {
   Fe x, y;
@@ -117,14 +158,19 @@ __device__ __forceinline__ Fe aff_den(const Aff& p, const Aff& q) {
   return degen ? fe_one<FQ>() : den;
 }
 
-// complete P + Q from the inverted denominator
-__device__ __forceinline__ Aff aff_fin(const Aff& p, const Aff& q, const Fe& inv) {
-  AffFlags f = aff_flags(p, q);
+// slope numerator: 3*x1^2 when doubling, dy otherwise
+__device__ __forceinline__ Fe aff_num(const Aff& p, const AffFlags& f) {
   Fe num = f.dy;
   if (f.dbl) {
     Fe x1sq = fe_sqr<FQ>(p.x);
     num = fe_add<FQ>(fe_add<FQ>(x1sq, x1sq), x1sq);
   }
+  return num;
+}
+
+// complete P + Q from the inverted denominator and the numerator
+__device__ __forceinline__ Aff aff_sum(const Aff& p, const Aff& q, const AffFlags& f, const Fe& inv,
+                                       const Fe& num) {
   Fe lam = fe_mul<FQ>(num, inv);
   Fe x2s = f.dbl ? p.x : q.x;
   Aff r;
@@ -137,17 +183,58 @@ __device__ __forceinline__ Aff aff_fin(const Aff& p, const Aff& q, const Fe& inv
   return r;
 }
 
+// complete P + Q from the inverted denominator
+__device__ __forceinline__ Aff aff_fin(const Aff& p, const Aff& q, const Fe& inv) {
+  AffFlags f = aff_flags(p, q);
+  return aff_sum(p, q, f, inv, aff_num(p, f));
+}
+
 __device__ __forceinline__ Aff load_aff(const int32_t* x, const int32_t* y, long long i) {
   return Aff{load_limbs(x + i * 16), load_limbs(y + i * 16)};
 }
 
-// packed slab element: 8 x-words then 8 y-words
-__device__ __forceinline__ Aff load_packed(const int32_t* row) {
-  return Aff{load_words(row), load_words(row + 8)};
+// packed slab element whose 16 words lie `stride` apart: 8 x-words then 8
+// y-words
+__device__ __forceinline__ Aff load_packed(const int32_t* e, long long stride = 1) {
+  Aff a;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    a.x.w[i] = (uint32_t)e[i * stride];
+    a.y.w[i] = (uint32_t)e[(8 + i) * stride];
+  }
+  return a;
+}
+
+__device__ __forceinline__ void store_packed(int32_t* e, long long stride, const Aff& a) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    e[i * stride] = (int32_t)a.x.w[i];
+    e[(8 + i) * stride] = (int32_t)a.y.w[i];
+  }
+}
+
+// element i of column c of a slab of l elements a column: its first word and
+// the distance between its words (the TR flag of the slab layouts above)
+template <bool TR>
+__device__ __forceinline__ long long slab_at(long long c, int i, int l, long long ncols) {
+  return TR ? (long long)i * 16 * ncols + c : c * (16LL * l) + i * 16;
+}
+
+template <bool TR>
+__device__ __forceinline__ long long slab_stride(long long ncols) {
+  return TR ? ncols : 1;
+}
+
+// the second operand of lane i: (n, 16) limb rows px, py, or (PACKED) the
+// packed (n, 16) slab row px[i]
+template <bool PACKED>
+__device__ __forceinline__ Aff load_q(const int32_t* px, const int32_t* py, long long i) {
+  return PACKED ? load_packed(px + i * 16) : load_aff(px, py, i);
 }
 
 // -- complete batched-affine add over n lanes -------------------------------
 
+template <bool PACKED>
 __global__ void aff_root_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                                 const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                                 int32_t* __restrict__ pre, int32_t* __restrict__ roots,
@@ -158,13 +245,14 @@ __global__ void aff_root_kernel(const int32_t* __restrict__ x1, const int32_t* _
   for (int j = 0; j < k; j++) {
     long long lane = (long long)j * nthreads + t;
     Fe den = fe_one<FQ>();
-    if (lane < n) den = aff_den(load_aff(x1, y1, lane), load_aff(px, py, lane));
+    if (lane < n) den = aff_den(load_aff(x1, y1, lane), load_q<PACKED>(px, py, lane));
     acc = j == 0 ? den : fe_mul<FQ>(acc, den);
     store_words(pre + ((long long)j * nthreads + t) * 8, acc);
   }
   store_limbs(roots + t * 16, acc);
 }
 
+template <bool PACKED>
 __global__ void aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                                const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                                const int32_t* __restrict__ pre, const int32_t* __restrict__ rinv,
@@ -180,7 +268,7 @@ __global__ void aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __
     Fe den = fe_one<FQ>();
     if (lane < n) {
       Aff p = load_aff(x1, y1, lane);
-      Aff q = load_aff(px, py, lane);
+      Aff q = load_q<PACKED>(px, py, lane);
       Aff r = aff_fin(p, q, inv);
       store_limbs(ox + lane * 16, r.x);
       store_limbs(oy + lane * 16, r.y);
@@ -192,38 +280,88 @@ __global__ void aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __
 
 // -- one level-1 halves round: element i + element k+i of every column ------
 
+template <bool TR>
 __global__ void halves_root_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre,
                                    int32_t* __restrict__ roots, long long ncols, int k) {
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncols) return;
-  const int32_t* row = v + c * (2LL * k * 16);
+  long long s = slab_stride<TR>(ncols);
   Fe acc = fe_one<FQ>();
   for (int i = 0; i < k; i++) {
-    Fe den = aff_den(load_packed(row + i * 16), load_packed(row + (k + i) * 16));
+    Fe den = aff_den(load_packed(v + slab_at<TR>(c, i, 2 * k, ncols), s),
+                     load_packed(v + slab_at<TR>(c, k + i, 2 * k, ncols), s));
     acc = i == 0 ? den : fe_mul<FQ>(acc, den);
     store_words(pre + ((long long)i * ncols + c) * 8, acc);
   }
   store_limbs(roots + c * 16, acc);
 }
 
+template <bool TR>
 __global__ void halves_fin_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ pre,
                                   const int32_t* __restrict__ rinv, int32_t* __restrict__ out,
                                   long long ncols, int k) {
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncols) return;
-  const int32_t* row = v + c * (2LL * k * 16);
-  int32_t* orow = out + c * ((long long)k * 16);
+  long long s = slab_stride<TR>(ncols);
   Fe inv_run = load_limbs(rinv + c * 16);
   for (int i = k - 1; i >= 0; i--) {
-    Aff p = load_packed(row + i * 16);
-    Aff q = load_packed(row + (k + i) * 16);
+    Aff p = load_packed(v + slab_at<TR>(c, i, 2 * k, ncols), s);
+    Aff q = load_packed(v + slab_at<TR>(c, k + i, 2 * k, ncols), s);
     Fe inv = i > 0 ? fe_mul<FQ>(inv_run, load_words(pre + ((long long)(i - 1) * ncols + c) * 8))
                    : inv_run;
-    Aff r = aff_fin(p, q, inv);
-    store_words(orow + i * 16, r.x);
-    store_words(orow + i * 16 + 8, r.y);
+    store_packed(out + slab_at<TR>(c, i, k, ncols), s, aff_fin(p, q, inv));
     if (i > 0) inv_run = fe_mul<FQ>(inv_run, aff_den(p, q));
   }
+}
+
+// -- the tsort plan's word planes -> the transposed slab ---------------------
+
+// grid (column blocks, W, L*16): block (x, w, row) copies row `row` of
+// window w's mcols words, V words a thread (V = 4: 16-byte loads and stores,
+// for mcols % 4 == 0)
+template <int V>
+__global__ void __launch_bounds__(COPY_THREADS)
+    interleave_slab_t_kernel(const int32_t* __restrict__ planes, int32_t* __restrict__ out, int W, int L,
+                             int mcols) {
+  int m = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (m >= mcols) return;
+  int w = blockIdx.y;
+  int row = blockIdx.z;  // r*16 + j
+  const int32_t* src = planes + (((long long)(row & 15) * W + w) * L + (row >> 4)) * mcols + m;
+  int32_t* dst = out + ((long long)row * W + w) * mcols + m;
+  if constexpr (V == 4) {
+    *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// -- the unfused affine add: (den, num), then the sum from 1/den -------------
+
+__global__ void __launch_bounds__(THREADS)
+    aff_prep_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                    const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                    int32_t* __restrict__ den, int32_t* __restrict__ num, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Aff p = load_aff(x1, y1, i);
+  Aff q = load_aff(px, py, i);
+  store_limbs(den + i * 16, aff_den(p, q));
+  store_limbs(num + i * 16, aff_num(p, aff_flags(p, q)));
+}
+
+__global__ void __launch_bounds__(THREADS)
+    aff_finish_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                      const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                      const int32_t* __restrict__ inv, const int32_t* __restrict__ num,
+                      int32_t* __restrict__ ox, int32_t* __restrict__ oy, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Aff p = load_aff(x1, y1, i);
+  Aff q = load_aff(px, py, i);
+  Aff r = aff_sum(p, q, aff_flags(p, q), load_limbs(inv + i * 16), load_limbs(num + i * 16));
+  store_limbs(ox + i * 16, r.x);
+  store_limbs(oy + i * 16, r.y);
 }
 
 // -- window Horner fold on complete RCB15 projective formulas (a=0, b3=9) ---
@@ -367,15 +505,16 @@ __global__ void __launch_bounds__(THREADS)
 
 // -- MSM level 1 on projective accumulators: one thread per slab column ------
 
+template <bool TR>
 __global__ void __launch_bounds__(THREADS)
     l1_rcb_mega_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ ox,
                        int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long ncols, int L) {
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncols) return;
-  const int32_t* row = v + c * (16LL * L);
+  long long s = slab_stride<TR>(ncols);
   Proj acc{fe_zero(), fe_one<FQ>(), fe_zero()};
   for (int r = 0; r < L; r++) {
-    Aff q = load_packed(row + r * 16);
+    Aff q = load_packed(v + slab_at<TR>(c, r, L, ncols), s);
     acc = pmadd_rcb(acc, q.x, q.y);
   }
   store_proj(ox, oy, oz, c, acc);
@@ -513,7 +652,7 @@ unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS
 extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const void* py,
                            void* pre, void* roots, long long n, long long nthreads, int k,
                            void* stream) {
-  aff_root_kernel<<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+  aff_root_kernel<false><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
       (int32_t*)pre, (int32_t*)roots, n, nthreads, k);
   return (int)cudaGetLastError();
@@ -522,23 +661,77 @@ extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const
 extern "C" int hk_aff_fin(const void* x1, const void* y1, const void* px, const void* py,
                           const void* pre, const void* rinv, void* ox, void* oy, long long n,
                           long long nthreads, int k, void* stream) {
-  aff_fin_kernel<<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+  aff_fin_kernel<false><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
       (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
   return (int)cudaGetLastError();
 }
 
+// the complete add with a packed (n, 16) slab row as second operand
+extern "C" int hk_aff_root_packed(const void* x1, const void* y1, const void* rows, void* pre,
+                                  void* roots, long long n, long long nthreads, int k,
+                                  void* stream) {
+  aff_root_kernel<true><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)rows, nullptr, (int32_t*)pre,
+      (int32_t*)roots, n, nthreads, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_aff_fin_packed(const void* x1, const void* y1, const void* rows, const void* pre,
+                                 const void* rinv, void* ox, void* oy, long long n,
+                                 long long nthreads, int k, void* stream) {
+  aff_fin_kernel<true><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)rows, nullptr, (const int32_t*)pre,
+      (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
+  return (int)cudaGetLastError();
+}
+
+// one halves round on a (ncols, 2k*16) slab, or (transposed) a (2k*16, ncols) one
 extern "C" int hk_halves_root(const void* v, void* pre, void* roots, long long ncols, int k,
-                              void* stream) {
-  halves_root_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (int32_t*)pre, (int32_t*)roots, ncols, k);
+                              int transposed, void* stream) {
+  auto kern = transposed ? halves_root_kernel<true> : halves_root_kernel<false>;
+  kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>((const int32_t*)v, (int32_t*)pre,
+                                                                (int32_t*)roots, ncols, k);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hk_halves_fin(const void* v, const void* pre, const void* rinv, void* out,
-                             long long ncols, int k, void* stream) {
-  halves_fin_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
+                             long long ncols, int k, int transposed, void* stream) {
+  auto kern = transposed ? halves_fin_kernel<true> : halves_fin_kernel<false>;
+  kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)v, (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)out, ncols, k);
+  return (int)cudaGetLastError();
+}
+
+// (16, W, L, mcols) word planes -> the (L*16, W*mcols) transposed slab
+extern "C" int hk_interleave_slab_t(const void* planes, void* out, int W, int L, int mcols,
+                                    void* stream) {
+  // int4 loads and stores need every row start 16-byte aligned: mcols % 4
+  // == 0 and both base pointers aligned (a view may start at any word)
+  bool aligned = ((reinterpret_cast<uintptr_t>(planes) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  int v = mcols % 4 == 0 && aligned ? 4 : 1;
+  dim3 grid((mcols / v + COPY_THREADS - 1) / COPY_THREADS, W, 16 * L);
+  auto kern = v == 4 ? interleave_slab_t_kernel<4> : interleave_slab_t_kernel<1>;
+  kern<<<grid, COPY_THREADS, 0, (cudaStream_t)stream>>>((const int32_t*)planes, (int32_t*)out, W, L,
+                                                          mcols);
+  return (int)cudaGetLastError();
+}
+
+// n lanes of (16,) limb rows per coordinate; outputs must not alias inputs
+extern "C" int hk_aff_prep(const void* x1, const void* y1, const void* px, const void* py,
+                           void* den, void* num, long long n, void* stream) {
+  aff_prep_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
+      (int32_t*)den, (int32_t*)num, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hk_aff_finish(const void* x1, const void* y1, const void* px, const void* py,
+                             const void* inv, const void* num, void* ox, void* oy, long long n,
+                             void* stream) {
+  aff_finish_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
+      (const int32_t*)inv, (const int32_t*)num, (int32_t*)ox, (int32_t*)oy, n);
   return (int)cudaGetLastError();
 }
 
@@ -603,11 +796,12 @@ extern "C" int hk_pdbl_rcb(const void* x, const void* y, const void* z, void* ox
   return (int)cudaGetLastError();
 }
 
-// (ncols, L*16) packed slab -> the three (ncols, 16) limb rows of each
-// column's projective sum
+// (ncols, L*16) packed slab, or (transposed) an (L*16, ncols) one -> the
+// three (ncols, 16) limb rows of each column's projective sum
 extern "C" int hk_l1_rcb_mega(const void* v, void* ox, void* oy, void* oz, long long ncols, int L,
-                              void* stream) {
-  l1_rcb_mega_kernel<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
+                              int transposed, void* stream) {
+  auto kern = transposed ? l1_rcb_mega_kernel<true> : l1_rcb_mega_kernel<false>;
+  kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)v, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, ncols, L);
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,13 @@ SIGNATURES = {
     "hk_fermat_inv": [_int, _vp, _vp, _ll, _vp],
     "hk_aff_root": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _int, _vp],
     "hk_aff_fin": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _int, _vp],
-    "hk_halves_root": [_vp, _vp, _vp, _ll, _int, _vp],
-    "hk_halves_fin": [_vp, _vp, _vp, _vp, _ll, _int, _vp],
+    "hk_aff_root_packed": [_vp] * 5 + [_ll, _ll, _int, _vp],
+    "hk_aff_fin_packed": [_vp] * 7 + [_ll, _ll, _int, _vp],
+    "hk_aff_prep": [_vp] * 6 + [_ll, _vp],
+    "hk_aff_finish": [_vp] * 8 + [_ll, _vp],
+    "hk_halves_root": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "hk_halves_fin": [_vp, _vp, _vp, _vp, _ll, _int, _int, _vp],
+    "hk_interleave_slab_t": [_vp, _vp, _int, _int, _int, _vp],
     "hk_horner": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     "hk_madd": [_vp] * 8 + [_ll, _vp],
     "hk_dbl": [_vp] * 6 + [_ll, _vp],
@@ -49,7 +54,7 @@ SIGNATURES = {
     "hk_pmadd_rcb": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb": [_vp] * 6 + [_ll, _vp],
-    "hk_l1_rcb_mega": [_vp] * 4 + [_ll, _int, _vp],
+    "hk_l1_rcb_mega": [_vp] * 4 + [_ll, _int, _int, _vp],
     "hk_pmadd_rcb_g2": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb_g2": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb_g2": [_vp] * 6 + [_ll, _vp],

@@ -8,9 +8,11 @@ Completeness is branchless: (0,0) is infinity (y = 0 never occurs on the
 prime-order a=0 curve), equal-x lanes take the tangent, inverse pairs give
 (0,0).
 
-`AffineOps.add` is curves/cuda_curve.py::aff_add_fused, which launches the
-CUDA kernel pair for CUDA tensors (as `PallasAffG1Ops.add` reaches the
-Pallas pair, affine.py:188-216) and runs its plain version for CPU tensors.
+`AffineOps.add` is curves/cuda_curve.py::aff_add_fused and
+`AffineOps.add_packed` curves/cuda_curve.py::aff_add_mixed_packed, which
+launch their CUDA kernel pairs for CUDA tensors (as `PallasAffG1Ops.add`
+and `.add_packed` reach the Pallas pairs, affine.py:188-216) and run their
+plain versions for CPU tensors.
 
 Packed rows (the MSM slab) hold two 16-bit limbs per 32-bit word, 8 x-words
 then 8 y-words, as int32 bit patterns.
@@ -65,6 +67,14 @@ class AffineOps:
 
         args = [t.contiguous() for t in (p.x, p.y, q.x, q.y)]
         return Aff(*aff_add_fused(*args))
+
+    def add_packed(self, p: Aff, rows) -> Aff:
+        """P + the points of the packed (n, 16) rows (8 x-words || 8
+        y-words): the level-1 step of the affine steps routes
+        (PallasAffG1Ops.add_packed, affine.py:211)."""
+        from .cuda_curve import aff_add_mixed_packed
+
+        return Aff(*aff_add_mixed_packed(p.x.contiguous(), p.y.contiguous(), rows.contiguous()))
 
     def from_proj(self, x, y, z) -> Aff:
         """Batched projective (x : y : z) -> affine by one batch inversion

@@ -1,8 +1,9 @@
-"""Curve kernels: the G1 MSM's complete batched-affine add, level-1 halves
-pairing and window Horner fold; its three complete projective ops and
-projective level 1 (the accum="proj" and level1="mega" routes); the G1
-Jacobian mixed add of the fixed-base muls; and the G2 MSM's three complete
-projective Fq2 ops.
+"""Curve kernels: the G1 MSM's complete batched-affine add (also with a
+packed-row operand, and unfused as prep / finish), level-1 halves pairing
+(on either slab layout), the tsort plan's slab interleave and the window
+Horner fold; its three complete projective ops and projective level 1 (the
+accum="proj" and level1="mega" routes); the G1 Jacobian mixed add of the
+fixed-base muls; and the G2 MSM's three complete projective Fq2 ops.
 
 Port of the main-path kernels of hekaton_tpu/curves/pallas_curve.py. Source:
 csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
@@ -10,8 +11,19 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
 
 - `aff_add_fused` replaces `aff_add_fused` (pallas_curve.py:760; kernels
   `_aff_root_kernel` :426 and `_aff_fin_tree_kernel` :442).
+- `aff_add_mixed_packed` replaces `aff_add_mixed_packed` (pallas_curve.py:712;
+  kernels `_aff_root_packed_kernel` :650 and `_aff_fin_tree_packed_kernel`
+  :661): the second operand is a packed slab row. No padding of n.
+- `aff_prep` and `aff_fin` replace `aff_prep` and `aff_fin`
+  (pallas_curve.py:1305/1310; kernels `_aff_prep_kernel` :957 and
+  `_aff_fin_kernel` :963 on `_aff_prep_tiles` :374 / `_aff_fin_tiles` :392).
 - `l1_aff_halves` replaces `l1_aff_halves` with tr=False (pallas_curve.py:930;
-  kernels `_aff_halves_root_kernel` :802 and `_aff_halves_fin_kernel` :822).
+  kernels `_aff_halves_root_kernel` :802 and `_aff_halves_fin_kernel` :822);
+  `l1_aff_halves_t` replaces `l1_aff_halves_t` (:906, the same bodies with
+  tr=True) on the transposed (L*16, ncols) slab.
+- `interleave_slab_t` replaces `interleave_slab_t` (pallas_curve.py:529;
+  kernel `_interleave_slab_t_kernel` :498) on the port's (16, W, L, mcols)
+  stack of the 16 word planes; it needs no L % 8 == 0.
 - `horner_fold` replaces `horner_fold` (pallas_curve.py:625; kernel
   `_horner_kernel` :583).
 - `madd` replaces `madd` (pallas_curve.py:1281; kernel `_madd_kernel`
@@ -25,8 +37,8 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
   :1226). Their interface keeps the JAX shape: (..., 16) int32 Montgomery
   limbs per coordinate.
 - `l1_rcb_mega` replaces `l1_rcb_mega` (pallas_curve.py:572; kernel
-  `_l1_mega_kernel` :470) on the port's own (ncols, L*16) slab, not JAX's
-  transposed (L*16, ncols) one.
+  `_l1_mega_kernel` :470) on the port's own (ncols, L*16) slab, or with
+  transposed=True on JAX's (L*16, ncols) one.
 - `pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2` replace the wrappers of the
   same names (pallas_curve.py:1315/1320/1324; kernels `_pmadd_rcb_g2_kernel`
   :1115, `_padd_rcb_g2_kernel` :1130, `_pdbl_rcb_g2_kernel` :1148, all
@@ -41,11 +53,12 @@ chain; the Horner fold is one thread, bound by the latency of its chain.
 lane, straight-line formulas, bound by integer multiply throughput once the
 card is full; `l1_rcb_mega` is one thread per slab column, its accumulator
 in registers for all L adds (csrc/curve.cu, csrc/curve_g2.cu).
+`interleave_slab_t`, `aff_prep` and `aff_fin` are bound by bytes.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
 CUDA tensors to its kernels; nothing falls back. `launches` on each wrapper
 counts its kernel launches (one per add, per halves round, per fold, per
-level-1 slab, per batch of point ops).
+level-1 slab, per interleave, per batch of point ops).
 """
 from __future__ import annotations
 
@@ -70,15 +83,22 @@ K_ADD = 8  # lanes per thread (one prefix chain) in the aff_add kernel pair
 # ---------------------------------------------------------------------------
 
 
-def aff_add_fused_plain(x1, y1, px, py):
-    """Complete batched-affine (x1, y1) + (px, py) on the plain formulas
-    (curves/affine.py::AffineOps._prep/_fin of the JAX package)."""
+def _aff_flags(x1, y1, px, py):
     q_inf = tf.is_zero(FQ, py)
     p_inf = tf.is_zero(FQ, y1)
     dx = tf.sub(FQ, px, x1)
     dy = tf.sub(FQ, py, y1)
     same_x = tf.is_zero(FQ, dx)
-    dbl = same_x & tf.is_zero(FQ, dy)
+    return q_inf, p_inf, dx, dy, same_x, same_x & tf.is_zero(FQ, dy)
+
+
+def aff_prep_plain(x1, y1, px, py):
+    """(den, num) of the slope of (x1, y1) + (px, py), as
+    pallas_curve.py::_aff_prep_tiles: den = px - x1 and num = py - y1, on
+    doubling lanes 2*y1 and 3*x1^2; den = 1 where either operand is the
+    (0,0) infinity or the pair is inverse, so a batch inversion stays
+    defined."""
+    q_inf, p_inf, dx, dy, same_x, dbl = _aff_flags(x1, y1, px, py)
     num = dy
     if bool(dbl.any()):  # doubling lanes need 3*x1^2 (as _num_tiles' lax.cond)
         x1sq = tf.mont_mul(FQ, x1, x1)
@@ -86,7 +106,15 @@ def aff_add_fused_plain(x1, y1, px, py):
     den = tf.select(dbl, tf.add(FQ, y1, y1), dx)
     degen = q_inf | p_inf | (same_x & ~dbl)
     den = tf.select(degen, tf.consts(FQ, den.device)["one"].expand(den.shape), den)
-    inv = tf.batch_inv_plain(FQ, den)
+    return den, num
+
+
+def aff_fin_plain(x1, y1, px, py, inv, num):
+    """The complete sum from inv = 1/den and the given num, as
+    pallas_curve.py::_aff_fin_tiles: lam = num * inv, x3 = lam^2 - x1 - x2,
+    y3 = lam (x1 - x3) - y1; an inverse pair gives (0,0), an infinite
+    operand the other one."""
+    q_inf, p_inf, dx, dy, same_x, dbl = _aff_flags(x1, y1, px, py)
     lam = tf.mont_mul(FQ, num, inv)
     x2s = tf.select(dbl, x1, px)
     x3 = tf.sub(FQ, tf.sub(FQ, tf.mont_mul(FQ, lam, lam), x1), x2s)
@@ -102,6 +130,20 @@ def aff_add_fused_plain(x1, y1, px, py):
     return x3, y3
 
 
+def aff_add_fused_plain(x1, y1, px, py):
+    """Complete batched-affine (x1, y1) + (px, py) on the plain formulas
+    (curves/affine.py::AffineOps._prep/_fin of the JAX package)."""
+    den, num = aff_prep_plain(x1, y1, px, py)
+    return aff_fin_plain(x1, y1, px, py, tf.batch_inv_plain(FQ, den), num)
+
+
+def aff_add_mixed_packed_plain(x1, y1, rows):
+    """Complete batched-affine (x1, y1) + the points of the packed rows
+    (..., 16) (8 x-words || 8 y-words), on the plain formulas."""
+    q = AffineOps.unpack_rows(rows)
+    return aff_add_fused_plain(x1, y1, q.x, q.y)
+
+
 def l1_aff_halves_plain(rows, L: int):
     """(ncols, L*16) packed slab -> (ncols, 16) packed column sums, by
     log2(L) rounds of element i + element l/2+i, on the plain formulas."""
@@ -115,6 +157,31 @@ def l1_aff_halves_plain(rows, L: int):
         rows = AffineOps.pack_rows(Aff(*aff_add_fused_plain(a.x, a.y, b.x, b.y))).reshape(ncols, k * 16)
         l = k
     return rows
+
+
+def l1_aff_halves_t_plain(slab_t, L: int):
+    """l1_aff_halves_plain on the transposed slab: (L*16, ncols), word w of
+    column c's element i in row i*16 + w, -> (16, ncols); every round's
+    slab is (l*16, ncols)."""
+    ncols = slab_t.shape[1]
+    l = L
+    while l > 1:
+        k = l // 2
+        v = slab_t.reshape(l, 16, ncols).transpose(1, 2)  # (l, ncols, 16) packed elements
+        a = AffineOps.unpack_rows(v[:k])
+        b = AffineOps.unpack_rows(v[k:])
+        s = AffineOps.pack_rows(Aff(*aff_add_fused_plain(a.x, a.y, b.x, b.y)))
+        slab_t = s.transpose(1, 2).reshape(k * 16, ncols)
+        l = k
+    return slab_t
+
+
+def interleave_slab_t_plain(planes):
+    """(16, W, L, mcols) word planes -> the (L*16, W*mcols) transposed slab,
+    slab_t[r*16 + j, w*mcols + m] = planes[j, w, r, m] (the XLA interleave
+    of hekaton_tpu/msm/pippenger.py:1062-1066)."""
+    _, W, L, mcols = planes.shape
+    return planes.permute(2, 0, 1, 3).reshape(L * 16, W * mcols)
 
 
 _PROJ_G1_PLAIN = ProjOps(tf.FqPlain, 9, "g1_proj_plain")
@@ -147,17 +214,23 @@ def pdbl_rcb_plain(x, y, z):
     return _PROJ_G1_PLAIN.dbl(Proj(x, y, z))
 
 
-def l1_rcb_mega_plain(rows, L: int) -> Proj:
-    """(ncols, L*16) packed slab -> each column's L packed rows added in
-    order into the identity (0:1:0) on the plain formulas: projective
-    (x, y, z), each (ncols, 16)."""
-    ncols = rows.shape[0]
-    v = rows.reshape(ncols, L, 16)
+def l1_rcb_mega_plain(rows, L: int, transposed: bool = False) -> Proj:
+    """(ncols, L*16) packed slab, or (transposed) an (L*16, ncols) one ->
+    each column's L packed rows added in order into the identity (0:1:0)
+    on the plain formulas: projective (x, y, z), each (ncols, 16)."""
+    if transposed:
+        ncols = rows.shape[1]
+        v = rows.reshape(L, 16, ncols).permute(2, 0, 1)
+    else:
+        ncols = rows.shape[0]
+        v = rows.reshape(ncols, L, 16)
     acc = _PROJ_G1_PLAIN.inf((ncols,), rows.device)
     for g in range(L):
         q = AffineOps.unpack_rows(v[:, g])
         acc = _PROJ_G1_PLAIN.add_mixed(acc, q.x, q.y)
     return acc
+
+
 _G1_PLAIN = CurveOps(tf.FqPlain, "g1_plain")  # its dbl is _dbl_tiles' dbl-2009-l
 
 
@@ -220,19 +293,26 @@ def add_plain(x1, y1, z1, x2, y2, z2):
 # ---------------------------------------------------------------------------
 
 
-def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple):
-    """Launch the one-thread-per-lane point kernel `entry` on `args`, each a
-    contiguous int32 (..., *coord_shape) batch of one shape on one device;
-    count the launch on the wrapper `fn` and return the three output
-    coordinates."""
+def _check_batch(fn, args: tuple, coord_shape: tuple) -> None:
+    """Each of `args` a contiguous int32 (..., *coord_shape) tensor on the
+    first one's device, of the first one's shape."""
     first = args[0]
     for i, t in enumerate(args):
         check_limbs(f"{fn.__name__} argument {i}", t, first.device)
         if t.shape != first.shape or tuple(t.shape[t.dim() - len(coord_shape):]) != coord_shape:
             raise ValueError(f"{fn.__name__}: argument {i} {tuple(t.shape)} is not (..., "
                              f"{', '.join(map(str, coord_shape))}) of shape {tuple(first.shape)}")
+
+
+def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple, n_out: int = 3):
+    """Launch the one-thread-per-lane kernel `entry` on `args`, each a
+    contiguous int32 (..., *coord_shape) batch of one shape on one device;
+    count the launch on the wrapper `fn` and return its `n_out` outputs of
+    that shape."""
+    _check_batch(fn, args, coord_shape)
+    first = args[0]
     n = first.numel() // math.prod(coord_shape)
-    outs = tuple(torch.empty_like(first) for _ in range(3))
+    outs = tuple(torch.empty_like(first) for _ in range(n_out))
     if n:
         rc = getattr(cuda_lib.lib(), entry)(
             *(t.data_ptr() for t in args), *(o.data_ptr() for o in outs), n,
@@ -243,14 +323,11 @@ def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple):
     return outs
 
 
-def aff_add_fused(x1, y1, px, py):
-    """Complete batched-affine add on (..., 16) limb tensors of one shape."""
-    if not x1.is_cuda:
-        return aff_add_fused_plain(x1, y1, px, py)
-    for name, t in (("x1", x1), ("y1", y1), ("px", px), ("py", py)):
-        check_limbs(f"aff_add_fused {name}", t, x1.device)
-        if t.shape != x1.shape:
-            raise ValueError(f"aff_add_fused: {name} {tuple(t.shape)} != {tuple(x1.shape)}")
+def _launch_aff_add(fn, entries: tuple, x1, y1, q_args: tuple):
+    """The root kernel / batch_inv / finish kernel of one complete batched
+    affine add of (x1, y1) and the second operand `q_args` (the limb rows
+    px, py, or packed rows): K_ADD lanes a thread, lanes strided by the
+    thread count. Counts one launch on the wrapper `fn`."""
     n = x1.numel() // 16
     ox = torch.empty_like(x1)
     oy = torch.empty_like(y1)
@@ -261,23 +338,93 @@ def aff_add_fused(x1, y1, px, py):
     pre = torch.empty((K_ADD * nthreads, 8), dtype=torch.int32, device=dev)
     roots = torch.empty((nthreads, 16), dtype=torch.int32, device=dev)
     lib = cuda_lib.lib()
-    rc = lib.hk_aff_root(
-        x1.data_ptr(), y1.data_ptr(), px.data_ptr(), py.data_ptr(), pre.data_ptr(),
-        roots.data_ptr(), n, nthreads, K_ADD, cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check("hk_aff_root", rc)
+    ins = (x1.data_ptr(), y1.data_ptr(), *(t.data_ptr() for t in q_args))
+    rc = getattr(lib, entries[0])(*ins, pre.data_ptr(), roots.data_ptr(), n, nthreads, K_ADD,
+                                  cuda_lib.stream_ptr(dev))
+    cuda_lib.check(entries[0], rc)
     rinv = tf.batch_inv(FQ, roots)
-    rc = lib.hk_aff_fin(
-        x1.data_ptr(), y1.data_ptr(), px.data_ptr(), py.data_ptr(), pre.data_ptr(),
-        rinv.data_ptr(), ox.data_ptr(), oy.data_ptr(), n, nthreads, K_ADD,
-        cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check("hk_aff_fin", rc)
-    aff_add_fused.launches += 1
+    rc = getattr(lib, entries[1])(*ins, pre.data_ptr(), rinv.data_ptr(), ox.data_ptr(), oy.data_ptr(), n,
+                                  nthreads, K_ADD, cuda_lib.stream_ptr(dev))
+    cuda_lib.check(entries[1], rc)
+    fn.launches += 1
     return ox, oy
 
 
+def aff_add_fused(x1, y1, px, py):
+    """Complete batched-affine add on (..., 16) limb tensors of one shape."""
+    if not x1.is_cuda:
+        return aff_add_fused_plain(x1, y1, px, py)
+    _check_batch(aff_add_fused, (x1, y1, px, py), (16,))
+    return _launch_aff_add(aff_add_fused, ("hk_aff_root", "hk_aff_fin"), x1, y1, (px, py))
+
+
 aff_add_fused.launches = 0
+
+
+def aff_add_mixed_packed(x1, y1, rows):
+    """Complete batched-affine (x1, y1) + the points of `rows`: (..., 16)
+    limb tensors and (..., 16) packed rows (8 x-words || 8 y-words) of one
+    shape."""
+    if not x1.is_cuda:
+        return aff_add_mixed_packed_plain(x1, y1, rows)
+    _check_batch(aff_add_mixed_packed, (x1, y1, rows), (16,))
+    return _launch_aff_add(aff_add_mixed_packed, ("hk_aff_root_packed", "hk_aff_fin_packed"), x1, y1, (rows,))
+
+
+aff_add_mixed_packed.launches = 0
+
+
+def aff_prep(x1, y1, px, py):
+    """(den, num) of the complete batched-affine add, (..., 16) limbs."""
+    if not x1.is_cuda:
+        return aff_prep_plain(x1, y1, px, py)
+    return _launch_point_op(aff_prep, "hk_aff_prep", (x1, y1, px, py), (16,), n_out=2)
+
+
+aff_prep.launches = 0
+
+
+def aff_fin(x1, y1, px, py, inv, num):
+    """The complete batched-affine sum from inv = 1/den and num, (..., 16)
+    limbs."""
+    if not x1.is_cuda:
+        return aff_fin_plain(x1, y1, px, py, inv, num)
+    return _launch_point_op(aff_fin, "hk_aff_finish", (x1, y1, px, py, inv, num), (16,), n_out=2)
+
+
+aff_fin.launches = 0
+
+
+def _check_slab(fn, v, shape: tuple) -> None:
+    if v.dtype != torch.int32 or tuple(v.shape) != shape:
+        raise ValueError(f"{fn.__name__}: expected an int32 {shape} slab, got {v.dtype} {tuple(v.shape)}")
+    if not v.is_contiguous():
+        raise ValueError(f"{fn.__name__}: expected a contiguous slab")
+
+
+def _halves_rounds(fn, v, L: int, ncols: int, transposed: bool):
+    """log2(L) halves rounds on the (ncols, L*16) slab, or (transposed) the
+    (L*16, ncols) one: a root kernel, batch_inv of the per-column roots and
+    a finish kernel each, counted on `fn`."""
+    dev = v.device
+    lib = cuda_lib.lib()
+    l = L
+    while l > 1 and ncols:
+        k = l // 2
+        pre = torch.empty((k * ncols, 8), dtype=torch.int32, device=dev)
+        roots = torch.empty((ncols, 16), dtype=torch.int32, device=dev)
+        rc = lib.hk_halves_root(v.data_ptr(), pre.data_ptr(), roots.data_ptr(), ncols, k, int(transposed),
+                                cuda_lib.stream_ptr(dev))
+        cuda_lib.check("hk_halves_root", rc)
+        rinv = tf.batch_inv(FQ, roots)
+        out = torch.empty((k * 16, ncols) if transposed else (ncols, k * 16), dtype=torch.int32, device=dev)
+        rc = lib.hk_halves_fin(v.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(), ncols, k,
+                               int(transposed), cuda_lib.stream_ptr(dev))
+        cuda_lib.check("hk_halves_fin", rc)
+        fn.launches += 1
+        v = out
+        l = k
+    return v
 
 
 def l1_aff_halves(rows, L: int):
@@ -287,34 +434,49 @@ def l1_aff_halves(rows, L: int):
         raise ValueError(f"l1_aff_halves: L={L} is not a power of two")
     if not rows.is_cuda:
         return l1_aff_halves_plain(rows, L)
-    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != L * 16:
-        raise ValueError(f"l1_aff_halves: expected an int32 (ncols, {L * 16}) slab, got "
-                         f"{rows.dtype} {tuple(rows.shape)}")
-    if not rows.is_contiguous():
-        raise ValueError("l1_aff_halves: expected a contiguous slab")
-    ncols = rows.shape[0]
-    dev = rows.device
-    lib = cuda_lib.lib()
-    l = L
-    while l > 1 and ncols:
-        k = l // 2
-        pre = torch.empty((k * ncols, 8), dtype=torch.int32, device=dev)
-        roots = torch.empty((ncols, 16), dtype=torch.int32, device=dev)
-        rc = lib.hk_halves_root(rows.data_ptr(), pre.data_ptr(), roots.data_ptr(), ncols, k,
-                                cuda_lib.stream_ptr(dev))
-        cuda_lib.check("hk_halves_root", rc)
-        rinv = tf.batch_inv(FQ, roots)
-        out = torch.empty((ncols, k * 16), dtype=torch.int32, device=dev)
-        rc = lib.hk_halves_fin(rows.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(),
-                               ncols, k, cuda_lib.stream_ptr(dev))
-        cuda_lib.check("hk_halves_fin", rc)
-        l1_aff_halves.launches += 1
-        rows = out
-        l = k
-    return rows
+    _check_slab(l1_aff_halves, rows, (rows.shape[0], L * 16))
+    return _halves_rounds(l1_aff_halves, rows, L, rows.shape[0], transposed=False)
 
 
 l1_aff_halves.launches = 0
+
+
+def l1_aff_halves_t(slab_t, L: int):
+    """l1_aff_halves on the transposed (L*16, ncols) slab of the tsort plan:
+    every round reads and writes (l*16, ncols) slabs; returns the (16,
+    ncols) packed column sums."""
+    if L & (L - 1):
+        raise ValueError(f"l1_aff_halves_t: L={L} is not a power of two")
+    if not slab_t.is_cuda:
+        return l1_aff_halves_t_plain(slab_t, L)
+    _check_slab(l1_aff_halves_t, slab_t, (L * 16, slab_t.shape[1]))
+    return _halves_rounds(l1_aff_halves_t, slab_t, L, slab_t.shape[1], transposed=True)
+
+
+l1_aff_halves_t.launches = 0
+
+
+def interleave_slab_t(planes):
+    """The tsort plan's (16, W, L, mcols) word planes -> the (L*16,
+    W*mcols) transposed slab (interleave_slab_t_plain)."""
+    if not planes.is_cuda:
+        return interleave_slab_t_plain(planes)
+    if planes.dim() != 4 or planes.shape[0] != 16:
+        raise ValueError(f"interleave_slab_t: expected (16, W, L, mcols) planes, got {tuple(planes.shape)}")
+    _check_slab(interleave_slab_t, planes, tuple(planes.shape))
+    _, W, L, mcols = planes.shape
+    if W > 65535 or 16 * L > 65535:
+        raise ValueError(f"interleave_slab_t: W={W} or 16*L={16 * L} is out of the grid's range")
+    out = torch.empty((L * 16, W * mcols), dtype=torch.int32, device=planes.device)
+    if out.numel():
+        rc = cuda_lib.lib().hk_interleave_slab_t(planes.data_ptr(), out.data_ptr(), W, L, mcols,
+                                                  cuda_lib.stream_ptr(planes.device))
+        cuda_lib.check("hk_interleave_slab_t", rc)
+        interleave_slab_t.launches += 1
+    return out
+
+
+interleave_slab_t.launches = 0
 
 
 def horner_fold(x, y, z, c: int):
@@ -404,22 +566,19 @@ def pdbl_rcb(x, y, z):
 pdbl_rcb.launches = 0
 
 
-def l1_rcb_mega(rows, L: int) -> Proj:
+def l1_rcb_mega(rows, L: int, transposed: bool = False) -> Proj:
     """MSM level 1 on projective accumulators: each column of the (ncols,
-    L*16) packed slab to the projective sum of its L rows, added in order
-    into the identity ((ncols, 16) each)."""
+    L*16) packed slab, or (transposed) of the (L*16, ncols) one, to the
+    projective sum of its L rows, added in order into the identity ((ncols,
+    16) each)."""
     if not rows.is_cuda:
-        return l1_rcb_mega_plain(rows, L)
-    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != L * 16:
-        raise ValueError(f"l1_rcb_mega: expected an int32 (ncols, {L * 16}) slab, got "
-                         f"{rows.dtype} {tuple(rows.shape)}")
-    if not rows.is_contiguous():
-        raise ValueError("l1_rcb_mega: expected a contiguous slab")
-    ncols = rows.shape[0]
+        return l1_rcb_mega_plain(rows, L, transposed)
+    ncols = rows.shape[1] if transposed else rows.shape[0]
+    _check_slab(l1_rcb_mega, rows, (L * 16, ncols) if transposed else (ncols, L * 16))
     outs = tuple(torch.empty((ncols, 16), dtype=torch.int32, device=rows.device) for _ in range(3))
     if ncols:
         rc = cuda_lib.lib().hk_l1_rcb_mega(rows.data_ptr(), *(o.data_ptr() for o in outs), ncols, L,
-                                           cuda_lib.stream_ptr(rows.device))
+                                           int(transposed), cuda_lib.stream_ptr(rows.device))
         cuda_lib.check("hk_l1_rcb_mega", rc)
         l1_rcb_mega.launches += 1
     return Proj(*outs)

@@ -15,22 +15,35 @@ leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.
 
 `msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) with its
-route parameters `accum`, `level1`, `plan` and `p_super`, which
-`resolve_route` resolves as msm_tpu does (:993-1051):
+route parameters `accum`, `level1`, `plan`, `p_super`, `depth` and `G`;
+`resolve_route` resolves the first three as msm_tpu does (:993-1051):
 
   1. signed window digits (`signed_digits_for_windows`);
-  2. the sorted plan, `_plan_sorted_w` (the v9 `plan="wsort"`): per window,
-     the points and per-bucket alignment pads sorted by digit, so each L-run
-     of the slab is one bucket's points. The JAX G2 route takes the flat
-     `plan="sort"` instead; its columns hold the same bucket sums, so the
-     port serves `plan="sort"` with this one plan on both curves;
-  3. level 1 reduces every slab column to one point: `level1="pair"` (the
-     G1 default for affine accumulation and a power-of-two L) by the halves
-     pairing of curves/cuda_curve.py::l1_aff_halves; `level1="mega"` (G1
-     otherwise) by curves/cuda_curve.py::l1_rcb_mega, L sequential complete
-     projective mixed adds per column in one kernel; `level1="steps"` by
-     `_level1_rows`, the same L adds as one launch of the curve's mixed-add
-     kernel per slab row;
+  2. the plan, which lays the points out in bucket-pure columns of L:
+     - `plan="wsort"` (the G1 default, v9), `_plan_sorted_w`: per window,
+       the points and per-bucket alignment pads sorted by digit, so each
+       L-run of the (ncols, L*16) slab is one bucket's points. The JAX G2
+       route takes the flat `plan="sort"` instead; its columns hold the same
+       bucket sums, so the port serves `plan="sort"` with this one plan on
+       both curves;
+     - `plan="tsort"` (v10), `_plan_sorted_t`: the same sorted stream as 16
+       word planes, which curves/cuda_curve.py::interleave_slab_t turns into
+       the transposed (L*16, ncols) slab;
+     - `plan="gather"` (v6), `_plan_tpu`: a flat sort of the window-offset
+       digits and per-bucket source rows into the packed point table, every
+       bucket at least one column;
+  3. level 1 reduces every column to one point: `level1="pair"` (the G1
+     default for affine accumulation and a power-of-two L) by the halves
+     pairing of curves/cuda_curve.py::l1_aff_halves, or `l1_aff_halves_t`
+     on the tsort slab; `level1="mega"` (G1 otherwise) by
+     curves/cuda_curve.py::l1_rcb_mega, L sequential complete projective
+     mixed adds per column in one kernel, on either slab layout (the gather
+     plan gathers its slab first); `level1="steps"` by `_level1_rows` on
+     the sorted slab or `_level1_tpu` on the gather plan (G steps' rows a
+     gather), the same L adds as one launch per step: AffineOps.add_packed
+     (the aff_add_mixed_packed kernel pair and a batch inversion) on
+     affine accumulators, the curve's projective mixed-add kernel on
+     projective ones;
   4. `_collapse_columns`: stride-doubling adjacent-pair adds and compaction
      until every bucket owns one column, then the bucket readout;
   5. `_suffix_weighted`: sum_b b * B_b per window by a suffix scan and a
@@ -44,9 +57,7 @@ after the mega level 1, `AffineOps.from_proj`), `accum="proj"` (always on
 G2) in complete projective coordinates (curves/proj.py: PROJ_G1 on the
 three G1 RCB kernels, PROJ_G2 on the three G2 RCB kernels). Stages 4-5 take
 either ops object. On CPU tensors the same code runs the kernels' plain
-versions. `plan="tsort"`, `plan="gather"` and `level1="steps"` with
-`accum="affine"` raise NotImplementedError: their kernels or plans are not
-ported yet (ROADMAP.md).
+versions. Every route that `resolve_route` returns runs.
 
 `fixed_base_table_host`, `fixed_base_msm` and `to_affine_device` port the
 fixed-base batch scalar muls of setup (:1247-1309): 32 windows of 8 bits,
@@ -65,8 +76,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..curves.affine import AFF_G1, pack_words, unpack_words
-from ..curves.cuda_curve import horner_fold, l1_aff_halves, l1_rcb_mega
+from ..curves.affine import AFF_G1, AffineOps, pack_words, unpack_words
+from ..curves.cuda_curve import horner_fold, interleave_slab_t, l1_aff_halves, l1_aff_halves_t, l1_rcb_mega
 from ..curves.host import pt_add, pt_dbl
 from ..curves.proj import PROJ_G1, PROJ_G2, Proj
 from ..curves.torch_curve import CurveOps, Jac
@@ -322,22 +333,25 @@ def _pad_keys(counts: torch.Tensor, L: int) -> torch.Tensor:
     return keys.reshape(*lead, B * (L - 1))
 
 
-def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
-    """The v9 plan: per window, the N digits plus per-bucket alignment pads
-    (each bucket's run filled to a multiple of L) sorted by digit, carrying
-    each element's packed point row, signed by its digit's sign.
+def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1):
+    """The sorted plans' stream: per window, the N digits plus per-bucket
+    alignment pads (each bucket's run filled to a multiple of L) and tail
+    sentinels, stably sorted by digit, with each element's row in the
+    (2N+1)-row `_point_table` (signed by its digit's sign; 2N for pads and
+    tail). Each window has mcols columns of L elements, mcols rounded up to
+    a multiple of `blkc`.
 
-    Returns (rows, col_bucket, (W, B, NB, n_in, ncols)): rows is the
-    (ncols, L*nw) packed slab, col_bucket the sorted bucket id per column.
-    Each window's tail-sentinel columns get id w*B + B, which for w < W-1
-    aliases window w+1's digit-0 bucket (weight 0, dropped by
+    Returns (table, src, col_bucket, (W, B, NB, n_in, ncols)): src is the
+    (W, mcols*L) table row of every sorted element, col_bucket the bucket id
+    per column. Each window's tail-sentinel columns get id w*B + B, which
+    for w < W-1 aliases window w+1's digit-0 bucket (weight 0, dropped by
     _suffix_weighted) and for the last window is NB, the global sentinel.
 
-    The JAX plan carries the payload words through a multi-operand
-    lax.sort; here one stable argsort of the keys orders an index into the
-    (2N+1)-row `_point_table`, and one gather builds the slab. The order of
-    points inside a bucket is not fixed by either (the JAX sort is not
-    stable); bucket ids and each column's multiset of points are.
+    The JAX plans carry the payload words through a multi-operand lax.sort;
+    here one stable argsort of the keys orders an index into the table, and
+    one gather builds the slab. The order of points inside a bucket is not
+    fixed by either (the JAX sort is not stable); bucket ids and each
+    column's multiset of points are.
     """
     N = ax.shape[0]
     dev = ax.device
@@ -351,8 +365,8 @@ def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
     pad_keys = _pad_keys(counts, L)
     npad = pad_keys.shape[1]
     M0 = N + npad
-    M = ((M0 + L - 1) // L) * L
-    tail_n = M - M0
+    mcols = ((M0 + L - 1) // L + blkc - 1) // blkc * blkc
+    tail_n = mcols * L - M0
     keys = torch.cat([mag, pad_keys, torch.full((W, tail_n), SENT, dtype=torch.int64, device=dev)], 1)
 
     table = _point_table(ax, ay)
@@ -363,13 +377,103 @@ def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
     sk, order = torch.sort(keys, dim=1, stable=True)
     src = torch.gather(src, 1, order)
 
-    mcols = M // L
     col_keys = sk[:, ::L]  # (W, mcols) first key of each column
     wbase = (torch.arange(W, dtype=torch.int64, device=dev) * B)[:, None]
     col_bucket = torch.where(col_keys == SENT, wbase + B, wbase + col_keys).reshape(-1)
-    ncols = W * mcols
-    rows = table[src.reshape(-1)].reshape(ncols, L * table.shape[1])
-    return rows, col_bucket, (W, B, NB, W * N, ncols)
+    return table, src, col_bucket, (W, B, NB, W * N, W * mcols)
+
+
+def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
+    """The v9 plan (pippenger.py::_plan_sorted_w, :644-730): the sorted
+    stream gathered into the (ncols, L*nw) packed slab, so each slab row's
+    L elements are one bucket's points.
+
+    Returns (rows, col_bucket, (W, B, NB, n_in, ncols)) as `_sorted_stream`.
+    """
+    table, src, col_bucket, meta = _sorted_stream(ax, ay, scalars, c, L, nbits)
+    rows = table[src.reshape(-1)].reshape(meta[4], L * table.shape[1])
+    return rows, col_bucket, meta
+
+
+# the tsort plan's column multiple in msm_gpu: a warp's 32 words, so every row
+# of the planes and of the transposed slab starts 128-byte aligned (JAX pads
+# to its 1,024-column kernel blocks, or 128 off the TPU; pad columns are
+# whole L-runs of infinity rows that every level-1 round still reads)
+TSORT_BLKC = 32
+
+
+def _plan_sorted_t(ax, ay, scalars, c: int, L: int, nbits: int = 254, blkc: int = TSORT_BLKC):
+    """The v10 plan (pippenger.py::_plan_sorted_t, :733-829): the sorted
+    stream with mcols a multiple of `blkc`, placed as 16 word planes in
+    which column m's L elements are the planes' m-th entries of rows 0..L-1:
+    planes[j, w, g, m] = word j (8 x-words, then 8 y-words) of element
+    m*L + g of window w's sorted stream.
+
+    JAX places the payload by two more sorts (a rank sort with an iota and
+    an inversion sort onto p_static[r] = (r % L)*mcols + r // L); here the
+    table's transposed words are gathered straight to those positions.
+    Returns (planes (16, W, L, mcols), col_bucket, (W, B, NB, n_in, ncols)).
+    """
+    table, src, col_bucket, meta = _sorted_stream(ax, ay, scalars, c, L, nbits, blkc)
+    W, nw = meta[0], table.shape[1]
+    mcols = meta[4] // W
+    place = src.reshape(W, mcols, L).transpose(1, 2).reshape(-1)  # rank m*L + g -> (w, g, m)
+    planes = torch.index_select(table.t().contiguous(), 1, place).reshape(nw, W, L, mcols)
+    return planes, col_bucket, meta
+
+
+def _plan_tpu(ax, ay, scalars, c: int, L: int, nbits: int = 254, order: str = "row", col_pad: int = 1):
+    """The v6 gather plan (pippenger.py::_plan_tpu, :449-536): one flat
+    stable sort of the window-offset digits carrying each element's table
+    row, then per bucket ceil(count/L) columns (at least one, so empty
+    buckets own a column) of L source rows, the column's missing rows the
+    infinity row 2N. ncols = n_in // L + NB (an upper bound for any
+    digits), rounded up to a multiple of `col_pad`; columns past the last
+    real one carry bucket id NB.
+
+    Returns (src, table, col_bucket, (W, B, NB, n_in, ncols)): src the
+    source rows into `table` (`_point_table`), (L, ncols) for order="row"
+    (one slab row a step) or (ncols, L) for order="col" (a (ncols, L*nw)
+    slab in one gather).
+    """
+    if order not in ("row", "col"):
+        raise ValueError(f"_plan_tpu: order={order!r} is not 'row' or 'col'")
+    N = ax.shape[0]
+    dev = ax.device
+    mag, neg = signed_digits_for_windows(scalars, c, nbits)  # (W, N)
+    W = mag.shape[0]
+    B = (1 << (c - 1)) + 1
+    NB = W * B
+    keys = (mag + (torch.arange(W, dtype=torch.int64, device=dev) * B)[:, None]).reshape(-1)
+    payload = (torch.arange(N, dtype=torch.int64, device=dev)[None, :] + N * neg.long()).reshape(-1)
+    sk, perm = torch.sort(keys, stable=True)
+    prow = payload[perm]
+    n_in = sk.shape[0]
+    ncols0 = n_in // L + NB
+    ncols = (ncols0 + col_pad - 1) // col_pad * col_pad
+
+    ids = torch.arange(NB, dtype=torch.int64, device=dev)
+    starts = torch.searchsorted(sk, ids, side="left")
+    counts = torch.cat([starts[1:], starts.new_full((1,), n_in)]) - starts
+    cols_per = torch.clamp((counts + L - 1) // L, min=1)
+    col_starts = torch.cumsum(cols_per, 0) - cols_per
+    col_idx = torch.arange(ncols, dtype=torch.int64, device=dev)
+    pad_col = col_idx >= col_starts[-1] + cols_per[-1]  # beyond the last real column
+    col_bucket = torch.searchsorted(col_starts, col_idx, side="right") - 1
+    within = col_idx - col_starts[col_bucket]
+    base = starts[col_bucket] + within * L
+    cnt = torch.where(pad_col, 0, counts[col_bucket])
+    col_bucket = torch.where(pad_col, NB, col_bucket)
+
+    r = torch.arange(L, dtype=torch.int64, device=dev)
+    if order == "row":
+        r, within, base, cnt = r[:, None], within[None, :], base[None, :], cnt[None, :]
+    else:
+        r = r[None, :]
+        within, base, cnt = within[:, None], base[:, None], cnt[:, None]
+    valid = within * L + r < cnt
+    src = torch.where(valid, prow[torch.where(valid, base + r, 0)], 2 * N)
+    return src, _point_table(ax, ay), col_bucket, (W, B, NB, n_in, ncols)
 
 
 def _level1_pair(ops, rows, L: int):
@@ -378,19 +482,62 @@ def _level1_pair(ops, rows, L: int):
     return ops.unpack_rows(l1_aff_halves(rows, L))
 
 
-def _level1_rows(ops, rows, L: int, coord_shape: tuple) -> Proj:
-    """Stage 3, `level1="steps"` (pippenger.py::_level1_rows, :832-851): L
-    sequential complete projective mixed adds; step g adds every column's
-    g-th packed element, the minor-dim slice [g*nw, (g+1)*nw) of the slab."""
+def _level1_mega(ops, slab, L: int, transposed: bool = False):
+    """Stage 3, `level1="mega"`: every slab column to its projective sum in
+    one kernel; to affine by one batch inversion when `ops` accumulates in
+    affine."""
+    acc = l1_rcb_mega(slab, L, transposed)
+    return ops.from_proj(*acc) if isinstance(ops, AffineOps) else acc
+
+
+def _mixed_step(ops, coord_shape: tuple):
+    """The level-1 step of the projective routes: acc + the points of the
+    packed (ncols, nw) rows blk, unpacked in torch, by ops.add_mixed."""
+
+    def step(acc, blk):
+        half = blk.shape[1] // 2
+        ax = unpack_words(blk[:, :half]).reshape((blk.shape[0],) + coord_shape)
+        ay = unpack_words(blk[:, half:]).reshape((blk.shape[0],) + coord_shape)
+        return ops.add_mixed(acc, ax, ay)
+
+    return step
+
+
+def _level1_rows(ops, rows, L: int, step):
+    """Stage 3, `level1="steps"` on the sorted slab (pippenger.py::_level1_rows,
+    :832-851): L sequential steps; step g adds every column's g-th packed
+    element, the minor-dim slice [g*nw, (g+1)*nw) of the slab (`step` is
+    ops.add_packed on affine accumulators, `_mixed_step` on projective)."""
     ncols = rows.shape[0]
     nw = rows.shape[1] // L  # packed words per element (x || y)
-    half = nw // 2
     acc = ops.inf((ncols,), rows.device)
     for g in range(L):
-        blk = rows[:, g * nw : (g + 1) * nw]
-        ax = unpack_words(blk[:, :half]).reshape((ncols,) + coord_shape)
-        ay = unpack_words(blk[:, half:]).reshape((ncols,) + coord_shape)
-        acc = ops.add_mixed(acc, ax, ay)
+        acc = step(acc, rows[:, g * nw : (g + 1) * nw])
+    return acc
+
+
+def _level1_tpu(ops, src, table, ncols: int, L: int, step, depth: int = 1, G: int = 1):
+    """Stage 3 of the gather plan (pippenger.py::_level1_tpu, :884-937): L
+    sequential steps, step g adding the table rows src[g] to every column.
+    `G` steps' rows come from one `table[src]` gather (L % G == 0); the
+    result does not depend on G.
+
+    `depth` is msm_tpu's software-pipelining distance: the TPU loop issues
+    the gather of superblock k + depth while superblock k's adds run. Here
+    it has nothing to do: every gather and kernel is queued in order on the
+    current CUDA stream with no host sync between them, and one stream runs
+    them one after another whatever the order of issue. It is accepted, as
+    msm_tpu accepts it, and checked."""
+    if L % G:
+        raise ValueError(f"msm_gpu: G={G} rows per fetch must divide L={L}")
+    if depth < 1:
+        raise ValueError(f"msm_gpu: depth={depth} must be at least 1")
+    src_g = src.reshape(L // G, G * ncols)
+    acc = ops.inf((ncols,), src.device)
+    for kk in range(L // G):
+        rows = table[src_g[kk]]
+        for g in range(G):
+            acc = step(acc, rows[g * ncols : (g + 1) * ncols])
     return acc
 
 
@@ -464,17 +611,6 @@ def _suffix_weighted(ops, buckets, W: int, B: int):
     return _plain_sum_axis1(ops, pt(*(a[:, 1:] for a in t)))
 
 
-# the routes of msm_tpu whose kernels or plan the port does not have yet
-_UNPORTED_PLANS = {
-    "tsort": "plan='tsort' runs interleave_slab_t and l1_aff_halves_t, which are not ported yet "
-             "(ROADMAP.md queue 2, item 10)",
-    "gather": "plan='gather' (the v6 _plan_tpu / _level1_tpu path) is not ported yet "
-              "(ROADMAP.md queue 1, item 1)",
-}
-_UNPORTED_STEPS_AFFINE = ("level1='steps' with accum='affine' runs aff_add_mixed_packed, which is not "
-                          "ported yet (ROADMAP.md queue 2, item 9)")
-
-
 def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple:
     """(accum, level1, plan) as msm_tpu resolves its arguments
     (hekaton_tpu/msm/pippenger.py:993-1051) on BN254 G1 or (g2) G2.
@@ -515,36 +651,50 @@ def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple
 
 
 def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254, p_super: int = 3,
-            accum: str | None = None, level1: str | None = None, plan: str | None = None) -> Jac:
+            accum: str | None = None, level1: str | None = None, plan: str | None = None,
+            depth: int = 1, G: int = 1) -> Jac:
     """sum_i scalars[i] * P_i over BN254 G1 or G2.
 
     ax, ay: affine limbs, (N, 16) for G1 or (N, 2, 16) Fq2 for G2 ((0,0) =
     infinity); the coordinate shape picks the curve. scalars: (N, 16) int32
     plain limbs on the same device. `accum`, `level1` and `plan` pick the
     route as in msm_tpu (`resolve_route`; module docstring); `p_super` is
-    the collapse's strides per round. Returns a Jacobian point of unbatched
-    tensors."""
+    the collapse's strides per round; `depth` and `G` are the gather plan's
+    (`_level1_tpu`). Returns a Jacobian point of unbatched tensors."""
     N = ax.shape[0]
     dev = ax.device
     coord_shape = tuple(ax.shape[1:])
     g2 = len(coord_shape) == 2
     accum, level1, plan = resolve_route(g2, L, accum, level1, plan)
-    if plan in _UNPORTED_PLANS:
-        raise NotImplementedError(f"msm_gpu: {_UNPORTED_PLANS[plan]}")
-    if level1 == "steps" and accum == "affine":
-        raise NotImplementedError(f"msm_gpu: {_UNPORTED_STEPS_AFFINE}")
-    rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits)
     proj = PROJ_G2 if g2 else PROJ_G1
     ops = AFF_G1 if accum == "affine" else proj
-    if level1 == "mega":
-        acc = l1_rcb_mega(rows, L)
-        if accum == "affine":
-            acc = ops.from_proj(*acc)
-    elif level1 == "pair":
-        acc = _level1_pair(ops, rows, L)
+    step = ops.add_packed if accum == "affine" else _mixed_step(proj, coord_shape)
+    if plan == "tsort":
+        planes, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_t(ax, ay, scalars, c, L, nbits)
+        slab_t = interleave_slab_t(planes)
+        del planes
+        if level1 == "mega":
+            acc = _level1_mega(ops, slab_t, L, transposed=True)
+        else:
+            acc = ops.unpack_rows(l1_aff_halves_t(slab_t, L).t().contiguous())
+        del slab_t
+    elif plan == "gather":
+        src, table, col_bucket, (W, B, NB, n_in, ncols) = _plan_tpu(
+            ax, ay, scalars, c, L, nbits, order="col" if level1 == "mega" else "row")
+        if level1 == "mega":
+            acc = _level1_mega(ops, table[src.reshape(-1)].reshape(ncols, L * table.shape[1]), L)
+        else:
+            acc = _level1_tpu(ops, src, table, ncols, L, step, depth, G)
+        del src, table
     else:
-        acc = _level1_rows(ops, rows, L, coord_shape)
-    del rows
+        rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits)
+        if level1 == "mega":
+            acc = _level1_mega(ops, rows, L)
+        elif level1 == "pair":
+            acc = _level1_pair(ops, rows, L)
+        else:
+            acc = _level1_rows(ops, rows, L, step)
+        del rows
     d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in, p=p_super)
 
     # one column per bucket now; buckets with no point have no column

@@ -8,7 +8,8 @@ PortalChainParams(2) flow on the CPU with the port alone: setup and stage 0
 with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
 stateless recommit must reproduce TorchBackend's stage-0 commitments),
 per-proof verify, aggregation and aggregate verify. A lazy import that
-reaches JAX or the JAX package at run time fails it.
+reaches JAX or the JAX package at run time fails it. It then runs msm_gpu
+along the tsort, gather and affine steps routes against msm_host.
 tests/test_torch_slice.py runs stage 1 on TorchBackend.
 """
 import os
@@ -72,8 +73,26 @@ SCRIPT = textwrap.dedent(
     agg_pk = AggProvingKey(tipa_key_from_ipp(ipp_ck), keys.get_pk)
     agg_proof = agg_state.gen_agg_proof(agg_pk, resps1)
     assert agg_pk.verify_aggregate(agg_transcript(), agg_state.super_com, agg_proof, agg_state.public_inputs)
+
+    # msm_gpu's tsort, gather and affine steps routes on the CPU
+    import random, warnings
+    from hekaton_tpu_torch.curves import host as ch
+    from hekaton_tpu_torch.curves.torch_curve import G1
+    from hekaton_tpu_torch.fields.bn254 import R
+    from hekaton_tpu_torch.msm import pippenger as pip
+    r = random.Random(3)
+    pts = [ch.pt_mul(ch.g1_gen(), r.randrange(1, R)) for _ in range(20)]
+    scalars = [r.randrange(R) for _ in range(20)]
+    ax, ay = (torch.from_numpy(a.astype("int32")) for a in G1.pack_affine(pts))
+    routes = ({"plan": "tsort"}, {"plan": "tsort", "accum": "proj"}, {"plan": "gather"},
+              {"plan": "gather", "level1": "mega"}, {"level1": "steps"})
+    for route in routes:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the gather default warns that "pair" becomes "steps"
+            out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars), c=6, L=4, **route)
+        assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars), route
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
-    print("modules", len(names), "ran", backend.ran)
+    print("modules", len(names), "ran", backend.ran, "routes", len(routes))
     """
 )
 
@@ -85,6 +104,7 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout and "'g1_msm_compact': 2" in proc.stdout, proc.stdout
+    assert "routes 5" in proc.stdout, proc.stdout
     assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 

@@ -14,7 +14,7 @@ package and the host ground truth.
 - msm_gpu along each new route against ch.msm_host on the n=60 stress set of
   tests/test_torch_msm.py.
 - The route resolver against a table written from msm_tpu
-  (hekaton_tpu/msm/pippenger.py:993-1051), and the unported routes.
+  (hekaton_tpu/msm/pippenger.py:993-1051).
 
 Every comparison is exact. JAX runs eagerly: no jit of msm_tpu, no Pallas
 interpret run.
@@ -141,20 +141,31 @@ def test_l1_rcb_mega_plain_matches_jax_level1_rows(L):
 
 def test_plain_versions_stay_plain(monkeypatch):
     """The plain versions run tf.mont_mul directly: none reaches FqOps (the
-    mont_mul kernel wrapper) or PROJ_G1 (the kernels)."""
+    mont_mul kernel wrapper), PROJ_G1, AFF_G1 or another kernel wrapper."""
 
-    def kernel_wrapper(*args):
+    def kernel_wrapper(*args, **kwargs):
         raise AssertionError("a plain version reached a kernel wrapper")
 
     monkeypatch.setattr(cuda_field, "mont_mul", kernel_wrapper)
-    for name in ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega"):
+    monkeypatch.setattr(cuda_field, "fermat_inv", kernel_wrapper)
+    for name in ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega", "aff_add_fused", "aff_add_mixed_packed",
+                 "aff_prep", "aff_fin", "l1_aff_halves", "l1_aff_halves_t", "interleave_slab_t"):
         monkeypatch.setattr(cc, name, kernel_wrapper)
     p, q, (ax, ay), _, _ = _edge_lanes()
     cc.pmadd_rcb_plain(*p, ax, ay)
     cc.padd_rcb_plain(*p, *q)
     cc.pdbl_rcb_plain(*p)
-    cc.l1_rcb_mega_plain(_slab(4)[0], 4)
+    slab = _slab(4)[0]
+    cc.l1_rcb_mega_plain(slab, 4)
+    cc.l1_rcb_mega_plain(slab.T.contiguous(), 4, transposed=True)
     cc.horner_fold_plain(*p, 2)
+    rows = AFF_G1.pack_rows(Aff(ax, ay))
+    x1, y1 = p[0], p[1]  # limbs of points or not, the formulas run all the same
+    cc.aff_add_mixed_packed_plain(x1, y1, rows)
+    den, num = cc.aff_prep_plain(x1, y1, ax, ay)
+    cc.aff_fin_plain(x1, y1, ax, ay, den, num)
+    cc.l1_aff_halves_t_plain(slab.T.contiguous(), 4)
+    cc.interleave_slab_t_plain(slab.reshape(16, 1, 4, -1))
 
 
 def _stress_set():
@@ -225,16 +236,3 @@ def test_resolve_route_matches_msm_tpu(args, route, warns):
         warnings.simplefilter("always")
         assert tmsm.resolve_route(*args) == route
     assert bool(seen) == warns
-
-
-@pytest.mark.parametrize("L,kw,item", [
-    (32, {"plan": "tsort"}, "queue 2, item 10"),
-    (24, {"plan": "tsort"}, "queue 2, item 10"),
-    (32, {"plan": "gather", "level1": "mega"}, "queue 1, item 1"),
-    (32, {"accum": "affine", "level1": "steps"}, "queue 2, item 9"),
-])
-def test_unported_routes_raise(L, kw, item):
-    pts, scalars = _stress_set()
-    ax, ay = G1.pack_affine(pts[:4])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars[:4]), c=6, L=L, **kw)

@@ -1,6 +1,6 @@
 """Where the time of msm_gpu's G1 routes goes, on one CUDA card.
 
-    python3 benches/torch_route_stages.py [--log2n 20] [--reps 3]
+    python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381]
 
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
@@ -14,6 +14,12 @@ the routes in turn, every other turn in reverse order; the table holds the
 median. Then the halves pairing on the 2^log2n plan's slab in both layouts
 (l1_aff_halves, l1_aff_halves_t) and the mega kernel in both, timed in
 turns (rows, transposed, transposed, rows).
+
+With --curve bls12_381 it times BLS12-381 G1 instead, on chip_smoke.py's
+msm_bls set (4,096 distinct points tiled, scalars below BLS12-381's r), along
+that curve's default route and, as chip_smoke.py runs them, BLS_ROUTES on the
+first N_BLS_ROUTES points; their Horner is the generic one
+(`_horner_generic`). The layouts are BN254's and not run.
 
 Prints one line per route and layout, the card's name and power limit,
 and needs the card: it exits non-zero where torch.cuda.is_available() is
@@ -34,13 +40,15 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
 STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", "_level1_pair", "l1_aff_halves_t",
-          "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold")
+          "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold",
+          "_horner_generic")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--curve", choices=("bn254", "bls12_381"), default="bn254")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_route_stages: no CUDA device", file=sys.stderr)
@@ -50,18 +58,32 @@ def main() -> int:
     from hekaton_tpu_torch import host as h
     from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
     from hekaton_tpu_torch.curves import cuda_curve as cc
-    from hekaton_tpu_torch.curves.torch_curve import G1
+    from hekaton_tpu_torch.curves.torch_curve import G1, g1_bls12_381
     from hekaton_tpu_torch.msm import pippenger as pip
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     n = 1 << args.log2n
     rs = np.random.RandomState(cs.SEED)
-    k0, delta = (int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(2))
-    ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(cs.chain_points(n, k0, delta, h)))
-    sc = torch.randint(0, 1 << 16, (n, 16), dtype=torch.int32, device=DEVICE)
-    sc[:, 15] %= 0x3064
     c, L = TorchBackend.msm_params(n)
+    bls = args.curve == "bls12_381"
+    if bls:
+        curve, P, R = g1_bls12_381(), h.bls.P, h.bls.R
+        pts = [cs.bls_mul(h.bls.G1_GEN, int.from_bytes(rs.bytes(48), "little") % R, P)]
+        step = cs.bls_mul(h.bls.G1_GEN, int.from_bytes(rs.bytes(48), "little") % R, P)
+        while len(pts) < min(n, cs.N_BLS_DISTINCT):
+            pts.append(cs.bls_add(pts[-1], step, P))
+        ax, ay = (torch.from_numpy(a).to(DEVICE).repeat(n // len(pts), 1) for a in curve.pack_affine(pts))
+        words = rs.randint(0, 2**63, size=(n, 5), dtype=np.int64)
+        sc = pip.pack_scalars([sum(int(w) << (63 * i) for i, w in enumerate(r)) for r in words], curve).to(DEVICE)
+        routes = [("default", L, {}, n)] + [(label, L, route, min(n, cs.N_BLS_ROUTES)) for label, route in cs.BLS_ROUTES]
+    else:
+        curve = G1
+        k0, delta = (int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(2))
+        ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(cs.chain_points(n, k0, delta, h)))
+        sc = torch.randint(0, 1 << 16, (n, 16), dtype=torch.int32, device=DEVICE)
+        sc[:, 15] %= 0x3064
+        routes = [("v9", L, {}, n)] + [(label, rl, route, n) for label, rl, route in cs.ROUTES]
 
     spans = []  # (stage, start event, end event) of the current call
 
@@ -79,18 +101,17 @@ def main() -> int:
     for name, fn in plain.items():
         setattr(pip, name, timed(name, fn))
 
-    routes = [("v9", L, {})] + [(label, rl, route) for label, rl, route in cs.ROUTES]
-    runs = {label: [] for label, _, _ in routes}
+    runs = {label: [] for label, *_ in routes}
     for rep in range(args.reps + 1):  # round-robin over the routes; rep 0 warms up
         # every other turn runs the routes in reverse, so that no route always follows the same one
-        for label, rl, route in routes if rep % 2 else routes[::-1]:
+        for label, rl, route, m in routes if rep % 2 else routes[::-1]:
             spans.clear()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
-                pip.msm_gpu(ax, ay, sc, c=c, L=rl, **route)
+                pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
             end.record()
             torch.cuda.synchronize()
             if rep == 0:
@@ -101,18 +122,21 @@ def main() -> int:
             per["total"] = start.elapsed_time(end)
             per["other"] = per["total"] - sum(v for k, v in per.items() if k != "total")
             runs[label].append(per)
-    for label, rl, route in routes:
+    for label, rl, route, m in routes:
         rows = runs[label]
         keys = [k for k in rows[0] if k not in ("total", "other")] + ["other", "total"]
         med = {k: statistics.median(r[k] for r in rows) for k in keys}
-        accum, level1, plan = pip.resolve_route(False, rl, **route)
-        print(f"[stages] {label} accum={accum} level1={level1} plan={plan} L={rl}: "
+        accum, level1, plan = pip.resolve_route(curve, rl, **route)
+        print(f"[stages] {label} accum={accum} level1={level1} plan={plan} {m} points, c={c}, L={rl}: "
               + ", ".join(f"{k.strip('_')} {med[k]:.2f}" for k in keys) + f" ms (median of {args.reps}; totals "
               + ", ".join(f"{r['total']:.1f}" for r in rows) + f") on {card}")
 
     # the halves pairing and the mega kernel in both slab layouts, in turns
     for name, fn in plain.items():
         setattr(pip, name, fn)
+    if bls:
+        print(card)
+        return 0
     slab, _, meta = pip._plan_sorted_w(ax, ay, sc, c, L)
     slab_t = slab.t().contiguous()
     pairs = (("l1_aff_halves", lambda: cc.l1_aff_halves(slab, L), lambda: cc.l1_aff_halves_t(slab_t, L)),

@@ -10,7 +10,9 @@ native host library). Phases, one line each, every failure raises:
   2. kernels: each of the twenty CUDA kernel entry points against its plain
      PyTorch version on the card, at the main paths' shapes, bit for bit,
      with both times and the kernel's bound (and l1_rcb_mega on the
-     transposed slab as well);
+     transposed slab as well), mont_mul and fermat_inv also at BLS12-381's
+     24 limbs (rows of their own); the C entry points refuse an unknown
+     field id;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
@@ -26,6 +28,15 @@ native host library). Phases, one line each, every failure raises:
      - msm_g2: the G2 MSM at 2^20 points (4,096 distinct points k_j * G2
        tiled 256 times, an infinity row) against (sum_i s_i k_(i mod 4096))
        * G2 by one host mul;
+     - msm_bls: the BLS12-381 G1 MSM at 2^20 points on msm_gpu's default
+       route for that curve (4,096 distinct points k_j * G tiled 256 times,
+       an infinity row, scalars below BLS12-381's r) against (sum_i s_i
+       k_(i mod 4096)) * G by one host mul, then its routes BLS_ROUTES at
+       2^16 points and the compact msm at 32 and 33 points;
+     - exec_tree: the coordinator's generate_exec_tree on ROM and RAM
+       transcripts of 2^16 entries over 32 subcircuits, with
+       HEKATON_DEVICE_TREE=1 (the device tree, on the card) and without it
+       (the host tree), with equal roots, levels and leaves;
      - fixed_base: TorchBackend.fixed_base of 2^18 scalars on G1 and on G2
        against the native host muls on 4,096 sampled lanes;
      - slice: BASELINE.json configuration 1 (Big-Merkle, 4 subcircuits,
@@ -40,8 +51,9 @@ native host library). Phases, one line each, every failure raises:
        round-trip stage 0 through the wire format; configuration 1's stage-0
        commitments take the compact msm;
   4. coverage: every kernel of each path was launched in that path's run,
-     no path but msm_routes launched one of ROUTE_KERNELS and none but
-     unfused_affine one of UNFUSED_KERNELS.
+     no path but msm_routes launched one of ROUTE_KERNELS, none but
+     unfused_affine one of UNFUSED_KERNELS, none but msm_bls one of
+     BLS_KERNELS (the 24-limb instances), and msm_bls nothing else.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -88,6 +100,18 @@ WARNS = ("(f)",)  # the routes that warn
 ROUTE_KERNELS = ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega", "aff_add_mixed_packed", "interleave_slab_t",
                  "l1_aff_halves_t")  # only msm_routes launches them
 UNFUSED_KERNELS = ("aff_prep", "aff_fin")  # no MSM route runs them: only unfused_affine
+BLS_KERNELS = ("mont_mul fq_bls381", "fermat_inv fq_bls381")  # the 24-limb instances: only msm_bls
+N_BLS_DISTINCT = 4096  # distinct BLS12-381 G1 points of msm_bls, tiled to N_MSM
+N_BLS_ROUTES = 1 << 16  # points of the BLS12-381 routes other than the default
+# msm_bls's other routes: (label, msm_gpu route arguments), c and L of msm_g1
+BLS_ROUTES = (
+    ("pair", {"level1": "pair"}),  # the generic pairwise tree, a batch inversion per round
+    ("proj", {"accum": "proj"}),  # generic projective mixed adds, no inversion
+    ("gather", {"plan": "gather"}),  # the gather plan, one add_packed per gathered row
+)
+N_BLS_COMPACT = (32, 33)  # points of the compact BLS12-381 msm (the ladder, then windows)
+N_TREE = 1 << 16  # transcript entries of the exec_tree phase
+N_TREE_SUB = 32  # its subcircuits
 # The [cli] phase's CLI runs: (label, setup command). BASELINE.json
 # configuration 4 (VM, 32 subcircuits, 1,024 cycles per subcircuit) is cut to
 # fit the script's time limit: a VM subcircuit holds ~1,000 constraints per
@@ -107,10 +131,14 @@ CLI_RUNS = (
 # and its 32-bit multiplies over the card's integer multiply rate.
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_MULS_PER_SM_CLOCK = 64  # 32-bit integer multiply(-add)s per SM per clock, compute capability 9.0
-# one 8-word CIOS Montgomery product (csrc/field.cuh::fe_mul): 64 word
-# products a_i*b_j and 64 m*p_j, each a low and a high 32-bit multiply, plus
-# 8 m = t0*ninv
-MULS_PER_PRODUCT = 2 * 64 + 2 * 64 + 8
+
+
+def muls_per_product(nw: int = 8) -> int:
+    """32-bit multiplies of one nw-word CIOS Montgomery product
+    (csrc/field.cuh::fe_mul): nw^2 word products a_i*b_j and nw^2 m*p_j,
+    each a low and a high multiply, plus nw m = t0*ninv: 264 at 8 words
+    (BN254), 588 at 12 (BLS12-381)."""
+    return 4 * nw * nw + nw
 
 
 def require(cond: bool, msg: str) -> None:
@@ -179,13 +207,38 @@ def max_abs_err(got, ref) -> int:
     return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
 
 
-def rand_limbs(shape, gen: torch.Generator) -> torch.Tensor:
-    """(..., 16) random canonical Montgomery limbs below 0x3064 * 2^240 (< p
-    for both BN254 fields, whose top limb is 0x3064)."""
-    shape = (shape, 16) if isinstance(shape, int) else tuple(shape) + (16,)
+def rand_limbs(shape, gen: torch.Generator, spec=None) -> torch.Tensor:
+    """(..., nlimbs) random canonical Montgomery limbs below the top limb of
+    the field `spec` times 2^(16(nlimbs-1)): by default 16 limbs below 0x3064
+    * 2^240 (< p for both BN254 fields, whose top limb is 0x3064)."""
+    nl, top = (16, 0x3064) if spec is None else (spec.nlimbs, spec.modulus >> (16 * (spec.nlimbs - 1)))
+    shape = (shape, nl) if isinstance(shape, int) else tuple(shape) + (nl,)
     limbs = torch.randint(0, 1 << 16, shape, generator=gen, device=DEVICE, dtype=torch.int32)
-    limbs[..., 15] %= 0x3064
+    limbs[..., nl - 1] %= top
     return limbs
+
+
+def bls_add(p, q, P):
+    """Affine P + Q on BLS12-381 G1 over Python ints (None = infinity)."""
+    if p is None or q is None:
+        return q if p is None else p
+    if p[0] == q[0]:
+        if (p[1] + q[1]) % P == 0:
+            return None
+        lam = 3 * p[0] * p[0] * pow(2 * p[1], -1, P) % P
+    else:
+        lam = (q[1] - p[1]) * pow(q[0] - p[0], -1, P) % P
+    x = (lam * lam - p[0] - q[0]) % P
+    return (x, (lam * (p[0] - x) - p[1]) % P)
+
+
+def bls_mul(p, k: int, P):
+    acc = None
+    while k:
+        if k & 1:
+            acc = bls_add(acc, p, P)
+        p, k = bls_add(p, p, P), k >> 1
+    return acc
 
 
 def chain_points(n: int, k0: int, delta: int, h) -> list:
@@ -229,12 +282,18 @@ class Bound:
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         self.clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-        e = tf.FQ.modulus - 2
-        self.fermat = (e.bit_length() - 1) + (bin(e).count("1") - 1)  # products of one a^(p-2)
+        self.fermat = self.fermat_products(tf.FQ)
 
-    def __call__(self, nbytes: float, products: float) -> tuple:
+    @staticmethod
+    def fermat_products(spec) -> int:
+        """Products of one a^(p-2) (csrc/field.cuh::fe_inv): a square per bit
+        below the top one and a multiply per set bit below it."""
+        e = spec.modulus - 2
+        return (e.bit_length() - 1) + (bin(e).count("1") - 1)
+
+    def __call__(self, nbytes: float, products: float, nw: int = 8) -> tuple:
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = products * MULS_PER_PRODUCT / (INT_MULS_PER_SM_CLOCK * self.sms * self.clock_hz)
+        t_ops = products * muls_per_product(nw) / (INT_MULS_PER_SM_CLOCK * self.sms * self.clock_hz)
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     def batch_inv(self, m: int) -> int:
@@ -329,17 +388,19 @@ def aff_edge_lanes(tf, ax, ay) -> tuple:
     return x1, y1, x2, y2
 
 
-def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> list:
+def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib) -> list:
     """Every kernel against its plain version at the main paths' shapes."""
     rows = []
 
-    def record(name, source, replaces, ms, plain_ms, err, work, library_ms=None):
+    def record(name, source, replaces, ms, plain_ms, err, work, library_ms=None, field=None):
         require(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
         bound_ms, bound_by = bound(*work)
         library = "none" if library_ms is None else f"{library_ms:.3f} ms"
         log(f"[kernels] {name}: bit-identical, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {library}, bound {bound_ms:.4f} ms ({bound_by})")
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        if field is None:  # the instance whose launches the row counts
+            field = "fq2" if name.endswith("_g2") else "fq"
+        rows.append({"name": name, "field": field, "route": "cuda", "source": source, "replaces": replaces,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
 
@@ -357,7 +418,7 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
         log(f"[kernels] mont_mul {spec.name} {N_MUL} lanes: kernel {times[spec.name][0]:.3f} ms, "
             f"plain {times[spec.name][1]:.3f} ms")
     record("mont_mul", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:253",
-           *times["fq"], errs, (3 * 64 * N_MUL, N_MUL))
+           *times["fq"], errs, (3 * 64 * N_MUL, N_MUL), field="fq, fr")
 
     # fermat_inv, with 0, 1 and p-1: N_LANES lanes (to_affine_device on a
     # fixed-base chunk), logged; then 1024 lanes (the batch_inv root width,
@@ -373,7 +434,39 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound) -> l
         log(f"[kernels] fermat_inv {m} lanes: max abs err {errs}, kernel {times[0]:.3f} ms, "
             f"plain {times[1]:.3f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
     record("fermat_inv", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:238",
-           *times, errs, work)
+           *times, errs, work, field="fq, fr")
+
+    # the 24-limb instances (BLS12-381 Fq, 12 words): mont_mul at 2^20 lanes
+    # with 0, 1 and p-1, fermat_inv at the batch_inv root width
+    spec = tf.FQ_BLS
+    a, b = rand_limbs(N_MUL, gen, spec), rand_limbs(N_MUL, gen, spec)
+    edge = tf.tensor(spec.pack([0, 1, spec.modulus - 1]), DEVICE)
+    a[:3], b[3:6], a[6:9], b[6:9] = edge, edge, edge, edge.flip(0)
+    err = max_abs_err(cf.mont_mul(spec, a, b), cf.mont_mul_plain(spec, a, b))
+    record("mont_mul fq_bls381", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:253",
+           cuda_ms(lambda: cf.mont_mul(spec, a, b), 20), cuda_ms(lambda: cf.mont_mul_plain(spec, a, b), 3), err,
+           (3 * 96 * N_MUL, N_MUL, 12), field=spec.name)
+    m = 1024
+    a = rand_limbs(m, gen, spec)
+    a[:3] = edge
+    err = max_abs_err(cf.fermat_inv(spec, a), cf.fermat_inv_plain(spec, a))
+    record("fermat_inv fq_bls381", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:238",
+           cuda_ms(lambda: cf.fermat_inv(spec, a), 20), cuda_ms(lambda: cf.fermat_inv_plain(spec, a), 1), err,
+           (2 * 96 * m, m * bound.fermat_products(spec), 12), field=spec.name)
+    # an unknown field id launches nothing: the C entry points return an
+    # error, the wrappers raise before them
+    out = torch.empty_like(a)
+    stream = cuda_lib.stream_ptr(a.device)
+    rcs = (cuda_lib.lib().hk_mont_mul(7, a.data_ptr(), a.data_ptr(), out.data_ptr(), m, m, stream),
+           cuda_lib.lib().hk_fermat_inv(7, a.data_ptr(), out.data_ptr(), m, stream))
+    require(all(rc != 0 for rc in rcs), f"an unknown field id was launched: {rcs}")
+    try:
+        cf.mont_mul(tf.FieldSpec(2**61 - 1, "m61", nlimbs=4), a[:, :4].contiguous(), a[:, :4].contiguous())
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "mont_mul took a field it has no kernel for")
+    log(f"[kernels] unknown field id 7: hk_mont_mul, hk_fermat_inv return {rcs}; the wrappers raise")
 
     # aff_add_fused: 2^18 lanes with infinity, doubling and inverse-pair lanes
     n = N_LANES
@@ -603,6 +696,177 @@ def cli_phase(card: str) -> None:
     require(compact > 0, "cli: no G1 MSM took the compact route")
 
 
+def bls_paths(h, pip, main_path, bn254_kernels: list, card: str, rs, c: int, L: int) -> None:
+    """msm_bls: BLS12-381 G1 along msm_gpu's default route for that curve at
+    N_MSM points (window c, columns of L), then BLS_ROUTES at N_BLS_ROUTES
+    points, each against the host; msm_bls_compact: the compact msm at
+    N_BLS_COMPACT points. Both launch the 24-limb instances and no BN254
+    kernel."""
+    from hekaton_tpu_torch.curves.torch_curve import g1_bls12_381
+
+    bls, curve = h.bls, g1_bls12_381()
+    P, R = bls.P, bls.R
+    N = N_MSM
+    t = time.perf_counter()
+    # k_j = k0 + j * delta: one host mul for P_0 and delta * G, then one add per point
+    k0, delta = (int.from_bytes(rs.bytes(48), "little") % R for _ in range(2))
+    step = bls_mul(bls.G1_GEN, delta, P)
+    pts = [bls_mul(bls.G1_GEN, k0, P)]
+    for _ in range(N_BLS_DISTINCT - 1):
+        pts.append(bls_add(pts[-1], step, P))
+    ks = [(k0 + j * delta) % R for j in range(N_BLS_DISTINCT)]
+    bx_np, by_np = curve.pack_affine(pts)
+    reps = N // N_BLS_DISTINCT
+    bx = torch.from_numpy(bx_np).to(DEVICE).repeat(reps, 1)
+    by = torch.from_numpy(by_np).to(DEVICE).repeat(reps, 1)
+    bx[5], by[5] = 0, 0  # an infinity row
+    words = rs.randint(0, 2**63, size=(N, 5), dtype=np.int64)
+    scalars = [sum(int(w) << (63 * i) for i, w in enumerate(row)) % R for row in words]
+    scalars[0], scalars[1], scalars[2] = 0, 1, R - 1
+    above = sum(s >= h.R for s in scalars)  # above BN254's r: packed modulo BN254's r they would change
+    sc = pip.pack_scalars(scalars, curve).to(DEVICE)
+
+    def expected(n):
+        return bls_mul(bls.G1_GEN, sum(s * ks[i % N_BLS_DISTINCT] for i, s in enumerate(scalars[:n]) if i != 5) % R, P)
+
+    want = expected(N)
+    log(f"[msm] BLS12-381 G1: {N_BLS_DISTINCT} distinct points tiled to {N} rows, {N} scalars ({above} at or "
+        f"above BN254's r) and the expected sum made on the host in {time.perf_counter() - t:.1f} s")
+
+    def run(label, n, warm_runs, **route):
+        x, y, s = bx[:n].contiguous(), by[:n].contiguous(), sc[:n].contiguous()
+        exp = want if n == N else expected(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = pip.msm_gpu(x, y, s, c=c, L=L, curve=curve, **route)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        got = curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+        require(got == exp, f"{n}-point BLS12-381 G1 {label} MSM differs from the host result")
+        warm = []
+        for _ in range(warm_runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pip.msm_gpu(x, y, s, c=c, L=L, curve=curve, **route)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t)
+        accum, level1, plan = pip.resolve_route(curve, L, **route)
+        log(f"[msm] BLS12-381 G1 {label} (accum={accum}, level1={level1}, plan={plan}) {n} points (c={c}, L={L}, "
+            f"nbits=255) equals the host result; first {cold:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
+            f"best {n / min(warm):,.0f} points/s on {card}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def msm_path():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            run("default route", N, 3)
+            for label, route in BLS_ROUTES:
+                run(f"route {label}", N_BLS_ROUTES, 1, **route)
+        routed = [str(w.message) for w in seen if str(w.message).startswith("msm_gpu")]
+        require(not routed, f"a BLS12-381 route warned: {routed}")  # each runs as asked
+
+    main_path("msm_bls", list(BLS_KERNELS), msm_path, absent=bn254_kernels)
+
+    def compact_path():
+        for n in N_BLS_COMPACT:
+            host_pts = [None if i == 5 else pts[i] for i in range(n)]
+            px, py = (torch.from_numpy(a).to(DEVICE) for a in curve.pack_affine(host_pts))
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = pip.msm(curve, px, py, sc[:n].contiguous())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            got = curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
+            require(got == expected(n), f"compact BLS12-381 msm of {n} points differs from the host")
+            log(f"[msm_compact] BLS12-381 G1 {n} points equals the host sum; "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms (first, warm) on {card}")
+
+    main_path("msm_bls_compact", [BLS_KERNELS[0]], compact_path, absent=bn254_kernels)
+
+
+class _Com:
+    """A super-commitment stand-in: the exec tree reads only its bytes."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+    def to_bytes(self) -> bytes:
+        return self.data
+
+
+def exec_tree_phase(h, card: str, rs) -> None:
+    """The device exec tree against the host tree on ROM and RAM transcripts
+    of N_TREE entries over N_TREE_SUB subcircuits (random lengths)."""
+    from hekaton_tpu_torch.protocol import eval_tree_torch as et
+    from hekaton_tpu_torch.protocol.coordinator import generate_exec_tree, sort_subtraces_by_addr
+    from hekaton_tpu_torch.protocol.transcript import RamTranscriptEntry, RomTranscriptEntry
+
+    stage_fns = {"pack (host)": "_pack_mont", "terms": "_terms", "scan": "_prefix_products",
+                 "Poseidon tree": "merkle_levels_device"}
+    plain = {name: getattr(et, fn) for name, fn in stage_fns.items()}
+    stages = {}
+
+    def timed(name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = plain[name](*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    cuts = np.sort(rs.choice(np.arange(1, N_TREE), N_TREE_SUB - 1, replace=False))
+    lens = np.diff(np.concatenate([[0], cuts, [N_TREE]])).tolist()
+    addrs = rs.randint(1, 1 << 20, size=N_TREE).tolist()
+    vals = [int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(N_TREE)]
+    reads = rs.randint(0, 2, size=N_TREE).tolist()
+    com = _Com(rs.bytes(32))
+    for mem in ("rom", "ram"):
+        if mem == "rom":
+            flat = [RomTranscriptEntry(a, v) for a, v in zip(addrs, vals)]
+        else:
+            flat = [RamTranscriptEntry(a, v, t, bool(r)) for t, (a, v, r) in enumerate(zip(addrs, vals, reads))]
+        time_sts, pos = [], 0
+        for n in lens:
+            time_sts.append(flat[pos : pos + n])
+            pos += n
+        addr_sts = sort_subtraces_by_addr(time_sts)
+        require("HEKATON_DEVICE_TREE" not in os.environ, "exec tree: HEKATON_DEVICE_TREE is set for the host tree")
+        t = time.perf_counter()
+        host_tree, host_leaves = generate_exec_tree(mem, com, time_sts, addr_sts)
+        host_s = time.perf_counter() - t
+        secs = []
+        os.environ["HEKATON_DEVICE_TREE"] = "1"  # the coordinator's branch, as a user turns it on
+        try:
+            for run in range(2):  # the second run's stages timed (a sync around each)
+                stages.clear()
+                for name, fn in stage_fns.items():
+                    setattr(et, fn, timed(name) if run else plain[name])
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tree, leaves = generate_exec_tree(mem, com, time_sts, addr_sts)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+        finally:
+            del os.environ["HEKATON_DEVICE_TREE"]
+            for name, fn in stage_fns.items():
+                setattr(et, fn, plain[name])
+        require(set(stages) == set(stage_fns), f"exec tree ({mem}): the coordinator did not build the device tree")
+        require(tree.root() == host_tree.root() and tree.levels == host_tree.levels,
+                f"exec tree ({mem}): the device tree differs from the host tree")
+        require([a.to_field_elements() for a in leaves] == [b.to_field_elements() for b in host_leaves],
+                f"exec tree ({mem}): the device leaves differ from the host leaves")
+        log(f"[exec_tree] {mem.upper()} {N_TREE} entries over {N_TREE_SUB} subcircuits: the device tree equals the "
+            f"host tree (root, {len(tree.levels)} levels, leaves); device {', '.join(f'{x:.3f}' for x in secs)} s "
+            f"(first, warm; stages of the warm run: {', '.join(f'{k} {v:.3f}' for k, v in stages.items())} s, "
+            f"the terms including their packing) on {card}, host {host_s:.3f} s")
+
+
+
 def timed_methods(backend) -> dict:
     """Wrap backend.fixed_base and backend.msm to add up their wall time
     per curve (both return host values, so the card has finished when they
@@ -676,7 +940,7 @@ def main() -> int:
     scalars[7] = scalars[6]
     ax_np, ay_np = G1.pack_affine(host_pts)
     ax, ay = torch.from_numpy(ax_np).to(DEVICE), torch.from_numpy(ay_np).to(DEVICE)
-    sc = pip.pack_scalars(scalars).to(DEVICE)
+    sc = pip.pack_scalars(scalars, G1).to(DEVICE)
     expected = h.ch.pt_mul(h.ch.g1_gen(), sum(s * k for s, k in zip(scalars, ks)) % h.R)
     log(f"[msm] {N} G1 points and scalars made on the host in {time.perf_counter() - t:.1f} s")
 
@@ -695,26 +959,39 @@ def main() -> int:
     log(f"[msm] {N_G2_DISTINCT} G2 points tiled to {N} rows, expected sum in {time.perf_counter() - t:.1f} s")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound)
+    rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib)
 
-    kernels = {"mont_mul": cf.mont_mul, "fermat_inv": cf.fermat_inv, "aff_add_fused": cc.aff_add_fused,
-               "l1_aff_halves": cc.l1_aff_halves, "horner_fold": cc.horner_fold, "madd": cc.madd,
-               "pmadd_rcb_g2": cc.pmadd_rcb_g2, "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2,
-               "dbl": cc.dbl, "add": cc.add, "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb,
-               "pdbl_rcb": cc.pdbl_rcb, "l1_rcb_mega": cc.l1_rcb_mega,
-               "aff_add_mixed_packed": cc.aff_add_mixed_packed, "interleave_slab_t": cc.interleave_slab_t,
-               "l1_aff_halves_t": cc.l1_aff_halves_t, "aff_prep": cc.aff_prep, "aff_fin": cc.aff_fin}
+    curve_kernels = {"aff_add_fused": cc.aff_add_fused, "l1_aff_halves": cc.l1_aff_halves,
+                     "horner_fold": cc.horner_fold, "madd": cc.madd, "pmadd_rcb_g2": cc.pmadd_rcb_g2,
+                     "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2, "dbl": cc.dbl, "add": cc.add,
+                     "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb, "pdbl_rcb": cc.pdbl_rcb,
+                     "l1_rcb_mega": cc.l1_rcb_mega, "aff_add_mixed_packed": cc.aff_add_mixed_packed,
+                     "interleave_slab_t": cc.interleave_slab_t, "l1_aff_halves_t": cc.l1_aff_halves_t,
+                     "aff_prep": cc.aff_prep, "aff_fin": cc.aff_fin}
+
+    def field_count(fn, fields):
+        return lambda: sum(fn.launches_by_field.get(f, 0) for f in fields)
+
+    # the launch count of every row of the kernel table: the field kernels'
+    # rows count their instances (BN254 Fq and Fr, or BLS12-381 Fq)
+    kernels = {"mont_mul": field_count(cf.mont_mul, ("fq", "fr")),
+               "fermat_inv": field_count(cf.fermat_inv, ("fq", "fr")),
+               "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
+               "fermat_inv fq_bls381": field_count(cf.fermat_inv, ("fq_bls381",)),
+               **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
     require(set(kernels) == {r["name"] for r in rows}, "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
 
-    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS):
+    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
         one of its kernels was not launched, or one of `absent` was."""
-        for fn in kernels.values():
+        cf.reset_counts(cf.mont_mul)
+        cf.reset_counts(cf.fermat_inv)
+        for fn in curve_kernels.values():
             fn.launches = 0
         run()
         torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in kernels.items()}
+        counts = {k: count() for k, count in kernels.items()}
         for k, v in counts.items():
             totals[k] += v
         log(f"[coverage] {name}: {counts}")
@@ -753,7 +1030,7 @@ def main() -> int:
         for label, route_L, route in ROUTES:
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
-                accum, level1, plan = pip.resolve_route(False, route_L, **route)
+                accum, level1, plan = pip.resolve_route(G1, route_L, **route)
                 msm_path(f"G1 route {label} accum={accum}, level1={level1}, plan={plan}", ax, ay, expected, G1,
                          L=route_L, **route)
             for w in {str(w.message) for w in seen}:
@@ -762,7 +1039,7 @@ def main() -> int:
 
     main_path("msm_routes", ["l1_rcb_mega", "padd_rcb", "pmadd_rcb", "mont_mul", "fermat_inv", "aff_add_fused",
                              "horner_fold", "aff_add_mixed_packed", "interleave_slab_t", "l1_aff_halves_t"],
-              routes_path, absent=UNFUSED_KERNELS)
+              routes_path, absent=UNFUSED_KERNELS + BLS_KERNELS)
 
     # the unfused affine add: aff_prep, batch_inv of the denominators, aff_fin
     uargs = aff_edge_lanes(tf, ax, ay)
@@ -779,7 +1056,7 @@ def main() -> int:
             f"{secs * 1e3:.2f} ms on {card}")
 
     main_path("unfused_affine", ["aff_prep", "aff_fin", "mont_mul", "fermat_inv"], unfused_path,
-              absent=ROUTE_KERNELS)
+              absent=ROUTE_KERNELS + BLS_KERNELS)
     del uargs
 
     # the compact msm at TorchBackend's window widths; the first rows of the
@@ -811,6 +1088,9 @@ def main() -> int:
     main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"],
               lambda: msm_path("G2", g2x, g2y, expected_g2, G2))
     del g2x, g2y, sc
+
+    bls_paths(h, pip, main_path, [k for k in kernels if k not in BLS_KERNELS], card, rs, c, L)
+    main_path("exec_tree", ["mont_mul"], lambda: exec_tree_phase(h, card, rs))
 
     # fixed-base: 2^18 scalars per curve through TorchBackend.fixed_base
     fb_scalars = scalars[:N_FB]  # 0, 1 and R-1 first
@@ -885,7 +1165,7 @@ def main() -> int:
                 f"a device route did not run: {backend.ran}")
         slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
 
-    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS], slice_path)
+    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS], slice_path)
 
     host = HostBackend()
     keys, circ, n = slice_out["keys"], slice_out["circ"], slice_out["n"]

@@ -204,19 +204,21 @@ class TorchBackend:
             acc = ch.pt_add(acc, self._msm_chunk(vec, scalars, lo, min(lo + chunk, n)))
         return acc
 
-    def _packed_scalars(self, scalars: list, lo: int, hi: int) -> torch.Tensor:
-        """Pack+transfer scalars[lo:hi] once per scalar list: the Groth16
-        A / B-G1 / B-G2 MSMs run over the same assignment z, so the packed
-        chunks are cached keyed on list identity (a strong ref to the list
-        keeps the identity stable until the next list arrives)."""
+    def _packed_scalars(self, scalars: list, lo: int, hi: int, curve) -> torch.Tensor:
+        """Pack+transfer scalars[lo:hi] modulo `curve`'s r once per scalar
+        list: the Groth16 A / B-G1 / B-G2 MSMs run over the same assignment
+        z, so the packed chunks are cached keyed on list identity (a strong
+        ref to the list keeps the identity stable until the next list
+        arrives) and the scalar field."""
         from ..msm.pippenger import pack_scalars
 
         if self._sc_cache is None or self._sc_cache[0] is not scalars:
             self._sc_cache = (scalars, {})
         cache = self._sc_cache[1]
-        if (lo, hi) not in cache:
-            cache[(lo, hi)] = pack_scalars(scalars[lo:hi]).to(self.device)
-        return cache[(lo, hi)]
+        key = (curve.scalar.name, lo, hi)
+        if key not in cache:
+            cache[key] = pack_scalars(scalars[lo:hi], curve).to(self.device)
+        return cache[key]
 
     def _unpack(self, vec: PointVec, out):
         return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
@@ -228,7 +230,7 @@ class TorchBackend:
         if n == 0:
             return None
         ax, ay = vec.device_chunk(0, n, n, self.device)
-        out = msm(vec.curve, ax, ay, self._packed_scalars(scalars, 0, n), c=c)
+        out = msm(vec.curve, ax, ay, self._packed_scalars(scalars, 0, n, vec.curve), c=c)
         self.ran[f"{vec.curve.name}_msm_compact"] += 1
         return self._unpack(vec, out)
 
@@ -237,7 +239,7 @@ class TorchBackend:
 
         ax, ay = vec.device_chunk(lo, hi, hi - lo, self.device)
         c, L = self.msm_params(hi - lo)
-        out = msm_gpu(ax, ay, self._packed_scalars(scalars, lo, hi), c=c, L=L)
+        out = msm_gpu(ax, ay, self._packed_scalars(scalars, lo, hi, vec.curve), c=c, L=L)
         self.ran[f"{vec.curve.name}_msm_gpu"] += 1
         return self._unpack(vec, out)
 
@@ -253,7 +255,7 @@ class TorchBackend:
         out = []
         for lo in range(0, len(scalars), self.FB_CHUNK):
             part = scalars[lo : lo + self.FB_CHUNK]
-            sc = pack_scalars(list(part) + [0] * (4 - len(part))).to(self.device)
+            sc = pack_scalars(list(part) + [0] * (4 - len(part)), curve).to(self.device)
             ax, ay = to_affine_device(curve, fixed_base_msm(curve, table, sc))
             out.extend(curve.unpack_affine(ax, ay)[: len(part)])
         self.ran["fixed_base_gpu"] += 1

@@ -1,25 +1,30 @@
-// BN254 Fq / Fr Montgomery arithmetic for the port's CUDA kernels.
+// Montgomery arithmetic over BN254 Fq / Fr and BLS12-381 Fq for the port's
+// CUDA kernels.
 //
-// An element is 8 little-endian 32-bit words in Montgomery form with
-// R = 2^256: the same value the JAX package keeps as 16 little-endian 16-bit
-// limbs (fields/jax_field.py), so a kernel that unpacks the limbs into words
-// and packs them back agrees bit for bit with the limb formulas. Every
-// function returns canonical values (< p) for canonical inputs.
+// An element is NW little-endian 32-bit words in Montgomery form with R =
+// 2^(32 NW): 8 words (R = 2^256) on the BN254 fields, 12 (R = 2^384) on
+// BLS12-381 Fq. That is the value the JAX package keeps as 2 NW little-endian
+// 16-bit limbs (16, or 24 on BLS12-381; fields/jax_field.py), so a kernel
+// that unpacks the limbs into words and packs them back agrees bit for bit
+// with the limb formulas. Every function returns canonical values (< p) for
+// canonical inputs. `Field<F>` holds a field's word count and constants;
+// `Fe` is the 8-word element of the BN254 kernels.
 //
-// Tensors at the kernel boundary are int32: either (n, 16) limb rows (one
+// Tensors at the kernel boundary are int32: either (n, 2 NW) limb rows (one
 // 16-bit limb per word) or packed slab rows (two limbs per word, already the
-// 32-bit words used here). An Fq2 = Fq[u]/(u^2+1) element is a pair of Fq
-// elements (c0, c1), at the boundary an (n, 2, 16) limb row of 32 limbs.
+// 32-bit words used here). An Fq2 = Fq[u]/(u^2+1) element is a pair of BN254
+// Fq elements (c0, c1), at the boundary an (n, 2, 16) limb row of 32 limbs.
 #pragma once
 
 #include <cstdint>
 
 namespace hk {
 
-constexpr int FQ = 0;
-constexpr int FR = 1;
+constexpr int FQ = 0;      // BN254 base field
+constexpr int FR = 1;      // BN254 scalar field
+constexpr int FQ_BLS = 2;  // BLS12-381 base field
 
-// modulus words, -p^-1 mod 2^32 and R mod p (Montgomery one), per field
+// BN254: modulus words, -p^-1 mod 2^32 and R mod p (Montgomery one), per field
 static __constant__ uint32_t P_WORDS[2][8] = {
     {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
      0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
@@ -34,9 +39,27 @@ static __constant__ uint32_t ONE_WORDS[2][8] = {
      0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
 };
 
-struct Fe {
-  uint32_t w[8];
+// per-field traits: word count, constants, and INV_TOP, the bit of p - 2
+// below its top bit, where the Fermat chain starts (BLS12-381's
+// specialization is at the end of this header)
+template <int F>
+struct Field {  // BN254 Fq (F = FQ) and Fr (F = FR)
+  static constexpr int NW = 8;
+  static constexpr int INV_TOP = 252;  // p - 2 has bit 253 as its top bit for both
+  __device__ __forceinline__ static uint32_t p(int i) { return P_WORDS[F][i]; }
+  __device__ __forceinline__ static uint32_t ninv() { return NINV[F]; }
+  __device__ __forceinline__ static uint32_t one(int i) { return ONE_WORDS[F][i]; }
 };
+
+template <int NW>
+struct FeN {
+  uint32_t w[NW];
+};
+
+using Fe = FeN<8>;  // a BN254 element
+
+template <int F>
+using FeF = FeN<Field<F>::NW>;
 
 __device__ __forceinline__ Fe fe_zero() {
   Fe r;
@@ -46,25 +69,27 @@ __device__ __forceinline__ Fe fe_zero() {
 }
 
 template <int F>
-__device__ __forceinline__ Fe fe_one() {
-  Fe r;
+__device__ __forceinline__ FeF<F> fe_one() {
+  FeF<F> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.w[i] = ONE_WORDS[F][i];
+  for (int i = 0; i < Field<F>::NW; i++) r.w[i] = Field<F>::one(i);
   return r;
 }
 
-// (16,) 16-bit limbs -> words, and back
-__device__ __forceinline__ Fe load_limbs(const int32_t* src) {
-  Fe r;
+// (2 NW,) 16-bit limbs -> NW words, and back
+template <int NW = 8>
+__device__ __forceinline__ FeN<NW> load_limbs(const int32_t* src) {
+  FeN<NW> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++)
+  for (int i = 0; i < NW; i++)
     r.w[i] = (uint32_t)src[2 * i] | ((uint32_t)src[2 * i + 1] << 16);
   return r;
 }
 
-__device__ __forceinline__ void store_limbs(int32_t* dst, const Fe& a) {
+template <int NW>
+__device__ __forceinline__ void store_limbs(int32_t* dst, const FeN<NW>& a) {
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
+  for (int i = 0; i < NW; i++) {
     dst[2 * i] = (int32_t)(a.w[i] & 0xffffu);
     dst[2 * i + 1] = (int32_t)(a.w[i] >> 16);
   }
@@ -83,44 +108,48 @@ __device__ __forceinline__ void store_words(int32_t* dst, const Fe& a) {
   for (int i = 0; i < 8; i++) dst[i] = (int32_t)a.w[i];
 }
 
-__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+template <int NW>
+__device__ __forceinline__ bool fe_is_zero(const FeN<NW>& a) {
   uint32_t acc = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) acc |= a.w[i];
+  for (int i = 0; i < NW; i++) acc |= a.w[i];
   return acc == 0u;
 }
 
-__device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
-  Fe r;
+template <int NW>
+__device__ __forceinline__ FeN<NW> fe_select(bool c, const FeN<NW>& a, const FeN<NW>& b) {
+  FeN<NW> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.w[i] = c ? a.w[i] : b.w[i];
+  for (int i = 0; i < NW; i++) r.w[i] = c ? a.w[i] : b.w[i];
   return r;
 }
 
-// t (< 2p, with `top` the bit above word 7) minus p when t >= p
+// t (< 2p, with `top` the bit above word NW-1) minus p when t >= p
 template <int F>
-__device__ __forceinline__ Fe reduce_once(const uint32_t t[8], uint32_t top) {
-  Fe d;
+__device__ __forceinline__ FeF<F> reduce_once(const uint32_t t[Field<F>::NW], uint32_t top) {
+  constexpr int NW = Field<F>::NW;
+  FeF<F> d;
   uint64_t borrow = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t s = (uint64_t)t[i] - (uint64_t)P_WORDS[F][i] - borrow;
+  for (int i = 0; i < NW; i++) {
+    uint64_t s = (uint64_t)t[i] - (uint64_t)Field<F>::p(i) - borrow;
     d.w[i] = (uint32_t)s;
     borrow = s >> 63;
   }
   bool ge = top != 0u || borrow == 0;
-  Fe r;
+  FeF<F> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.w[i] = ge ? d.w[i] : t[i];
+  for (int i = 0; i < NW; i++) r.w[i] = ge ? d.w[i] : t[i];
   return r;
 }
 
 template <int F>
-__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
-  uint32_t t[8];
+__device__ __forceinline__ FeF<F> fe_add(const FeF<F>& a, const FeF<F>& b) {
+  constexpr int NW = Field<F>::NW;
+  uint32_t t[NW];
   uint64_t c = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
+  for (int i = 0; i < NW; i++) {
     uint64_t s = (uint64_t)a.w[i] + b.w[i] + c;
     t[i] = (uint32_t)s;
     c = s >> 32;
@@ -129,11 +158,12 @@ __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
 }
 
 template <int F>
-__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
-  Fe d;
+__device__ __forceinline__ FeF<F> fe_sub(const FeF<F>& a, const FeF<F>& b) {
+  constexpr int NW = Field<F>::NW;
+  FeF<F> d;
   uint64_t borrow = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
+  for (int i = 0; i < NW; i++) {
     uint64_t s = (uint64_t)a.w[i] - (uint64_t)b.w[i] - borrow;
     d.w[i] = (uint32_t)s;
     borrow = s >> 63;
@@ -141,8 +171,8 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   if (borrow) {
     uint64_t c = 0;
 #pragma unroll
-    for (int i = 0; i < 8; i++) {
-      uint64_t s = (uint64_t)d.w[i] + P_WORDS[F][i] + c;
+    for (int i = 0; i < NW; i++) {
+      uint64_t s = (uint64_t)d.w[i] + Field<F>::p(i) + c;
       d.w[i] = (uint32_t)s;
       c = s >> 32;
     }
@@ -150,54 +180,55 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   return d;
 }
 
-// CIOS Montgomery product a*b*R^-1 mod p over 32-bit words; the running
+// CIOS Montgomery product a*b*R^-1 mod p over NW 32-bit words; the running
 // sum t stays below 2p, so one conditional subtraction ends it
 template <int F>
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
-  uint32_t t[10];
+__device__ __forceinline__ FeF<F> fe_mul(const FeF<F>& a, const FeF<F>& b) {
+  constexpr int NW = Field<F>::NW;
+  uint32_t t[NW + 2];
 #pragma unroll
-  for (int j = 0; j < 10; j++) t[j] = 0u;
+  for (int j = 0; j < NW + 2; j++) t[j] = 0u;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
+  for (int i = 0; i < NW; i++) {
     uint64_t c = 0;
 #pragma unroll
-    for (int j = 0; j < 8; j++) {
+    for (int j = 0; j < NW; j++) {
       uint64_t s = (uint64_t)a.w[i] * b.w[j] + t[j] + c;
       t[j] = (uint32_t)s;
       c = s >> 32;
     }
-    uint64_t s = (uint64_t)t[8] + c;
-    t[8] = (uint32_t)s;
-    t[9] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * NINV[F];
-    s = (uint64_t)m * P_WORDS[F][0] + t[0];
+    uint64_t s = (uint64_t)t[NW] + c;
+    t[NW] = (uint32_t)s;
+    t[NW + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * Field<F>::ninv();
+    s = (uint64_t)m * Field<F>::p(0) + t[0];
     c = s >> 32;
 #pragma unroll
-    for (int j = 1; j < 8; j++) {
-      s = (uint64_t)m * P_WORDS[F][j] + t[j] + c;
+    for (int j = 1; j < NW; j++) {
+      s = (uint64_t)m * Field<F>::p(j) + t[j] + c;
       t[j - 1] = (uint32_t)s;
       c = s >> 32;
     }
-    s = (uint64_t)t[8] + c;
-    t[7] = (uint32_t)s;
-    t[8] = t[9] + (uint32_t)(s >> 32);
+    s = (uint64_t)t[NW] + c;
+    t[NW - 1] = (uint32_t)s;
+    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
   }
-  return reduce_once<F>(t, t[8]);
+  return reduce_once<F>(t, t[NW]);
 }
 
 template <int F>
-__device__ __forceinline__ Fe fe_sqr(const Fe& a) {
+__device__ __forceinline__ FeF<F> fe_sqr(const FeF<F>& a) {
   return fe_mul<F>(a, a);
 }
 
-// a^(p-2) by left-to-right square-and-multiply; inv(0) = 0
+// a^(p-2) by left-to-right square-and-multiply from the bit below the top
+// one (acc = a holds the top bit); inv(0) = 0
 template <int F>
-__device__ __forceinline__ Fe fe_inv(const Fe& a) {
-  Fe acc = a;
-  // p - 2 has bit 253 as its top bit for both BN254 moduli
-  for (int bit = 252; bit >= 0; bit--) {
+__device__ __forceinline__ FeF<F> fe_inv(const FeF<F>& a) {
+  FeF<F> acc = a;
+  for (int bit = Field<F>::INV_TOP; bit >= 0; bit--) {
     acc = fe_sqr<F>(acc);
-    uint32_t w = P_WORDS[F][bit >> 5] - ((bit >> 5) == 0 ? 2u : 0u);
+    uint32_t w = Field<F>::p(bit >> 5) - ((bit >> 5) == 0 ? 2u : 0u);
     if ((w >> (bit & 31)) & 1u) acc = fe_mul<F>(acc, a);
   }
   return acc;
@@ -266,5 +297,26 @@ __device__ __forceinline__ void store_limbs2(int32_t* dst, const Fe2& a) {
   store_limbs(dst, a.c0);
   store_limbs(dst + 16, a.c1);
 }
+
+// -- BLS12-381 Fq: the constants over 12 words (R = 2^384) and its traits --
+// They come last so that the BN254 constants keep their constant-bank
+// offsets: declared before B3_G2_WORDS, they moved that array and cost
+// pdbl_rcb_g2_kernel two registers (ptxas, sm_90a, CUDA 12.9).
+static __constant__ uint32_t P381_WORDS[12] = {
+    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+static __constant__ uint32_t NINV381 = 0xfffcfffdu;
+static __constant__ uint32_t ONE381_WORDS[12] = {
+    0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
+    0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+
+template <>
+struct Field<FQ_BLS> {
+  static constexpr int NW = 12;
+  static constexpr int INV_TOP = 379;  // p - 2 has 381 bits, 229 of them set
+  __device__ __forceinline__ static uint32_t p(int i) { return P381_WORDS[i]; }
+  __device__ __forceinline__ static uint32_t ninv() { return NINV381; }
+  __device__ __forceinline__ static uint32_t one(int i) { return ONE381_WORDS[i]; }
+};
 
 }  // namespace hk

@@ -231,7 +231,7 @@ def l1_rcb_mega_plain(rows, L: int, transposed: bool = False) -> Proj:
     return acc
 
 
-_G1_PLAIN = CurveOps(tf.FqPlain, "g1_plain")  # its dbl is _dbl_tiles' dbl-2009-l
+_G1_PLAIN = CurveOps(tf.FqPlain, "g1_plain", tf.FR)  # its dbl is _dbl_tiles' dbl-2009-l
 
 
 def pmadd_rcb_g2_plain(x, y, z, ax, ay):

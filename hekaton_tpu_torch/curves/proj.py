@@ -15,6 +15,9 @@ run these formulas on CPU tensors, as `PallasProjG1Ops` and
 `PallasProjG2Ops` reach the Pallas kernels on a TPU. The G2 MSM and the G1
 MSM's accum="proj" routes accumulate in them; every G1 route takes
 `from_affine` and `to_jacobian` of its window sums from `PROJ_G1`.
+`proj_for_curve` (:250-268) picks the ops of a curve: `PROJ_G1`, `PROJ_G2`, or
+for BLS12-381 G1 the generic `PROJ_G1_BLS` (b3 = 3 * 4 = 12), whose products
+alone run on a kernel (the 24-limb mont_mul).
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..fields.torch_field import FqOps, Fq2Ops
+from ..fields import bls12_381 as bls
+from ..fields import torch_field as tf
+from ..fields.torch_field import FqBlsOps, FqOps, Fq2Ops
 from .host import B_G2
 from .torch_curve import Jac
 
@@ -194,3 +199,17 @@ class ProjG2Ops(KernelProjOps):
 
 PROJ_G1 = ProjG1Ops(FqOps, 9, "g1_proj")
 PROJ_G2 = ProjG2Ops(Fq2Ops, B_G2 * 3, "g2_proj")
+PROJ_G1_BLS = ProjOps(FqBlsOps, 3 * bls.B_G1, "g1_bls381_proj")
+
+
+def proj_for_curve(curve) -> ProjOps:
+    """The complete-formula ops over a curve's base field: BN254 G1 (the RCB
+    kernels), BN254 G2 (the Fq2 RCB kernels) or BLS12-381 G1 (generic)."""
+    if curve.f.ndim == 2:
+        return PROJ_G2
+    modulus = curve.f.spec.modulus
+    if modulus == tf.FQ.modulus:
+        return PROJ_G1
+    if modulus == tf.FQ_BLS.modulus:
+        return PROJ_G1_BLS
+    raise ValueError(f"no projective ops for the field {curve.f.spec.name}")

@@ -16,7 +16,8 @@ versions of `add` and `add_mixed` mirror the Pallas `_add_tiles` and
 `_madd_tiles`, which agree with `CurveOps.add` and `CurveOps.add_mixed` as
 points but not as limbs on infinity lanes; `dbl` is the same formula in all
 of them. G2 keeps the plain formulas, as the JAX package's `G2` has no
-kernel either.
+kernel either, and so does BLS12-381 G1 (`g1_bls12_381`, over the 24-limb
+Fq), whose products alone run on the mont_mul kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..fields.host import Fq2
-from ..fields.torch_field import FqOps, Fq2Ops
+from ..fields.torch_field import FR, FR_BLS, FieldSpec, FqBlsOps, FqOps, Fq2Ops
 
 
 class Jac(NamedTuple):
@@ -36,9 +37,10 @@ class Jac(NamedTuple):
 
 
 class CurveOps:
-    def __init__(self, fops, name: str):
+    def __init__(self, fops, name: str, scalar: FieldSpec):
         self.f = fops
         self.name = name
+        self.scalar = scalar  # the field of the group order r, in which scalars are packed
 
     # -- constructors -------------------------------------------------------
     def inf(self, batch_shape, device) -> Jac:
@@ -208,5 +210,14 @@ class G1Ops(CurveOps):
         return madd(*(t.contiguous() for t in (*p, ax, ay)))
 
 
-G1 = G1Ops(FqOps, "g1")
-G2 = CurveOps(Fq2Ops, "g2")
+G1 = G1Ops(FqOps, "g1", FR)
+G2 = CurveOps(Fq2Ops, "g2", FR)
+G1_BLS = CurveOps(FqBlsOps, "g1_bls381", FR_BLS)
+
+
+def g1_bls12_381() -> CurveOps:
+    """G1 over BLS12-381 (jax_curve.py::g1_bls12_381, :239-245): the generic
+    a=0 Jacobian formulas over the 24-limb Fq, their products on the
+    mont_mul kernel for CUDA tensors. It has no point kernel: the JAX
+    package's Pallas point kernels are BN254-only."""
+    return G1_BLS

@@ -1,13 +1,14 @@
 """Batched multi-limb Montgomery field arithmetic on torch tensors.
 
-Port of hekaton_tpu/fields/jax_field.py. Field elements are `(..., 16)`
-`torch.int32` tensors holding 16 little-endian 16-bit limbs in Montgomery
-form (radix R = 2^256), the JAX package's layout; Fq2 = Fq[u]/(u^2+1)
-elements are `(..., 2, 16)` (c0, c1). Every function here is the
-plain PyTorch formula: it runs on whatever device its tensors are on, computes
-in int64 and returns int32 limbs. The CUDA kernels (fields/cuda_field.py)
-compute the same canonical values on 32-bit words; since R = 2^256 either way,
-the two agree bit for bit.
+Port of hekaton_tpu/fields/jax_field.py. Field elements are `(..., nlimbs)`
+`torch.int32` tensors holding little-endian 16-bit limbs in Montgomery form
+(radix R = 2^(16 nlimbs)), the JAX package's layout: 16 limbs (R = 2^256) on
+BN254's Fq and Fr, 24 (R = 2^384) on BLS12-381's Fq (`FQ_BLS`); Fq2 =
+Fq[u]/(u^2+1) elements are `(..., 2, 16)` (c0, c1). Every function here is
+the plain PyTorch formula: it runs on whatever device its tensors are on,
+computes in int64 and returns int32 limbs. The CUDA kernels
+(fields/cuda_field.py) compute the same canonical values on 32-bit words;
+since R is the same power of two either way, the two agree bit for bit.
 
 `batch_inv` is the one function that dispatches: on CUDA tensors its tree
 levels and root inversion go through the kernel wrappers of cuda_field.py, as
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import bls12_381 as bls
 from .bn254 import LIMB_BITS, LIMB_MASK, NLIMBS, P, R, from_limbs, to_limbs
 
 M16 = LIMB_MASK
@@ -88,6 +90,10 @@ class FieldSpec:
 
 FQ = FieldSpec(P, "fq")
 FR = FieldSpec(R, "fr")
+# BLS12-381: the 381-bit base field takes 24 limbs (jax_curve.py::g1_bls12_381);
+# the scalar field fits 16, and packs scalars (mont=False) below its own r
+FQ_BLS = FieldSpec(bls.P, "fq_bls381", nlimbs=bls.NLIMBS_FQ)
+FR_BLS = FieldSpec(bls.R, "fr_bls381", nlimbs=bls.NLIMBS_FR)
 
 
 def tensor(arr, device) -> torch.Tensor:
@@ -190,8 +196,8 @@ def _broadcast(a, b):
 
 def _reduce_once(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
     """(..., nl + 1) columns holding a value < 2p (canonical limbs plus a
-    carry column) -> its canonical residue: adding 2^256 - p carries into
-    the top column iff the value is at least p."""
+    carry column) -> its canonical residue: adding 2^(16 nl) - p carries
+    into the top column iff the value is at least p."""
     nl = spec.nlimbs
     d = _carry(r + F.pad(consts(spec, r.device)["p_comp"], (0, 1)))
     return torch.where((d[..., nl] > 0).unsqueeze(-1), d[..., :nl], r[..., :nl])
@@ -204,7 +210,7 @@ def add(spec: FieldSpec, a, b):
 
 def sub(spec: FieldSpec, a, b):
     a, b = _broadcast(a, b)
-    # a + (2^256 - 1 - b) + 1 carries out iff a >= b; otherwise add p back
+    # a + (2^(16 nl) - 1 - b) + 1 carries out iff a >= b; otherwise add p back
     x = F.pad(a + (M16 - b), (0, 1))
     x[..., 0] += 1
     d = _carry(x)
@@ -221,9 +227,10 @@ _ROW_PRODUCT_LANES = 512
 
 
 def _product_cols(a, b, k):
-    """Raw columns (< 2^36) of the schoolbook product a*b. Narrow batches
-    take one float64 matrix product of the outer product (few tensor ops);
-    wide ones accumulate 16 shifted rows (less memory traffic per lane)."""
+    """Raw columns (< nl * 2^32 <= 2^37) of the schoolbook product a*b.
+    Narrow batches take one float64 matrix product of the outer product
+    (few tensor ops); wide ones accumulate nl shifted rows (less memory
+    traffic per lane)."""
     nl = a.shape[-1]
     if a.numel() < _ROW_PRODUCT_LANES * nl:
         outer = (a.double().unsqueeze(-1) * b.double().unsqueeze(-2)).flatten(-2)
@@ -237,12 +244,14 @@ def _product_cols(a, b, k):
 def mont_mul(spec: FieldSpec, a, b):
     """Montgomery product a*b*R^-1 mod p, canonical (separated REDC).
 
-    The product columns t are raw int64 sums (< 2^36); m = t*ninv mod R is
-    formed from t's low columns split at 16 bits (column sums < 2^41, exact);
-    m*p is another exact float64 product. The low half of t + m*p is exactly
-    c*R with c < 2^22, read off as its weighted column sum (exact in
-    float64 after rounding) instead of rippling carries through 16 limbs
-    that all end up zero."""
+    The product columns t are raw int64 sums (< 2^37 at 24 limbs); m =
+    t*ninv mod R is formed from t's low columns split at 16 bits (column
+    sums < 2^42, exact); m*p is another exact float64 product. The low half
+    of t + m*p is exactly c*R with c < 2^23, read off as its weighted column
+    sum (exact in float64 after rounding: the rounding errors of the
+    fractional terms stay far below 1/2) instead of rippling carries
+    through nl limbs that all end up zero. The same bounds hold at 16 and
+    24 limbs."""
     nl = spec.nlimbs
     k = consts(spec, a.device)
     a, b = _broadcast(a, b)
@@ -392,6 +401,7 @@ class FpOps:
 
 FqOps = FpOps(FQ)
 FqPlain = FpOps(FQ, plain=True)
+FqBlsOps = FpOps(FQ_BLS)  # BLS12-381 Fq: products on the 24-limb mont_mul kernel on CUDA
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Variable-base Pippenger MSMs and fixed-base batch scalar muls on torch
-tensors, for BN254 G1 and G2.
+tensors, for BN254 G1 and G2, and the variable-base MSMs on BLS12-381 G1.
 
 `msm` ports the compact MSM of hekaton_tpu/msm/pippenger.py (`msm`, :232-268,
 with `_msm_ladder`, `_segmented_accumulate`, `_weighted_bucket_sum` and
@@ -9,14 +9,22 @@ window a digit sort, a segmented reduce-by-key of the sorted stream into
 Jacobian buckets (complete runs scatter-set, lane-boundary runs stitched by
 recursion), a suffix scan and tree sum of the weighted buckets, and a Horner
 combine. It runs on the curve's Jacobian group law (curves/torch_curve.py:
-G1 on the dbl, add and madd kernels, G2 on the plain Fq2 formulas). The JAX
+G1 on the dbl, add and madd kernels, G2 on the plain Fq2 formulas, BLS12-381
+G1 on the plain formulas over the 24-limb mont_mul kernel). The JAX
 code scans the windows one after another; here every window is one row of a
 leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.
 
 `msm_gpu` ports hekaton_tpu/msm/pippenger.py::msm_tpu (:940-1154) with its
 route parameters `accum`, `level1`, `plan`, `p_super`, `depth` and `G`;
-`resolve_route` resolves the first three as msm_tpu does (:993-1051):
+`resolve_route` resolves the first three as msm_tpu does (:993-1051). The
+stages below are those of BN254; BLS12-381 G1 (`curve=g1_bls12_381()`) has
+no point kernel, so it resolves as msm_tpu does for a G1 curve other than
+BN254: the per-window sorted plan, `level1="steps"` (an explicit "pair" runs
+the generic pairwise tree, `_level1_pair`, and the gather plan
+`_level1_tpu`), its adds on the generic AffineOps or ProjOps of
+curves/affine.py and curves/proj.py (plain torch, products and inversion
+roots on the 24-limb mont_mul and Fermat kernels), and the generic Horner:
 
   1. signed window digits (`signed_digits_for_windows`);
   2. the plan, which lays the points out in bucket-pure columns of L:
@@ -48,8 +56,9 @@ route parameters `accum`, `level1`, `plan`, `p_super`, `depth` and `G`;
      until every bucket owns one column, then the bucket readout;
   5. `_suffix_weighted`: sum_b b * B_b per window by a suffix scan and a
      halving tree;
-  6. the window Horner combine (G1: curves/cuda_curve.py::horner_fold; G2:
-     c projective doubles and one add per window on one lane).
+  6. the window Horner combine (BN254 G1: curves/cuda_curve.py::horner_fold;
+     G2 and BLS12-381: c projective doubles and one add per window on one
+     lane).
 
 `accum="affine"` (the G1 default) accumulates stages 3-5 in complete batched
 affine (curves/affine.py: the aff_add kernel pair and the Fermat kernel;
@@ -64,7 +73,9 @@ fixed-base batch scalar muls of setup (:1247-1309): 32 windows of 8 bits,
 one Jacobian mixed add per window (G1: the madd kernel), then one inversion
 per lane (the Fermat kernel).
 
-Scalars are (N, 16) int32 limbs in plain (non-Montgomery) form; digits and
+Scalars are (N, 16) int32 limbs in plain (non-Montgomery) form, below the
+curve's group order (`pack_scalars(vals, curve)` packs them modulo
+`curve.scalar`; BLS12-381's r exceeds BN254's); digits and
 keys are int64 (this torch has no uint32 add, shift or searchsorted). Packed
 slab words are int32 bit patterns of uint32 words.
 """
@@ -76,20 +87,23 @@ import warnings
 import numpy as np
 import torch
 
-from ..curves.affine import AFF_G1, AffineOps, pack_words, unpack_words
+from ..curves.affine import AffineOps, KernelAffG1Ops, aff_for_curve, pack_words, unpack_words
 from ..curves.cuda_curve import horner_fold, interleave_slab_t, l1_aff_halves, l1_aff_halves_t, l1_rcb_mega
 from ..curves.host import pt_add, pt_dbl
-from ..curves.proj import PROJ_G1, PROJ_G2, Proj
-from ..curves.torch_curve import CurveOps, Jac
+from ..curves.proj import Proj, proj_for_curve
+from ..curves.torch_curve import G1, G2, CurveOps, Jac
 from ..fields import torch_field as tf
 from ..fields.cuda_field import fermat_inv
+from ..fields.torch_field import FieldSpec
 
 SENT = 0xFFFFFFFF  # sort key of the tail padding (sorts last)
 
 
-def pack_scalars(vals) -> torch.Tensor:
-    """Host ints -> (N, 16) int32 plain limb tensor on the CPU."""
-    return torch.from_numpy(tf.FR.pack(vals, mont=False))
+def pack_scalars(vals, curve: CurveOps) -> torch.Tensor:
+    """Host ints -> (N, 16) int32 plain limb tensor on the CPU, reduced
+    modulo the group order of `curve` (`curve.scalar`: BN254's r for G1 and
+    G2, BLS12-381's, which is larger, for g1_bls12_381())."""
+    return torch.from_numpy(curve.scalar.pack(vals, mont=False))
 
 
 def digits_for_windows(scalars: torch.Tensor, c: int, nbits: int = 254) -> torch.Tensor:
@@ -277,13 +291,17 @@ def _msm_ladder(curve: CurveOps, ax, ay, scalars, nbits: int = 254) -> Jac:
     return _tree_index(_tree_reduce(curve, _tree_map(lambda a: a[None], acc)), 0)
 
 
-def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbits: int = 254) -> Jac:
+def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbits: int | None = None) -> Jac:
     """Compact variable-base MSM: sum_i scalars[i] * P_i.
 
     ax, ay: (N, ...) affine limbs ((0,0) = infinity); scalars: (N, 16) int32
-    plain limbs on the same device. c defaults to the JAX package's rule
-    for N points. Returns a Jacobian point of unbatched tensors."""
+    plain limbs on the same device, `nbits` their bit length (by default
+    that of the curve's r: 254 on BN254, 255 on BLS12-381). c defaults to
+    the JAX package's rule for N points. Returns a Jacobian point of
+    unbatched tensors."""
     N = ax.shape[0]
+    if nbits is None:
+        nbits = curve.scalar.modulus.bit_length()
     if N <= MSM_LADDER_THRESHOLD:
         return _msm_ladder(curve, ax, ay, scalars, nbits)
     if c is None:
@@ -310,14 +328,15 @@ def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbi
 # ---------------------------------------------------------------------------
 
 
-def _point_table(ax, ay) -> torch.Tensor:
-    """(2N+1, nw) packed rows: [0, N) = x||y, [N, 2N) = x||-y, 2N = zeros
-    (pads and tail). A G2 coordinate's (2, 16) limbs pack to 16 words."""
+def _point_table(ax, ay, fspec: FieldSpec = tf.FQ) -> torch.Tensor:
+    """(2N+1, nw) packed rows: [0, N) = x||y, [N, 2N) = x||-y (negated in
+    the base field `fspec`), 2N = zeros (pads and tail). A G2 coordinate's
+    (2, 16) limbs pack to 16 words, a BLS12-381 one's 24 limbs to 12."""
     N = ax.shape[0]
     px = pack_words(ax.reshape(N, -1))
     return torch.cat([
         torch.cat([px, pack_words(ay.reshape(N, -1))], dim=1),
-        torch.cat([px, pack_words(tf.neg(tf.FQ, ay).reshape(N, -1))], dim=1),
+        torch.cat([px, pack_words(tf.neg(fspec, ay).reshape(N, -1))], dim=1),
         torch.zeros((1, 2 * px.shape[1]), dtype=torch.int32, device=ax.device),
     ])
 
@@ -333,7 +352,7 @@ def _pad_keys(counts: torch.Tensor, L: int) -> torch.Tensor:
     return keys.reshape(*lead, B * (L - 1))
 
 
-def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1):
+def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1, fspec: FieldSpec = tf.FQ):
     """The sorted plans' stream: per window, the N digits plus per-bucket
     alignment pads (each bucket's run filled to a multiple of L) and tail
     sentinels, stably sorted by digit, with each element's row in the
@@ -369,7 +388,7 @@ def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1):
     tail_n = mcols * L - M0
     keys = torch.cat([mag, pad_keys, torch.full((W, tail_n), SENT, dtype=torch.int64, device=dev)], 1)
 
-    table = _point_table(ax, ay)
+    table = _point_table(ax, ay, fspec)
     src = torch.cat([
         torch.arange(N, dtype=torch.int64, device=dev)[None, :] + N * neg.long(),
         torch.full((W, npad + tail_n), 2 * N, dtype=torch.int64, device=dev),
@@ -383,14 +402,14 @@ def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1):
     return table, src, col_bucket, (W, B, NB, W * N, W * mcols)
 
 
-def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254):
+def _plan_sorted_w(ax, ay, scalars, c: int, L: int, nbits: int = 254, fspec: FieldSpec = tf.FQ):
     """The v9 plan (pippenger.py::_plan_sorted_w, :644-730): the sorted
     stream gathered into the (ncols, L*nw) packed slab, so each slab row's
     L elements are one bucket's points.
 
     Returns (rows, col_bucket, (W, B, NB, n_in, ncols)) as `_sorted_stream`.
     """
-    table, src, col_bucket, meta = _sorted_stream(ax, ay, scalars, c, L, nbits)
+    table, src, col_bucket, meta = _sorted_stream(ax, ay, scalars, c, L, nbits, fspec=fspec)
     rows = table[src.reshape(-1)].reshape(meta[4], L * table.shape[1])
     return rows, col_bucket, meta
 
@@ -422,7 +441,8 @@ def _plan_sorted_t(ax, ay, scalars, c: int, L: int, nbits: int = 254, blkc: int 
     return planes, col_bucket, meta
 
 
-def _plan_tpu(ax, ay, scalars, c: int, L: int, nbits: int = 254, order: str = "row", col_pad: int = 1):
+def _plan_tpu(ax, ay, scalars, c: int, L: int, nbits: int = 254, order: str = "row", col_pad: int = 1,
+              fspec: FieldSpec = tf.FQ):
     """The v6 gather plan (pippenger.py::_plan_tpu, :449-536): one flat
     stable sort of the window-offset digits carrying each element's table
     row, then per bucket ceil(count/L) columns (at least one, so empty
@@ -473,13 +493,25 @@ def _plan_tpu(ax, ay, scalars, c: int, L: int, nbits: int = 254, order: str = "r
         within, base, cnt = within[:, None], base[:, None], cnt[:, None]
     valid = within * L + r < cnt
     src = torch.where(valid, prow[torch.where(valid, base + r, 0)], 2 * N)
-    return src, _point_table(ax, ay), col_bucket, (W, B, NB, n_in, ncols)
+    return src, _point_table(ax, ay, fspec), col_bucket, (W, B, NB, n_in, ncols)
 
 
 def _level1_pair(ops, rows, L: int):
-    """Stage 3, `level1="pair"`: every bucket-pure slab column to one affine
-    point."""
-    return ops.unpack_rows(l1_aff_halves(rows, L))
+    """Stage 3, `level1="pair"` (pippenger.py::_level1_pair, :854-882): every
+    bucket-pure slab column to one affine point. BN254 G1 takes the halves
+    kernels; other affine ops (BLS12-381) the generic pairwise tree, log2(L)
+    rounds of `add_pairs_packed` on adjacent elements of each column, each
+    round one batch inversion."""
+    if isinstance(ops, KernelAffG1Ops):
+        return ops.unpack_rows(l1_aff_halves(rows, L))
+    ncols = rows.shape[0]
+    nw = rows.shape[1] // L  # packed words per element
+    m = ncols * L
+    out = rows.reshape(m, nw)
+    while m > ncols:
+        out = ops.add_pairs_packed(out.reshape(m // 2, 2 * nw))
+        m //= 2
+    return ops.unpack_rows(out)
 
 
 def _level1_mega(ops, slab, L: int, transposed: bool = False):
@@ -611,16 +643,26 @@ def _suffix_weighted(ops, buckets, W: int, B: int):
     return _plain_sum_axis1(ops, pt(*(a[:, 1:] for a in t)))
 
 
-def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple:
-    """(accum, level1, plan) as msm_tpu resolves its arguments
-    (hekaton_tpu/msm/pippenger.py:993-1051) on BN254 G1 or (g2) G2.
+def _is_bn254_g1(curve: CurveOps) -> bool:
+    """msm_tpu's is_bn_g1: the one curve with point kernels."""
+    return curve.f.ndim == 1 and curve.f.spec.modulus == tf.FQ.modulus
 
-    G1: accum "affine", plan "wsort", level1 "pair" for affine accumulation
-    and a power-of-two L, else "mega". G2: accum is "proj" and level1
-    "steps" whatever is asked (the mega kernel is G1's), plan "sort". An
-    explicit "pair" that cannot run (projective accumulation, the gather
+
+def resolve_route(curve: CurveOps, L: int, accum=None, level1=None, plan=None) -> tuple:
+    """(accum, level1, plan) as msm_tpu resolves its arguments
+    (hekaton_tpu/msm/pippenger.py:993-1051) on `curve`: BN254 G1, BN254 G2
+    (Fq2 coordinates) or another G1 curve, BLS12-381.
+
+    BN254 G1: accum "affine", plan "wsort", level1 "pair" for affine
+    accumulation and a power-of-two L, else "mega". G2: accum is "proj"
+    and level1 "steps" whatever is asked (the mega kernel is G1's), plan
+    "sort". Another G1 curve: accum "affine", plan "sort", level1 "steps";
+    "mega" becomes "steps" and "tsort" "wsort" (those kernels are BN254's).
+    An explicit "pair" that cannot run (projective accumulation, the gather
     plan, L not a power of two) warns and becomes "steps"; "tsort" with
     "steps" becomes "wsort" (its kernels serve the mega and pair routes)."""
+    g2 = curve.f.ndim == 2
+    bn_g1 = _is_bn254_g1(curve)
     if accum is None:
         accum = "proj" if g2 else "affine"
     if accum not in ("affine", "proj"):
@@ -628,12 +670,15 @@ def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple
     if g2:
         accum = "proj"
     if plan is None:
-        plan = "sort" if g2 else "wsort"
+        plan = "wsort" if bn_g1 else "sort"
     if plan not in ("sort", "wsort", "tsort", "gather"):
         raise ValueError(f"msm_gpu: plan={plan!r} is not 'sort', 'wsort', 'tsort' or 'gather'")
     pow2 = L & (L - 1) == 0
     if level1 is None:
-        level1 = "steps" if g2 else ("pair" if accum == "affine" and pow2 else "mega")
+        if not bn_g1:
+            level1 = "steps"
+        else:
+            level1 = "pair" if accum == "affine" and pow2 else "mega"
     if level1 not in ("pair", "mega", "steps"):
         raise ValueError(f"msm_gpu: level1={level1!r} is not 'pair', 'mega' or 'steps'")
     if level1 == "pair" and (accum != "affine" or plan == "gather" or not pow2):
@@ -643,31 +688,45 @@ def resolve_route(g2: bool, L: int, accum=None, level1=None, plan=None) -> tuple
             stacklevel=3,
         )
         level1 = "steps"
-    if g2 and level1 == "mega":
+    if not bn_g1 and level1 == "mega":
         level1 = "steps"
-    if plan == "tsort" and level1 == "steps":
+    if plan == "tsort" and (level1 == "steps" or not bn_g1):
         plan = "wsort"
     return accum, level1, plan
 
 
-def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254, p_super: int = 3,
+def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int | None = None, p_super: int = 3,
             accum: str | None = None, level1: str | None = None, plan: str | None = None,
-            depth: int = 1, G: int = 1) -> Jac:
-    """sum_i scalars[i] * P_i over BN254 G1 or G2.
+            depth: int = 1, G: int = 1, curve: CurveOps | None = None) -> Jac:
+    """sum_i scalars[i] * P_i over BN254 G1, BN254 G2 or BLS12-381 G1.
 
-    ax, ay: affine limbs, (N, 16) for G1 or (N, 2, 16) Fq2 for G2 ((0,0) =
-    infinity); the coordinate shape picks the curve. scalars: (N, 16) int32
-    plain limbs on the same device. `accum`, `level1` and `plan` pick the
-    route as in msm_tpu (`resolve_route`; module docstring); `p_super` is
-    the collapse's strides per round; `depth` and `G` are the gather plan's
-    (`_level1_tpu`). Returns a Jacobian point of unbatched tensors."""
+    ax, ay: affine limbs, (N, 16) for BN254 G1, (N, 2, 16) Fq2 for G2 or
+    (N, 24) for BLS12-381 G1 ((0,0) = infinity). `curve` is the CurveOps of
+    the points, as msm_tpu takes it; left out, the coordinate shape picks
+    BN254 G1 or G2, and (N, 24) coordinates need curve=g1_bls12_381().
+    scalars: (N, 16) int32 plain limbs on the same device; `nbits` their
+    bit length, by default 254 on BN254 and 255 on BLS12-381. `accum`,
+    `level1` and `plan` pick the route as in msm_tpu (`resolve_route`;
+    module docstring); `p_super` is the collapse's strides per round;
+    `depth` and `G` are the gather plan's (`_level1_tpu`). Returns a
+    Jacobian point of unbatched tensors."""
     N = ax.shape[0]
     dev = ax.device
     coord_shape = tuple(ax.shape[1:])
-    g2 = len(coord_shape) == 2
-    accum, level1, plan = resolve_route(g2, L, accum, level1, plan)
-    proj = PROJ_G2 if g2 else PROJ_G1
-    ops = AFF_G1 if accum == "affine" else proj
+    if curve is None:
+        curve = {(16,): G1, (2, 16): G2}.get(coord_shape)
+        if curve is None:
+            raise ValueError(f"msm_gpu: no default curve for {coord_shape} coordinates (BLS12-381 G1 "
+                             f"needs curve=g1_bls12_381())")
+    f = curve.f
+    want = (2, 16) if f.ndim == 2 else (f.spec.nlimbs,)
+    if coord_shape != want:
+        raise ValueError(f"msm_gpu: {curve.name} takes {want} coordinates, got {coord_shape}")
+    if nbits is None:
+        nbits = curve.scalar.modulus.bit_length()  # 254 on BN254, 255 on BLS12-381
+    accum, level1, plan = resolve_route(curve, L, accum, level1, plan)
+    proj = proj_for_curve(curve)
+    ops = aff_for_curve(curve) if accum == "affine" else proj
     step = ops.add_packed if accum == "affine" else _mixed_step(proj, coord_shape)
     if plan == "tsort":
         planes, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_t(ax, ay, scalars, c, L, nbits)
@@ -680,14 +739,14 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254, p_super
         del slab_t
     elif plan == "gather":
         src, table, col_bucket, (W, B, NB, n_in, ncols) = _plan_tpu(
-            ax, ay, scalars, c, L, nbits, order="col" if level1 == "mega" else "row")
+            ax, ay, scalars, c, L, nbits, order="col" if level1 == "mega" else "row", fspec=f.spec)
         if level1 == "mega":
             acc = _level1_mega(ops, table[src.reshape(-1)].reshape(ncols, L * table.shape[1]), L)
         else:
             acc = _level1_tpu(ops, src, table, ncols, L, step, depth, G)
         del src, table
     else:
-        rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits)
+        rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits, f.spec)
         if level1 == "mega":
             acc = _level1_mega(ops, rows, L)
         elif level1 == "pair":
@@ -706,19 +765,22 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int = 254, p_super
     ws = _suffix_weighted(ops, buckets, W, B)
     if accum == "affine":
         ws = proj.from_affine(ws.x, ws.y)
-    if g2:
-        # the generic Horner (pippenger.py:1145-1154) on one lane
-        a = Proj(*(t[W - 1 : W] for t in ws))
-        for w in range(W - 2, -1, -1):
-            for _ in range(c):
-                a = proj.dbl(a)
-            a = proj.add(a, Proj(*(t[w : w + 1] for t in ws)))
-        return Jac(*(t[0] for t in proj.to_jacobian(a)))
-    if W > 1:
-        a = horner_fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c)
-    else:
-        a = Proj(ws.x[0], ws.y[0], ws.z[0])
-    return proj.to_jacobian(a)
+    if _is_bn254_g1(curve) and W > 1:
+        return proj.to_jacobian(horner_fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c))
+    return _horner_generic(proj, ws, c)
+
+
+def _horner_generic(proj, ws: Proj, c: int) -> Jac:
+    """The window combine (pippenger.py:1145-1154) of the (W,) projective
+    window sums on one lane: from the top window down, c doublings and one
+    add per window. Returns a Jacobian point of unbatched tensors."""
+    W = ws.x.shape[0]
+    a = Proj(*(t[W - 1 : W] for t in ws))
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            a = proj.dbl(a)
+        a = proj.add(a, Proj(*(t[w : w + 1] for t in ws)))
+    return Jac(*(t[0] for t in proj.to_jacobian(a)))
 
 
 # ---------------------------------------------------------------------------

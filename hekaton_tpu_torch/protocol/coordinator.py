@@ -2,9 +2,10 @@
 
 Copy of hekaton_tpu/protocol/coordinator.py with the imports changed: the
 CRS generator and backend are the port's. `crs_plan` and the host exec tree
-are unchanged; the JAX package's opt-in device exec tree
-(HEKATON_DEVICE_TREE, protocol/eval_tree_jax.py) is not ported yet, so
-`generate_exec_tree` always builds the tree on the host.
+are unchanged. With HEKATON_DEVICE_TREE set (and the Poseidon tree hash),
+`generate_exec_tree` builds the tree on the device instead
+(protocol/eval_tree_torch.py, the port of the JAX package's
+eval_tree_jax.py) on the card, with the same root, levels and leaves.
 
 Behavioral equivalent of the reference's distributed-prover/src/coordinator.rs:
  - G16ProvingKeyGenerator (coordinator.rs:32-88): per-unique-subcircuit CRS
@@ -98,6 +99,15 @@ def sort_subtraces_by_addr(time_ordered_subtraces: list) -> list:
 
 
 def generate_exec_tree(mem_type, super_com: IppCom, time_sts, addr_sts):
+    import os
+
+    from .eval_tree import POSEIDON_TREE_HASH, TREE_HASH
+
+    if os.environ.get("HEKATON_DEVICE_TREE") and TREE_HASH is POSEIDON_TREE_HASH:
+        # the batched scan and Poseidon Merkle tree, bit-identical to the loop below
+        from .eval_tree_torch import generate_exec_tree_device
+
+        return generate_exec_tree_device(mem_type, super_com, time_sts, addr_sts, device="cuda")
     evals = new_running_evaluation(mem_type, super_com.to_bytes())
     leaves = []
     last_entry = padding_entry(mem_type)

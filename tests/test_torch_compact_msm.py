@@ -146,7 +146,7 @@ def test_compact_msm_matches_host(curve_id, n):
     pts, sc = _msm_inputs(curve, n, seed=n)
     ax, ay = curve.pack_affine(pts)
     c = tbackend.TorchBackend.compact_window(n)
-    out = tmsm.msm(curve, _t(ax), _t(ay), tmsm.pack_scalars(sc), c=c)
+    out = tmsm.msm(curve, _t(ax), _t(ay), tmsm.pack_scalars(sc, curve), c=c)
     got = curve.unpack_jacobian(Jac(*(a[None] for a in out)))[0]
     expected = ch.msm_host(pts, sc)
     if curve_id == 1:

@@ -97,7 +97,7 @@ def test_jacobian_ops_match_jax():
     """The generic formulas, limb for limb: G1 over Fq, G2 over Fq2."""
     r = random.Random(5)
     for curve, jcurve, gen in (
-        (CurveOps(tf.FqOps, "g1_generic"), JaxCurveOps(jf.FqOps, "g1_generic"), ch.g1_gen()),
+        (CurveOps(tf.FqOps, "g1_generic", tf.FR), JaxCurveOps(jf.FqOps, "g1_generic"), ch.g1_gen()),
         (G2, JG2, ch.g2_gen()),
     ):
         ps = [ch.pt_mul(gen, r.randrange(1, R)) for _ in range(4)]

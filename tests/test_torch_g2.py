@@ -138,7 +138,7 @@ def test_msm_gpu_g2_matches_host_and_jax_plan():
     pts, scalars = _stress_set()
     c, L = 4, 4  # B = 9 buckets a window keeps the plain suffix scan small
     ax, ay = G2.pack_affine(pts)
-    sc = tmsm.pack_scalars(scalars)
+    sc = tmsm.pack_scalars(scalars, G2)
     # the per-window sorted plan on Fq2 rows: same columns as the JAX plan
     # (payload order inside a bucket is not fixed by the unstable JAX sort)
     rows, col_bucket, meta = tmsm._plan_sorted_w(_t(ax), _t(ay), sc, c, L)

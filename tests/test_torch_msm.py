@@ -66,7 +66,7 @@ def _j(arr):
 def test_signed_digits_match_jax(c):
     r = np.random.RandomState(c)
     vals = [0, 1, R - 1, (1 << 253) + 5] + [int(x) % R for x in r.randint(0, 2**62, size=28) ** 4]
-    sc = tmsm.pack_scalars(vals)
+    sc = tmsm.pack_scalars(vals, G1)
     assert sc.dtype == torch.int32
     assert np.array_equal(sc.numpy().astype(np.uint32), jmsm.pack_scalars(vals))
     assert np.array_equal(tmsm.digits_for_windows(sc, c).numpy(), np.asarray(jmsm.digits_for_windows(_j(sc), c)))
@@ -83,7 +83,7 @@ def test_signed_digits_match_jax(c):
 def test_plan_matches_jax():
     c, L = 6, 8
     ax, ay = G1.pack_affine(PTS)
-    sc = tmsm.pack_scalars(SCALARS)
+    sc = tmsm.pack_scalars(SCALARS, G1)
     rows, col_bucket, meta = tmsm._plan_sorted_w(_t(ax), _t(ay), sc, c, L)
     jrows, jcol_bucket, jmeta = jmsm._plan_sorted_w(
         _j(ax), _j(ay), _j(sc), c, L, 254, lambda y: jf.neg(jf.FQ, y)
@@ -99,7 +99,7 @@ def test_plan_matches_jax():
 
 def test_msm_gpu_matches_host_on_stress_set():
     ax, ay = G1.pack_affine(PTS)
-    sc = tmsm.pack_scalars(SCALARS)
+    sc = tmsm.pack_scalars(SCALARS, G1)
     out = tmsm.msm_gpu(_t(ax), _t(ay), sc, c=6, L=8)
     got = G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
     assert got == ch.msm_host(PTS, SCALARS)
@@ -114,7 +114,7 @@ def test_msm_gpu_small_shapes(n, c, L):
     pts = [ch.pt_mul(ch.g1_gen(), r.randrange(1, R)) for _ in range(n)]
     scalars = [r.randrange(R) for _ in range(n)]
     ax, ay = G1.pack_affine(pts)
-    out = tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars), c=c, L=L)
+    out = tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars, G1), c=c, L=L)
     assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars)
 
 
@@ -123,7 +123,7 @@ def test_compact_msm_matches_jax_msm():
     with a zero scalar, 1, r-1 and an infinity point."""
     pts, sc = PTS[:6], SCALARS[:6]
     ax, ay = G1.pack_affine(pts)
-    s = tmsm.pack_scalars(sc)
+    s = tmsm.pack_scalars(sc, G1)
     out = tmsm.msm(G1, _t(ax), _t(ay), s)
     ref = jax.jit(lambda x, y, k: jmsm.msm(JG1, x, y, k))(_j(ax), _j(ay), _j(s.numpy()))
     expected = ch.msm_host(pts, sc)

@@ -9,8 +9,9 @@ with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
 stateless recommit must reproduce TorchBackend's stage-0 commitments),
 per-proof verify, aggregation and aggregate verify. A lazy import that
 reaches JAX or the JAX package at run time fails it. It then runs msm_gpu
-along the tsort, gather and affine steps routes against msm_host.
-tests/test_torch_slice.py runs stage 1 on TorchBackend.
+along the tsort, gather and affine steps routes against msm_host, msm_gpu on
+BLS12-381 G1 against a host sum, and the device exec tree against the host
+tree. tests/test_torch_slice.py runs stage 1 on TorchBackend.
 """
 import os
 import pathlib
@@ -89,10 +90,53 @@ SCRIPT = textwrap.dedent(
     for route in routes:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the gather default warns that "pair" becomes "steps"
-            out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars), c=6, L=4, **route)
+            out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars, G1), c=6, L=4, **route)
         assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars), route
+
+    # msm_gpu on BLS12-381 G1, a scalar above BN254's r among them
+    from hekaton_tpu_torch.curves.torch_curve import g1_bls12_381
+    from hekaton_tpu_torch.fields import bls12_381 as bls
+
+    def h_add(p, q):
+        if p is None or q is None:
+            return q if p is None else p
+        if p[0] == q[0]:
+            if (p[1] + q[1]) % bls.P == 0:
+                return None
+            lam = 3 * p[0] * p[0] * pow(2 * p[1], -1, bls.P) % bls.P
+        else:
+            lam = (q[1] - p[1]) * pow(q[0] - p[0], -1, bls.P) % bls.P
+        x = (lam * lam - p[0] - q[0]) % bls.P
+        return (x, (lam * (p[0] - x) - p[1]) % bls.P)
+
+    def h_mul(p, k):
+        acc = None
+        while k:
+            if k & 1:
+                acc = h_add(acc, p)
+            p, k = h_add(p, p), k >> 1
+        return acc
+
+    curve = g1_bls12_381()
+    ks = [r.randrange(1, 2**32) for _ in range(20)]
+    bscal = [r.randrange(bls.R) for _ in range(20)]
+    bscal[0] = R + 5
+    bx, by = (torch.from_numpy(a) for a in curve.pack_affine([h_mul(bls.G1_GEN, k) for k in ks]))
+    out = pip.msm_gpu(bx, by, pip.pack_scalars(bscal, curve), c=6, L=4, curve=curve)
+    want = h_mul(bls.G1_GEN, sum(k * s for k, s in zip(ks, bscal)) % bls.R)
+    assert curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == want
+
+    # the device exec tree on CPU tensors against the host tree
+    from hekaton_tpu_torch.protocol.coordinator import generate_exec_tree, sort_subtraces_by_addr
+    from hekaton_tpu_torch.protocol.eval_tree_torch import generate_exec_tree_device
+    from hekaton_tpu_torch.protocol.transcript import RomTranscriptEntry
+    sts = [[RomTranscriptEntry(r.randrange(1, 100), r.randrange(R)) for _ in range(n)] for n in (2, 3, 0, 1)]
+    asts = sort_subtraces_by_addr(sts)
+    host_tree, _ = generate_exec_tree("rom", agg_state.super_com, sts, asts)
+    dev_tree, _ = generate_exec_tree_device("rom", agg_state.super_com, sts, asts, device="cpu")
+    assert host_tree.levels == dev_tree.levels
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
-    print("modules", len(names), "ran", backend.ran, "routes", len(routes))
+    print("modules", len(names), "ran", backend.ran, "routes", len(routes), "bls", "tree")
     """
 )
 
@@ -104,7 +148,7 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout and "'g1_msm_compact': 2" in proc.stdout, proc.stdout
-    assert "routes 5" in proc.stdout, proc.stdout
+    assert "routes 5 bls tree" in proc.stdout, proc.stdout
     assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 

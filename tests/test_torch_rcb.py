@@ -34,7 +34,7 @@ from hekaton_tpu_torch.curves import cuda_curve as cc
 from hekaton_tpu_torch.curves import host as ch
 from hekaton_tpu_torch.curves.affine import AFF_G1, Aff
 from hekaton_tpu_torch.curves.proj import PROJ_G1, Proj
-from hekaton_tpu_torch.curves.torch_curve import G1
+from hekaton_tpu_torch.curves.torch_curve import G1, G2
 from hekaton_tpu_torch.fields import cuda_field
 from hekaton_tpu_torch.fields import torch_field as tf
 from hekaton_tpu_torch.fields.bn254 import P, R
@@ -198,7 +198,7 @@ def test_msm_gpu_routes_match_host_on_stress_set(monkeypatch, L, kw, level1):
     ax, ay = G1.pack_affine(pts)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        out = tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars), c=6, L=L, **kw)
+        out = tmsm.msm_gpu(_t(ax), _t(ay), tmsm.pack_scalars(scalars, G1), c=6, L=L, **kw)
     assert ran == [level1]
     assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars)
 
@@ -234,5 +234,6 @@ ROUTES = [
 def test_resolve_route_matches_msm_tpu(args, route, warns):
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        assert tmsm.resolve_route(*args) == route
+        g2, L, accum, level1, plan = args
+        assert tmsm.resolve_route(G2 if g2 else G1, L, accum, level1, plan) == route
     assert bool(seen) == warns

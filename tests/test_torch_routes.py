@@ -137,7 +137,7 @@ def _stress_set():
 
 PTS, SCALARS = _stress_set()
 AX, AY = (_t(a) for a in G1.pack_affine(PTS))
-SC = tmsm.pack_scalars(SCALARS)
+SC = tmsm.pack_scalars(SCALARS, G1)
 
 
 def _columns(v) -> list:
@@ -307,7 +307,7 @@ def test_msm_gpu_g2_gather_matches_host_and_jax_plan(monkeypatch):
     scalars[0], scalars[1], scalars[2] = 0, 1, R - 1
     scalars[6:10] = [scalars[6]] * 4
     ax, ay = (_t(a) for a in G2.pack_affine(pts))
-    sc = tmsm.pack_scalars(scalars)
+    sc = tmsm.pack_scalars(scalars, G2)
     c, L_ = 4, 4
     src, table, col_bucket, meta = tmsm._plan_tpu(ax, ay, sc, c, L_)
     jsrc, jtable, jcol_bucket, jmeta = jmsm._plan_tpu(_j(ax), _j(ay), _j(sc), c, L_, 254, _neg)

@@ -1,6 +1,7 @@
-"""Where the time of msm_gpu's G1 routes goes, on one CUDA card.
+"""Where the time of msm_gpu's routes goes, on one CUDA card.
 
-    python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381]
+    python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381|g2]
+        [--old build/old/curve_g2.cu]
 
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
@@ -21,6 +22,18 @@ that curve's default route and, as chip_smoke.py runs them, BLS_ROUTES on the
 first N_BLS_ROUTES points; their Horner is the generic one
 (`_horner_generic`). The layouts are BN254's and not run.
 
+With --curve g2 it times the BN254 G2 MSM on chip_smoke.py's msm_g2 set
+(chip_smoke.g2_set: 4,096 distinct points k_j * G2 tiled, row 5 the
+infinity sentinel; random scalars below r) along its one route (sort plan,
+projective steps; the Horner is `_horner_generic`), and inside level 1 and
+the Horner also the spans of `_mixed_step`'s `unpack_words` and of the three
+G2 kernel wrappers, each summed over the call ("of which" columns after the
+total, left out of "other"). With --old
+(a curve_g2.cu, for example an older commit's, placed in the git-ignored
+build/) it builds a second kernel library with that file in place of
+csrc/curve_g2.cu (cuda_lib.build(swap=...)) and runs the G2 MSM from both libraries
+in the same round-robin, as two routes.
+
 Prints one line per route and layout, the card's name and power limit,
 and needs the card: it exits non-zero where torch.cuda.is_available() is
 false.
@@ -39,6 +52,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
+NESTED = ("unpack_words", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2")  # spans inside the stages (G2)
 STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", "_level1_pair", "l1_aff_halves_t",
           "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold",
           "_horner_generic")
@@ -48,17 +62,19 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--curve", choices=("bn254", "bls12_381"), default="bn254")
+    ap.add_argument("--curve", choices=("bn254", "bls12_381", "g2"), default="bn254")
+    ap.add_argument("--old", help="with --curve g2: a curve_g2.cu to run the G2 MSM from as well")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_route_stages: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from hekaton_tpu_torch import cuda_lib
     from hekaton_tpu_torch import host as h
     from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
     from hekaton_tpu_torch.curves import cuda_curve as cc
-    from hekaton_tpu_torch.curves.torch_curve import G1, g1_bls12_381
+    from hekaton_tpu_torch.curves.torch_curve import G1, G2, g1_bls12_381
     from hekaton_tpu_torch.msm import pippenger as pip
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -67,7 +83,16 @@ def main() -> int:
     rs = np.random.RandomState(cs.SEED)
     c, L = TorchBackend.msm_params(n)
     bls = args.curve == "bls12_381"
-    if bls:
+    libs = {}  # route label -> the kernel library it runs from (else cuda_lib.lib())
+    if args.curve == "g2":
+        curve = G2
+        _, _, ax, ay = cs.g2_set(h, G2, rs, n)
+        sc = pip.pack_scalars(cs.rand_scalars(rs, n, h.R), G2).to(DEVICE)
+        routes = [("G2", L, {}, n)]
+        if args.old:
+            libs[f"G2 ({args.old})"] = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
+            routes.insert(0, (f"G2 ({args.old})", L, {}, n))
+    elif bls:
         curve, P, R = g1_bls12_381(), h.bls.P, h.bls.R
         pts = [cs.bls_mul(h.bls.G1_GEN, int.from_bytes(rs.bytes(48), "little") % R, P)]
         step = cs.bls_mul(h.bls.G1_GEN, int.from_bytes(rs.bytes(48), "little") % R, P)
@@ -100,6 +125,13 @@ def main() -> int:
     plain = {name: getattr(pip, name) for name in STAGES}
     for name, fn in plain.items():
         setattr(pip, name, timed(name, fn))
+    nested = {}
+    if args.curve == "g2":
+        for name in NESTED:
+            mod = pip if name == "unpack_words" else cc
+            nested[name] = (mod, getattr(mod, name))
+            setattr(mod, name, timed(name, nested[name][1]))
+            getattr(mod, name).launches = 0  # the wrappers count on the module-level name
 
     runs = {label: [] for label, *_ in routes}
     for rep in range(args.reps + 1):  # round-robin over the routes; rep 0 warms up
@@ -109,7 +141,7 @@ def main() -> int:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), cuda_lib.using(libs.get(label) or cuda_lib.lib()):
                 warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
                 pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
             end.record()
@@ -120,21 +152,25 @@ def main() -> int:
             for name, s, e in spans:
                 per[name] = per.get(name, 0.0) + s.elapsed_time(e)
             per["total"] = start.elapsed_time(end)
-            per["other"] = per["total"] - sum(v for k, v in per.items() if k != "total")
+            per["other"] = per["total"] - sum(v for k, v in per.items() if k not in NESTED + ("total",))
             runs[label].append(per)
     for label, rl, route, m in routes:
         rows = runs[label]
-        keys = [k for k in rows[0] if k not in ("total", "other")] + ["other", "total"]
-        med = {k: statistics.median(r[k] for r in rows) for k in keys}
+        keys = [k for k in rows[0] if k not in NESTED + ("total", "other")] + ["other", "total"]
+        keys += [k for k in NESTED if k in rows[0]]  # summed over the stages they run in
+        med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
         accum, level1, plan = pip.resolve_route(curve, rl, **route)
         print(f"[stages] {label} accum={accum} level1={level1} plan={plan} {m} points, c={c}, L={rl}: "
-              + ", ".join(f"{k.strip('_')} {med[k]:.2f}" for k in keys) + f" ms (median of {args.reps}; totals "
+              + ", ".join(f"{'of which ' if k in NESTED else ''}{k.strip('_')} {med[k]:.2f}" for k in keys)
+              + f" ms (median of {args.reps}; totals "
               + ", ".join(f"{r['total']:.1f}" for r in rows) + f") on {card}")
 
     # the halves pairing and the mega kernel in both slab layouts, in turns
     for name, fn in plain.items():
         setattr(pip, name, fn)
-    if bls:
+    for name, (mod, fn) in nested.items():
+        setattr(mod, name, fn)
+    if args.curve != "bn254":
         print(card)
         return 0
     slab, _, meta = pip._plan_sorted_w(ax, ay, sc, c, L)

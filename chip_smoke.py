@@ -12,7 +12,9 @@ native host library). Phases, one line each, every failure raises:
      with both times and the kernel's bound (and l1_rcb_mega on the
      transposed slab as well), mont_mul and fermat_inv also at BLS12-381's
      24 limbs (rows of their own); the C entry points refuse an unknown
-     field id;
+     field id; pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own
+     level-1 width (the msm_g2 set's plan, every lane against the plain
+     version; lines of their own), and neither of the two may spill;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
@@ -139,6 +141,25 @@ def muls_per_product(nw: int = 8) -> int:
     each a low and a high multiply, plus nw m = t0*ninv: 264 at 8 words
     (BN254), 588 at 12 (BLS12-381)."""
     return 4 * nw * nw + nw
+
+
+def lazy_products(wide: int, reductions: int, nw: int = 8) -> float:
+    """The 32-bit multiplies of `wide` nw x nw-word products (nw^2 word
+    products, each a low and a high multiply) and `reductions` Montgomery
+    reductions of a 2nw-word value (nw^2 m*p_j, low and high, and nw m =
+    t0*ninv), in CIOS products' worth (muls_per_product): the least an
+    Fq2 formula needs, with Karatsuba's 3 wide products an Fq2 product (2
+    a square) and one reduction a component of each result, a sum of two
+    products reduced once (lazy reduction)."""
+    return (wide * 2 * nw * nw + reductions * (2 * nw * nw + nw)) / muls_per_product(nw)
+
+
+# What the G2 RCB ops need a lane (lazy_products): a mixed add is 13 Fq2
+# products (39 wide) and 10 results, 3 of them sums of two products (20
+# reductions); an add 14 products (42) and 11 results (22); a double 7
+# products and 2 squares (25) and 8 results, 1 a sum (16).
+RCB_G2_PRODUCTS = {"pmadd_rcb_g2": lazy_products(39, 20), "padd_rcb_g2": lazy_products(42, 22),
+                   "pdbl_rcb_g2": lazy_products(25, 16)}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -276,7 +297,8 @@ def chain_points(n: int, k0: int, delta: int, h) -> list:
 
 class Bound:
     """The least time the card takes for a kernel's work (bytes moved, or
-    Montgomery products at MULS_PER_PRODUCT 32-bit multiplies each)."""
+    Montgomery products at muls_per_product 32-bit multiplies each; a
+    fraction where lazy_products counts them)."""
 
     def __init__(self, tf):
         props = torch.cuda.get_device_properties(0)
@@ -388,8 +410,51 @@ def aff_edge_lanes(tf, ax, ay) -> tuple:
     return x1, y1, x2, y2
 
 
-def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib) -> list:
-    """Every kernel against its plain version at the main paths' shapes."""
+def rand_scalars(rs, n: int, r: int) -> list:
+    """n random scalars below r from four 63-bit draws each."""
+    words = rs.randint(0, 2**63, size=(n, 4), dtype=np.int64)
+    return [(int(a) | int(b) << 63 | int(c) << 126 | int(d) << 189) % r for a, b, c, d in words]
+
+
+def g2_set(h, G2, rs, n: int):
+    """msm_g2's points: N_G2_DISTINCT distinct k_j * G2 by the native
+    mul_batch, tiled to n rows on the card, row 5 the infinity sentinel.
+    Returns (host points, k_j, x, y)."""
+    kg2 = [int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(N_G2_DISTINCT)]
+    g2_host = h.accel.mul_batch([h.ch.g2_gen()] * N_G2_DISTINCT, kg2)
+    g2x_np, g2y_np = G2.pack_affine(g2_host)
+    reps = n // N_G2_DISTINCT
+    g2x = torch.from_numpy(g2x_np).to(DEVICE).repeat(reps, 1, 1)
+    g2y = torch.from_numpy(g2y_np).to(DEVICE).repeat(reps, 1, 1)
+    g2x[5], g2y[5] = 0, 0
+    return g2_host, kg2, g2x, g2y
+
+
+def g2_level1_inputs(pip, g2x, g2y, sc, c: int, L: int, steps: int = 3) -> tuple:
+    """pmadd_rcb_g2's and padd_rcb_g2's inputs at the G2 MSM's own width,
+    the ncols columns of the msm_g2 set's plan (msm_gpu's G2 route): the
+    accumulators after `steps` level-1 steps (on the kernel) with the next
+    step's affine operands (padding columns hold the (0,0) sentinel), and
+    the same accumulators beside their neighbours, as the collapse's
+    stride-1 adds pair them. Returns (ncols, pmadd args, padd args)."""
+    from hekaton_tpu_torch.curves.proj import PROJ_G2
+
+    rows, _, meta = pip._plan_sorted_w(g2x, g2y, sc, c, L)
+    ncols = meta[4]
+    nw = rows.shape[1] // L
+    step = pip._mixed_step(PROJ_G2, (2, 16))
+    acc = PROJ_G2.inf((ncols,), g2x.device)
+    for g in range(steps):
+        acc = step(acc, rows[:, g * nw : (g + 1) * nw])
+    blk = rows[:, steps * nw : (steps + 1) * nw]
+    ax, ay = (pip.unpack_words(w).reshape(ncols, 2, 16) for w in (blk[:, : nw // 2], blk[:, nw // 2 :]))
+    nxt = tuple(torch.cat([a[1:], a[:1]]) for a in acc)
+    return ncols, (*acc, ax, ay), (*acc, *nxt)
+
+
+def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1) -> list:
+    """Every kernel against its plain version at the main paths' shapes
+    (`g2_l1`: g2_level1_inputs' result)."""
     rows = []
 
     def record(name, source, replaces, ms, plain_ms, err, work, library_ms=None, field=None):
@@ -577,7 +642,7 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     # the three RCB ops on G2, then on G1: 2^18 lanes with test_pallas.py:58's
     # completeness lanes
     for sfx, pts, src, lines, coord_bytes, products in (
-        ("_g2", g2_pts, "curve_g2.cu", (1315, 1320, 1324), 128, (39, 42, 25)),
+        ("_g2", g2_pts, "curve_g2.cu", (1315, 1320, 1324), 128, tuple(RCB_G2_PRODUCTS.values())),
         ("", g1_pts, "curve.cu", (1293, 1297, 1301), 64, (11, 12, 8)),
     ):
         gp, gq, (bx, by) = proj_edge_lanes(tf, proj, *pts, gen)
@@ -588,6 +653,18 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
             record(op + sfx, f"hekaton_tpu_torch/csrc/{src}", f"hekaton_tpu/curves/pallas_curve.py:{line}",
                    cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err,
                    (nio * coord_bytes * n, prods * n))
+
+    # pmadd_rcb_g2 and padd_rcb_g2 at the G2 MSM's own level-1 width, every
+    # lane against the plain version: lines of their own, not rows
+    g2_cols, pm_args, pa_args = g2_l1
+    for op, kargs, nio in (("pmadd_rcb_g2", pm_args, 8), ("padd_rcb_g2", pa_args, 9)):
+        fn, plain = getattr(cc, op), getattr(cc, op + "_plain")
+        err = max_abs_err(fn(*kargs), plain(*kargs))
+        require(err == 0, f"{op} at {g2_cols} lanes: kernel differs from its plain version (max abs err {err})")
+        work = bound(nio * 128 * g2_cols, RCB_G2_PRODUCTS[op] * g2_cols)
+        log(f"[kernels] {op} at the G2 MSM's level-1 width ({g2_cols} lanes of the msm_g2 plan, all held "
+            f"against the plain version): bit-identical, kernel {cuda_ms(lambda: fn(*kargs), 10):.3f} ms, "
+            f"bound {work[0]:.4f} ms ({work[1]})")
 
     # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products per row,
     # sentinel rows included
@@ -920,6 +997,8 @@ def main() -> int:
     log(f"[device] kernels built in {time.perf_counter() - t:.1f} s -> {os.path.basename(path)}")
     for name, regs, spill in ptxas_summary(report):
         log(f"[device] {name}: {regs} registers, {spill} bytes spilled")
+        # the two-thread G2 kernels are designed around their register count (csrc/curve_g2.cu)
+        require(spill == 0 or name not in ("pmadd_rcb_g2_kernel", "padd_rcb_g2_kernel"), f"{name} spills")
     bound = Bound(tf)
     log(f"[device] bound: {bound.sms} SMs at {bound.clock_hz / 1e6:.0f} MHz max, "
         f"{INT_MULS_PER_SM_CLOCK} int32 multiplies / SM / clock, {HBM_BYTES_PER_S / 1e12} TB/s")
@@ -933,9 +1012,7 @@ def main() -> int:
     ks = [(k0 + i * delta) % h.R for i in range(N)]
     host_pts[5], ks[5] = None, 0  # an infinity row
     host_pts[7], ks[7] = host_pts[6], ks[6]  # a duplicate point
-    words = rs.randint(0, 2**63, size=(N, 4), dtype=np.int64)
-    scalars = [int(a) | int(b) << 63 | int(c) << 126 | int(d) << 189 for a, b, c, d in words]
-    scalars = [s % h.R for s in scalars]
+    scalars = rand_scalars(rs, N, h.R)
     scalars[0], scalars[1], scalars[2] = 0, 1, h.R - 1
     scalars[7] = scalars[6]
     ax_np, ay_np = G1.pack_affine(host_pts)
@@ -947,19 +1024,15 @@ def main() -> int:
     # the G2 set of msm_g2: 4,096 distinct k_j * G2 by the native mul_batch,
     # tiled to 2^20 rows on the card, row 5 the infinity sentinel
     t = time.perf_counter()
-    kg2 = [int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(N_G2_DISTINCT)]
-    g2_host = h.accel.mul_batch([h.ch.g2_gen()] * N_G2_DISTINCT, kg2)
-    g2x_np, g2y_np = G2.pack_affine(g2_host)
-    reps = N // N_G2_DISTINCT
-    g2x = torch.from_numpy(g2x_np).to(DEVICE).repeat(reps, 1, 1)
-    g2y = torch.from_numpy(g2y_np).to(DEVICE).repeat(reps, 1, 1)
-    g2x[5], g2y[5] = 0, 0
+    g2_host, kg2, g2x, g2y = g2_set(h, G2, rs, N)
     e2 = sum(s * kg2[i % N_G2_DISTINCT] for i, s in enumerate(scalars) if i != 5) % h.R
     expected_g2 = h.ch.pt_mul(h.ch.g2_gen(), e2)
     log(f"[msm] {N_G2_DISTINCT} G2 points tiled to {N} rows, expected sum in {time.perf_counter() - t:.1f} s")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib)
+    c, L = TorchBackend.msm_params(N)
+    rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib,
+                         g2_level1_inputs(pip, g2x, g2y, sc, c, L))
 
     curve_kernels = {"aff_add_fused": cc.aff_add_fused, "l1_aff_halves": cc.l1_aff_halves,
                      "horner_fold": cc.horner_fold, "madd": cc.madd, "pmadd_rcb_g2": cc.pmadd_rcb_g2,
@@ -999,8 +1072,6 @@ def main() -> int:
         require(not missing, f"{name}: kernels never launched on this path: {missing}")
         stray = [k for k in absent if counts[k] > 0]
         require(not stray, f"{name}: kernels of another route launched on this path: {stray}")
-
-    c, L = TorchBackend.msm_params(N)
 
     def msm_path(label, x, y, exp, curve, L=L, **route):
         torch.cuda.synchronize()

@@ -9,24 +9,67 @@
 // ran through the one pallas_call of pallas_curve.py::_build (:1250) on
 // (n, 32) u32 rows. Here every coordinate is an (n, 2, 16) int32 limb row.
 //
-// What bounds them on an H100: per lane, a mixed add is 13 Fq2 products (39
-// Fq Montgomery products, ~10K 32-bit multiplies) against 1 KB of traffic
-// (5 coordinates in, 3 out, 128 B each); an add is 14 Fq2 products (42)
-// against 1.1 KB and a double 7 products and 2 squares (25, f2_sqr) against
-// 768 B. At ~10 multiplies per byte they are
-// bound by integer multiply throughput, not by bytes, once enough lanes are
-// resident.
+// What bounds them on an H100: per lane, a mixed add is 13 Fq2 products
+// against 1 KB of traffic (5 coordinates in, 3 out, 128 B each); an add is
+// 14 Fq2 products against 1.1 KB and a double 7 products and 2 squares
+// against 768 B. With Karatsuba (3 8x8-word products an Fq2 product, 128
+// 32-bit multiplies each) and one Montgomery reduction (136) a component of
+// each result, a sum of two products reduced once, the function needs 39
+// wide products and 20 reductions a mixed add (~7.7K multiplies), 42 and 22
+// an add (~8.4K), 25 and 16 a double (~5.4K): at ~8 multiplies per byte
+// they are bound by integer multiply throughput, not by bytes, once enough
+// lanes are resident and their dependent multiply-add chains are hidden.
 //
-// Design: one thread per lane running the straight-line formulas of
-// curves/proj.py in registers, as the horner kernel runs the G1 ones. The
-// state is heavy: an Fq2 projective point and an affine operand are 80
-// 32-bit words before the temporaries (t0..t4 and the outputs, another 80),
-// so register pressure bounds occupancy; `-Xptxas -v` (cuda_lib.build)
-// reports each kernel's registers and spills, and chip_smoke.py prints
-// them. THREADS = 128 with __launch_bounds__ lets ptxas use up to 255
-// registers a thread. Splitting the formula across threads, or keeping the
-// operands in shared memory, is left to a later change.
+// pmadd_rcb_g2 and padd_rcb_g2 (the G2 MSM's level 1, collapse and suffix
+// scan, on up to ~735K lanes) run two threads a lane, thread k making the
+// c_k half of every Fq2 value. Their earlier design, one thread a lane with
+// the whole formula unrolled over Fq2 values (as pdbl_rcb_g2 still is),
+// took all 255 registers and spilled (172 and 12 bytes), so 8 warps fitted
+// on an SM: too few to hide the dependent multiply-add chains.
+// - An Fq2 product's half is a sum of two 8x8-word products in a 16-word
+//   accumulator and one Montgomery reduction (lazy reduction): thread 0
+//   makes c0 = a0 b0 + a1 (p - b1), thread 1 c1 = a0 b1 + a1 b0. RCB's
+//   closing sums of two Fq2 products (x3 = t3 t1 - t4 y3, y3, z3) are one
+//   4-term sum and one reduction. Every term is a product of values below p
+//   (a negated operand is p - b), so a sum stays below 4 p^2 < p 2^256 and
+//   its reduction below 2p: one conditional subtraction makes it
+//   canonical. Canonical values are unique, so the limbs equal the plain
+//   Karatsuba formulas' bit for bit. A mixed add is 26 such products and 10
+//   reductions a thread, an add 28 and 11: ~9.4K and ~10.2K multiplies a
+//   lane, ~1.2 times what Karatsuba needs (schoolbook's 4 wide products an
+//   Fq2 product, traded for threads that never wait on each other).
+// - The 32x32-bit products accumulate on PTX carry chains (mac_row: a row
+//   of 8 products as two chains of mad.lo.cc / madc.hi.cc), which ptxas
+//   turns into IMAD.WIDE.U32.X; 64-bit C carries (s = a b + t + c) cost an
+//   IMAD.WIDE, an IADD3 and an IMAD.X or IADD3.X a product.
+// - The operands live in shared memory, not in registers: a block stages
+//   its 64 lanes' input rows there with coalesced 16-byte loads (two 16-bit
+//   limbs packed into each 32-bit word), and the temporaries of the closing
+//   products replace them once both threads of a lane have read them
+//   (__syncwarp). A thread reads either half of any operand just before it
+//   multiplies it (volatile loads), so no thread leaves early and nothing
+//   is exchanged through registers. 8 coordinates of 64 lanes are 32 KB a
+//   block.
+// - Kept: 128 threads a block under __launch_bounds__(128, 3), 154
+//   (pmadd) and 162 (padd) registers, no spills (ptxas, sm_90a, CUDA 12.9):
+//   3 blocks, 12 warps, an SM. On an H100 (700 W), in turns with the
+//   one-thread bodies in one call (benches/torch_g2_ab.py): at 2^18 lanes
+//   0.27 ms against 1.73 (mixed add) and 0.37 against 1.75 (add); at the
+//   G2 MSM's 734,740 level-1 lanes 0.73 against 4.83 and 1.03 against 4.79:
+//   ~45% and ~35% of the multiply bound above at either width.
+//   Tried and left, all on C carries: this design (142 registers;
+//   0.48-0.53 and 0.64-0.68 ms at 2^18), held to 128 registers (4 blocks)
+//   or in blocks of 64 or 32 threads (5-16% slower, padd spills), and the
+//   temporaries exchanged by __shfl_xor_sync instead of shared memory (156
+//   and 168 registers uncapped, spills at 128); PERF.md, section 6.
+//
+// pdbl_rcb_g2 keeps the one-thread design (THREADS = 128, 176
+// registers): its main-path launches are the G2 Horner's one-lane
+// doublings, where launch latency and not the body sets the time.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "field.cuh"
 
@@ -34,58 +77,19 @@ using namespace hk;
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // pdbl_rcb_g2: one thread a lane
+
+constexpr int PAIR_THREADS = 128;  // pmadd / padd: two threads a lane
+constexpr int PAIR_MIN_BLOCKS = 3;
+constexpr int PAIR_LANES = PAIR_THREADS / 2;
+constexpr int COORD_WORDS = PAIR_THREADS * 8;  // one coordinate of a block's lanes, packed words
+constexpr int SLOTS = 8;  // coordinates a block keeps in shared memory: 32 KB
 
 struct Proj2 {
   Fe2 x, y, z;
 };
 
 __device__ __forceinline__ Fe2 mul_b3(const Fe2& a) { return f2_mul(a, f2_b3()); }
-
-// RCB15 Algorithm 8 (a=0, Z2=1); the affine (0,0) sentinel keeps P
-__device__ Proj2 pmadd_rcb(const Proj2& p, const Fe2& ax, const Fe2& ay) {
-  Fe2 t0 = f2_mul(p.x, ax);
-  Fe2 t1 = f2_mul(p.y, ay);
-  Fe2 t3 = f2_mul(f2_add(ax, ay), f2_add(p.x, p.y));
-  t3 = f2_sub(t3, f2_add(t0, t1));
-  Fe2 t4 = f2_add(f2_mul(ay, p.z), p.y);
-  Fe2 y3 = f2_add(f2_mul(ax, p.z), p.x);
-  Fe2 x3 = f2_add(t0, t0);
-  t0 = f2_add(x3, t0);
-  Fe2 t2 = mul_b3(p.z);
-  Fe2 z3 = f2_add(t1, t2);
-  t1 = f2_sub(t1, t2);
-  y3 = mul_b3(y3);
-  Proj2 r;
-  r.x = f2_sub(f2_mul(t3, t1), f2_mul(t4, y3));
-  r.y = f2_add(f2_mul(t1, z3), f2_mul(y3, t0));
-  r.z = f2_add(f2_mul(z3, t4), f2_mul(t0, t3));
-  return f2_is_zero(ay) ? p : r;
-}
-
-// RCB15 Algorithm 7 (a=0)
-__device__ Proj2 padd_rcb(const Proj2& p, const Proj2& q) {
-  Fe2 t0 = f2_mul(p.x, q.x);
-  Fe2 t1 = f2_mul(p.y, q.y);
-  Fe2 t2 = f2_mul(p.z, q.z);
-  Fe2 t3 = f2_mul(f2_add(p.x, p.y), f2_add(q.x, q.y));
-  t3 = f2_sub(t3, f2_add(t0, t1));
-  Fe2 t4 = f2_mul(f2_add(p.y, p.z), f2_add(q.y, q.z));
-  t4 = f2_sub(t4, f2_add(t1, t2));
-  Fe2 y3 = f2_mul(f2_add(p.x, p.z), f2_add(q.x, q.z));
-  y3 = f2_sub(y3, f2_add(t0, t2));
-  Fe2 x3 = f2_add(t0, t0);
-  t0 = f2_add(x3, t0);
-  t2 = mul_b3(t2);
-  Fe2 z3 = f2_add(t1, t2);
-  t1 = f2_sub(t1, t2);
-  y3 = mul_b3(y3);
-  Proj2 r;
-  r.x = f2_sub(f2_mul(t3, t1), f2_mul(t4, y3));
-  r.y = f2_add(f2_mul(t1, z3), f2_mul(y3, t0));
-  r.z = f2_add(f2_mul(z3, t4), f2_mul(t0, t3));
-  return r;
-}
 
 // RCB15 Algorithm 9 (a=0)
 __device__ Proj2 pdbl_rcb(const Proj2& p) {
@@ -121,26 +125,327 @@ __device__ __forceinline__ void store_proj2(int32_t* x, int32_t* y, int32_t* z, 
   store_limbs2(z + i * 32, p.z);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// -- two threads a lane: the per-thread half of the Fq2 arithmetic --
+//
+// A block's shared memory is SLOTS coordinates of its 64 lanes as packed
+// words: the word w of lane l, component k, of slot c at sm[c][l*16 + k*8 +
+// w], so thread t = 2l + k finds its own half at t*8 and its partner's at
+// (t^1)*8. The inputs are staged there; once both threads of a lane have
+// read them (__syncwarp) the temporaries of the closing products take their
+// place, so a thread reads its partner's half of a computed value as it
+// reads an input.
+
+__device__ __forceinline__ Fe fe_neg(const Fe& a) { return fe_sub<FQ>(fe_zero(), a); }
+
+// T[I..I+8] += s v, plus e_in (the carries owed to word I+8), in two PTX
+// carry chains: the products of v's even words (low halves at I, I+2, ..,
+// high halves at I+1, I+3, ..), then of its odd words one word up. e_out
+// gets the carries owed to word I+9 (at most 2). Each chain is one asm
+// statement, so the carry flag never crosses code the compiler places.
+template <int I>
+__device__ __forceinline__ void mac_row(uint32_t T[16], const Fe& v, uint32_t s, uint32_t e_in,
+                                        uint32_t& e_out) {
+  asm("{\n\t"
+      ".reg .u32 e1;\n\t"
+      "mad.lo.cc.u32  %0, %10, %18, %0;\n\t"
+      "madc.hi.cc.u32 %1, %10, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "addc.cc.u32    %8, %8, %19;\n\t"
+      "addc.u32       e1, 0, 0;\n\t"
+      "mad.lo.cc.u32  %1, %11, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32       %9, e1, 0;\n\t"
+      "}"
+      : "+r"(T[I]), "+r"(T[I + 1]), "+r"(T[I + 2]), "+r"(T[I + 3]), "+r"(T[I + 4]), "+r"(T[I + 5]),
+        "+r"(T[I + 6]), "+r"(T[I + 7]), "+r"(T[I + 8]), "=r"(e_out)
+      : "r"(v.w[0]), "r"(v.w[1]), "r"(v.w[2]), "r"(v.w[3]), "r"(v.w[4]), "r"(v.w[5]), "r"(v.w[6]),
+        "r"(v.w[7]), "r"(s), "r"(e_in));
+}
+
+// T += a b over 16 words (the sum must stay below 2^512): row I adds a_I b
+// at word I
+template <int I = 0>
+__device__ __forceinline__ void mac_wide(uint32_t T[16], const Fe& a, const Fe& b, uint32_t e = 0) {
+  if constexpr (I < 8) {
+    uint32_t e_next;
+    mac_row<I>(T, b, a.w[I], e, e_next);
+    mac_wide<I + 1>(T, a, b, e_next);
+  }
+}
+
+template <int I>
+__device__ __forceinline__ uint32_t redc_rows(uint32_t T[16], const Fe& p, uint32_t e) {
+  if constexpr (I < 8) {
+    uint32_t e_next;
+    mac_row<I>(T, p, T[I] * Field<FQ>::ninv(), e, e_next);
+    return redc_rows<I + 1>(T, p, e_next);
+  } else {
+    return e;
+  }
+}
+
+// T R^-1 mod p for T < p R (here T < 4 p^2): row I adds m p at word I, m =
+// T_I (-p^-1) mod 2^32, which clears word I; the result, words 8-15 and the
+// carry above them, is below 2p, and one conditional subtraction ends it
+__device__ __forceinline__ Fe redc_wide(uint32_t T[16]) {
+  Fe p;
+#pragma unroll
+  for (int i = 0; i < 8; i++) p.w[i] = Field<FQ>::p(i);
+  uint32_t top = redc_rows<0>(T, p, 0u);
+  return reduce_once<FQ>(T + 8, top);
+}
+
+using Slots = uint32_t (*)[COORD_WORDS];
+
+// thread t's half (lane t / 2, component t % 2) of a slot. The load is
+// volatile and clobbers memory, so that every use reads shared memory again
+// (no half stays in registers between its uses) and no store moves past it.
+__device__ __forceinline__ Fe half(const uint32_t* sm, int t) {
+  unsigned a = (unsigned)__cvta_generic_to_shared(sm + 8 * t);
+  Fe r;
+  asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]) : "r"(a) : "memory");
+  asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4+16];"
+               : "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]) : "r"(a) : "memory");
+  return r;
+}
+
+__device__ __forceinline__ void put_half(uint32_t* sm, int t, const Fe& v) {
+  uint4* d4 = reinterpret_cast<uint4*>(sm) + 2 * t;
+  d4[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  d4[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+// an Fq2 operand in the slots: slot a, or the sum of slots a and b
+struct Op {
+  int a, b = -1;
+};
+
+__device__ __forceinline__ Fe ld(Slots sm, Op x, int idx) {
+  Fe v = half(sm[x.a], idx);
+  return x.b < 0 ? v : fe_add<FQ>(v, half(sm[x.b], idx));
+}
+
+// T += the k-th component of x y (of -x y when neg), from the slots:
+// c0 = x0 y0 + x1 (p - y1), c1 = x0 y1 + x1 y0
+__device__ __forceinline__ void mac_f2(uint32_t T[16], Slots sm, int t, Op x, Op y, bool neg = false) {
+  const int k = t & 1;
+  Fe b = ld(sm, y, t);
+  mac_wide(T, ld(sm, x, t & ~1), neg ? fe_neg(b) : b);
+  Fe bo = ld(sm, y, t ^ 1);
+  mac_wide(T, ld(sm, x, t | 1), fe_select((k == 0) != neg, fe_neg(bo), bo));
+}
+
+// the k-th component of x y
+__device__ __forceinline__ Fe f2_mul_half(Slots sm, int t, Op x, Op y) {
+  uint32_t T[16] = {0};
+  mac_f2(T, sm, t, x, y);
+  return redc_wide(T);
+}
+
+// the k-th component of x b3 = x 9/(9+u), b3's halves from constant memory
+__device__ __forceinline__ Fe mul_b3_half(Slots sm, int t, Op x) {
+  const int k = t & 1;
+  Fe b, bo;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    b.w[i] = B3_G2_WORDS[k][i];
+    bo.w[i] = B3_G2_WORDS[k ^ 1][i];
+  }
+  uint32_t T[16] = {0};
+  mac_wide(T, ld(sm, x, t & ~1), b);
+  mac_wide(T, ld(sm, x, t | 1), k == 0 ? fe_neg(bo) : bo);
+  return redc_wide(T);
+}
+
+struct Half3 {
+  Fe x, y, z;
+};
+
+// the closing products shared by algorithms 7 and 8, with one reduction a
+// coordinate, from the slots where both kernels leave their temporaries: t0
+// = 3 X1 X2 (slot 0), t1 = Y1 Y2 - b3 Z1 Z2 (1), y3 times b3 (2), z3 = Y1 Y2
+// + b3 Z1 Z2 (3), t3 (6) and t4 (7)
+__device__ __forceinline__ Half3 rcb_close(Slots sm, int t) {
+  const Op t0{0}, t1{1}, y3{2}, z3{3}, t3{6}, t4{7};
+  Half3 r;
+  uint32_t T[16] = {0};
+  mac_f2(T, sm, t, t3, t1);
+  mac_f2(T, sm, t, t4, y3, true);
+  r.x = redc_wide(T);  // t3 t1 - t4 y3
+  uint32_t U[16] = {0};
+  mac_f2(U, sm, t, t1, z3);
+  mac_f2(U, sm, t, y3, t0);
+  r.y = redc_wide(U);  // t1 z3 + y3 t0
+  uint32_t V[16] = {0};
+  mac_f2(V, sm, t, z3, t4);
+  mac_f2(V, sm, t, t0, t3);
+  r.z = redc_wide(V);  // z3 t4 + t0 t3
+  return r;
+}
+
+// slots 0-3 of the closing, once both threads of the lane have read what
+// they replace; t1 - t2 and t1 + t2 are t1 and z3
+__device__ __forceinline__ void put_close(Slots sm, int t, const Fe& t0, const Fe& t1, const Fe& t2,
+                                          const Fe& y3) {
+  put_half(sm[0], t, t0);
+  put_half(sm[1], t, fe_sub<FQ>(t1, t2));
+  put_half(sm[2], t, y3);
+  put_half(sm[3], t, fe_add<FQ>(t1, t2));
+  __syncwarp();
+}
+
+// RCB15 Algorithm 8 (a=0, Z2=1) on this thread's halves; slots 0-4 hold the
+// staged x, y, z, ax, ay. t3 and t4 go to their slots as soon as they are
+// made, y3 through slot 5 (b3 y3 needs the partner's half). Returns whether
+// the operand is the (0,0) sentinel, whose lane keeps P (the caller reloads
+// it).
+__device__ __forceinline__ bool pmadd_half(Slots sm, int t, Half3& r) {
+  const Op x{0}, y{1}, z{2}, ax{3}, ay{4};
+  bool inf = fe_is_zero(half(sm[4], t)) && fe_is_zero(half(sm[4], t ^ 1));
+  Fe t0 = f2_mul_half(sm, t, x, ax);
+  Fe t1 = f2_mul_half(sm, t, y, ay);
+  put_half(sm[6], t, fe_sub<FQ>(f2_mul_half(sm, t, Op{3, 4}, Op{0, 1}), fe_add<FQ>(t0, t1)));  // t3
+  put_half(sm[7], t, fe_add<FQ>(f2_mul_half(sm, t, ay, z), half(sm[1], t)));                    // t4
+  put_half(sm[5], t, fe_add<FQ>(f2_mul_half(sm, t, ax, z), half(sm[0], t)));                    // y3
+  Fe t2 = mul_b3_half(sm, t, z);
+  t0 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);
+  __syncwarp();
+  put_close(sm, t, t0, t1, t2, mul_b3_half(sm, t, Op{5}));
+  r = rcb_close(sm, t);
+  return inf;
+}
+
+// RCB15 Algorithm 7 (a=0) on this thread's halves; slots 0-5 hold the staged
+// x1, y1, z1, x2, y2, z2. t3 and t4 go to their slots as soon as they are
+// made, t2 and y3 through slots 4 and 5 (b3 t2 and b3 y3 need the
+// partner's halves).
+__device__ __forceinline__ void padd_half(Slots sm, int t, Half3& r) {
+  Fe t0 = f2_mul_half(sm, t, Op{0}, Op{3});
+  Fe t1 = f2_mul_half(sm, t, Op{1}, Op{4});
+  put_half(sm[6], t, fe_sub<FQ>(f2_mul_half(sm, t, Op{0, 1}, Op{3, 4}), fe_add<FQ>(t0, t1)));  // t3
+  Fe t2 = f2_mul_half(sm, t, Op{2}, Op{5});
+  put_half(sm[7], t, fe_sub<FQ>(f2_mul_half(sm, t, Op{1, 2}, Op{4, 5}), fe_add<FQ>(t1, t2)));  // t4
+  Fe y3 = fe_sub<FQ>(f2_mul_half(sm, t, Op{0, 2}, Op{3, 5}), fe_add<FQ>(t0, t2));
+  t0 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);
+  __syncwarp();
+  put_half(sm[4], t, t2);
+  put_half(sm[5], t, y3);
+  __syncwarp();
+  t2 = mul_b3_half(sm, t, Op{4});
+  put_close(sm, t, t0, t1, t2, mul_b3_half(sm, t, Op{5}));
+  r = rcb_close(sm, t);
+}
+
+// one coordinate of the block's lanes, (PAIR_LANES, 2, 16) limbs, into a
+// slot as packed words: 16-byte loads on consecutive addresses; missing
+// lanes of the last block read as 0
+__device__ __forceinline__ void stage_in(uint32_t* sm, const int32_t* src, long long lane0, long long n) {
+  const int4* s4 = reinterpret_cast<const int4*>(src + lane0 * 32);
+  uint2* d2 = reinterpret_cast<uint2*>(sm);
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    int idx = threadIdx.x + q * PAIR_THREADS;  // 16-byte chunk idx: 4 limbs of lane idx / 8
+    uint2 w = make_uint2(0u, 0u);
+    if (lane0 + idx / 8 < n) {
+      int4 v = s4[idx];
+      w.x = (uint32_t)v.x | ((uint32_t)v.y << 16);
+      w.y = (uint32_t)v.z | ((uint32_t)v.w << 16);
+    }
+    d2[idx] = w;
+  }
+}
+
+__device__ __forceinline__ void stage_out(int32_t* dst, const uint32_t* sm, long long lane0, long long n) {
+  int4* d4 = reinterpret_cast<int4*>(dst + lane0 * 32);
+  const uint2* s2 = reinterpret_cast<const uint2*>(sm);
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    int idx = threadIdx.x + q * PAIR_THREADS;
+    if (lane0 + idx / 8 < n) {
+      uint2 w = s2[idx];
+      d4[idx] = make_int4((int)(w.x & 0xffffu), (int)(w.x >> 16), (int)(w.y & 0xffffu), (int)(w.y >> 16));
+    }
+  }
+}
+
+// thread t's half of lane `lane`'s (2, 16) limb row, from device memory
+__device__ __forceinline__ Fe global_half(const int32_t* src, long long lane, int t) {
+  const int4* s4 = reinterpret_cast<const int4*>(src + lane * 32 + (t & 1) * 16);
+  Fe r;
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    int4 v = s4[q];
+    r.w[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    r.w[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+  return r;
+}
+
+// the block's output halves back to (n, 2, 16) limb rows through slots 0-2
+__device__ __forceinline__ void write_out(Slots sm, int32_t* ox, int32_t* oy, int32_t* oz, const Half3& r,
+                                          long long lane0, long long n) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  put_half(sm[0], t, r.x);
+  put_half(sm[1], t, r.y);
+  put_half(sm[2], t, r.z);
+  __syncthreads();
+  stage_out(ox, sm[0], lane0, n);
+  stage_out(oy, sm[1], lane0, n);
+  stage_out(oz, sm[2], lane0, n);
+}
+
+__global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
     pmadd_rcb_g2_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                         const int32_t* __restrict__ z, const int32_t* __restrict__ ax,
                         const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
                         int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Proj2 r = pmadd_rcb(load_proj2(x, y, z, i), load_limbs2(ax + i * 32), load_limbs2(ay + i * 32));
-  store_proj2(ox, oy, oz, i, r);
+  __shared__ __align__(16) uint32_t sm[SLOTS][COORD_WORDS];
+  const long long lane0 = (long long)blockIdx.x * PAIR_LANES;
+  stage_in(sm[0], x, lane0, n);
+  stage_in(sm[1], y, lane0, n);
+  stage_in(sm[2], z, lane0, n);
+  stage_in(sm[3], ax, lane0, n);
+  stage_in(sm[4], ay, lane0, n);
+  __syncthreads();
+  const int t = threadIdx.x;
+  Half3 r;
+  const long long lane = lane0 + t / 2;
+  if (pmadd_half(sm, t, r) && lane < n) r = Half3{global_half(x, lane, t), global_half(y, lane, t),
+                                                  global_half(z, lane, t)};
+  write_out(sm, ox, oy, oz, r, lane0, n);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
     padd_rcb_g2_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                        const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
                        const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
                        int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                        int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_proj2(ox, oy, oz, i, padd_rcb(load_proj2(x1, y1, z1, i), load_proj2(x2, y2, z2, i)));
+  __shared__ __align__(16) uint32_t sm[SLOTS][COORD_WORDS];
+  const long long lane0 = (long long)blockIdx.x * PAIR_LANES;
+  stage_in(sm[0], x1, lane0, n);
+  stage_in(sm[1], y1, lane0, n);
+  stage_in(sm[2], z1, lane0, n);
+  stage_in(sm[3], x2, lane0, n);
+  stage_in(sm[4], y2, lane0, n);
+  stage_in(sm[5], z2, lane0, n);
+  __syncthreads();
+  Half3 r;
+  padd_half(sm, threadIdx.x, r);
+  write_out(sm, ox, oy, oz, r, lane0, n);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -152,15 +457,25 @@ __global__ void __launch_bounds__(THREADS)
   store_proj2(ox, oy, oz, i, pdbl_rcb(load_proj2(x, y, z, i)));
 }
 
-unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+unsigned blocks_for(long long n, int lanes) { return (unsigned)((n + lanes - 1) / lanes); }
+
+// the split kernels read and write 16-byte chunks of every row
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if ((uintptr_t)p & 15u) return false;
+  return true;
+}
 
 }  // namespace
 
-// n lanes of (2, 16) limb rows per coordinate; outputs must not alias inputs
+// n lanes of (2, 16) limb rows per coordinate; outputs must not alias
+// inputs; pmadd and padd need 16-byte aligned rows (else
+// cudaErrorMisalignedAddress, nothing launched)
 extern "C" int hk_pmadd_rcb_g2(const void* x, const void* y, const void* z, const void* ax,
                                const void* ay, void* ox, void* oy, void* oz, long long n,
                                void* stream) {
-  pmadd_rcb_g2_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (!aligned16({x, y, z, ax, ay, ox, oy, oz})) return (int)cudaErrorMisalignedAddress;
+  pmadd_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)ax,
       (const int32_t*)ay, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
   return (int)cudaGetLastError();
@@ -169,7 +484,8 @@ extern "C" int hk_pmadd_rcb_g2(const void* x, const void* y, const void* z, cons
 extern "C" int hk_padd_rcb_g2(const void* x1, const void* y1, const void* z1, const void* x2,
                               const void* y2, const void* z2, void* ox, void* oy, void* oz,
                               long long n, void* stream) {
-  padd_rcb_g2_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (!aligned16({x1, y1, z1, x2, y2, z2, ox, oy, oz})) return (int)cudaErrorMisalignedAddress;
+  padd_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
   return (int)cudaGetLastError();
@@ -177,7 +493,7 @@ extern "C" int hk_padd_rcb_g2(const void* x1, const void* y1, const void* z1, co
 
 extern "C" int hk_pdbl_rcb_g2(const void* x, const void* y, const void* z, void* ox, void* oy,
                               void* oz, long long n, void* stream) {
-  pdbl_rcb_g2_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  pdbl_rcb_g2_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
       (int32_t*)oz, n);
   return (int)cudaGetLastError();

@@ -9,14 +9,21 @@ interface, loaded with ctypes: one nvcc per source, all started together,
 then one link, `nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
 build/hekaton_tpu_torch/libhk_<hash>.so <build>/*.o`.
 
+`build(swap=path)` builds the same way with the source of path's file name
+swapped for path (a timing script's second library, with an older version
+of one source); `load` opens such a library and `using` makes it the one
+the wrappers launch from for a block of code.
+
 The library is keyed by a sha256 of the sources (as hekaton_tpu/native keys
 its host library), so an edited source builds a new library at its first
 use. Nothing is built at import: the first kernel launch calls `lib()`. A
 missing nvcc or a failed build raises with the compiler's output; a build
-returns ptxas's per-kernel register and spill report (`-Xptxas -v`).
+returns ptxas's per-kernel register and spill report (`-Xptxas -v`), which
+it keeps beside the library for later calls.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -29,7 +36,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hekaton_tpu_torch")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _SRC_DIR]
 
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
@@ -67,9 +74,9 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")) + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
 
 
-def _src_hash() -> str:
+def _src_hash(cu: list) -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in cu + [p for p in sources() if p.endswith(".cuh")]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -84,16 +91,21 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> tuple:
-    """Compile the kernels if no library for these sources exists yet.
-    Returns (library path, compiler output of this build or "")."""
-    path = os.path.join(_BUILD_DIR, f"libhk_{_src_hash()}.so")
-    if os.path.exists(path):
-        return path, ""
+def build(swap: str | None = None) -> tuple:
+    """Compile the kernels (csrc/*.cu, or with the one named like the file
+    `swap` replaced by it) if no library for these sources exists yet.
+    Returns (library path, compiler output of the build that made it, kept
+    beside the library)."""
+    cu = [p for p in sources() if p.endswith(".cu")]
+    if swap is not None:
+        cu = [os.path.abspath(swap) if os.path.basename(p) == os.path.basename(swap) else p for p in cu]
+    path = os.path.join(_BUILD_DIR, f"libhk_{_src_hash(cu)}.so")
+    if os.path.exists(path) and os.path.exists(path + ".ptxas.txt"):
+        with open(path + ".ptxas.txt") as f:
+            return path, f.read()
     os.makedirs(_BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-        cu = [p for p in sources() if p.endswith(".cu")]
         objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
         procs = [
             subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], stdout=subprocess.PIPE,
@@ -113,22 +125,40 @@ def build() -> tuple:
         proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write(report)
         os.replace(so, path)
     return path, report
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Open a kernel library and declare its entry points."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _LIB
     if _LIB is None:
-        path, _ = build()
-        handle = ctypes.CDLL(path)
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = handle
+        _LIB = load(build()[0])
     return _LIB
+
+
+@contextlib.contextmanager
+def using(handle: ctypes.CDLL):
+    """Launch every kernel from `handle` inside the block (a library of
+    `load`), then from the one before."""
+    global _LIB
+    before, _LIB = _LIB, handle
+    try:
+        yield handle
+    finally:
+        _LIB = before
 
 
 def check(name: str, rc: int) -> None:

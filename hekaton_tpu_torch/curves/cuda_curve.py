@@ -49,10 +49,13 @@ Bounds on an H100 and the design that meets them are in the source note of
 csrc/curve.cu: the adds are bound by integer multiply throughput and run as a
 root kernel / batch_inv / finish kernel split with one thread per prefix
 chain; the Horner fold is one thread, bound by the latency of its chain.
-`madd`, `dbl`, `add`, the G1 RCB ops and the G2 ops are one thread per
+`madd`, `dbl`, `add`, the G1 RCB ops and `pdbl_rcb_g2` are one thread per
 lane, straight-line formulas, bound by integer multiply throughput once the
-card is full; `l1_rcb_mega` is one thread per slab column, its accumulator
-in registers for all L adds (csrc/curve.cu, csrc/curve_g2.cu).
+card is full; `pmadd_rcb_g2` and `padd_rcb_g2` run two threads a lane, one
+Fq2 component each, with their operands in shared memory (their rows must
+start on 16-byte boundaries, as torch's allocations do); `l1_rcb_mega` is
+one thread per slab column, its accumulator in registers for all L adds
+(csrc/curve.cu, csrc/curve_g2.cu).
 `interleave_slab_t`, `aff_prep` and `aff_fin` are bound by bytes.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
@@ -305,10 +308,9 @@ def _check_batch(fn, args: tuple, coord_shape: tuple) -> None:
 
 
 def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple, n_out: int = 3):
-    """Launch the one-thread-per-lane kernel `entry` on `args`, each a
-    contiguous int32 (..., *coord_shape) batch of one shape on one device;
-    count the launch on the wrapper `fn` and return its `n_out` outputs of
-    that shape."""
+    """Launch the point-op kernel `entry` on `args`, each a contiguous int32
+    (..., *coord_shape) batch of one shape on one device; count the launch
+    on the wrapper `fn` and return its `n_out` outputs of that shape."""
     _check_batch(fn, args, coord_shape)
     first = args[0]
     n = first.numel() // math.prod(coord_shape)

@@ -72,7 +72,7 @@ def main() -> int:
     _, _, g2x, g2y = cs.g2_set(h, G2, rs, n)
     sc = pip.pack_scalars(cs.rand_scalars(rs, n, h.R), G2).to(DEVICE)
     c, L = TorchBackend.msm_params(n)
-    bound = cs.Bound(tf)
+    bound = cs.Bound()
     gen = torch.Generator(device=DEVICE).manual_seed(cs.SEED)
     gp, gq, (bx, by) = cs.proj_edge_lanes(tf, proj, g2x, g2y, gen)
     ncols, pm_args, pa_args = cs.g2_level1_inputs(pip, g2x, g2y, sc, c, L)

@@ -1,7 +1,7 @@
 """Where the time of msm_gpu's routes goes, on one CUDA card.
 
     python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381|g2]
-        [--old build/old/curve_g2.cu]
+        [--routes v9,(d),(e)] [--old build/old/<source>.cu [--old-root-width 1024]]
 
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
@@ -28,11 +28,20 @@ infinity sentinel; random scalars below r) along its one route (sort plan,
 projective steps; the Horner is `_horner_generic`), and inside level 1 and
 the Horner also the spans of `_mixed_step`'s `unpack_words` and of the three
 G2 kernel wrappers, each summed over the call ("of which" columns after the
-total, left out of "other"). With --old
-(a curve_g2.cu, for example an older commit's, placed in the git-ignored
-build/) it builds a second kernel library with that file in place of
-csrc/curve_g2.cu (cuda_lib.build(swap=...)) and runs the G2 MSM from both libraries
-in the same round-robin, as two routes.
+total, left out of "other").
+
+--routes keeps the routes of those labels (comma-separated; "v9", "(a)"...
+"(h)", "default", "pair", ...). With --old (a csrc source, for example an
+older commit's curve_g2.cu or field.cu, placed in the git-ignored build/;
+a field.cu beside the field.cuh it includes, see benches/torch_inv_ab.py)
+it builds a second kernel library with that file in place of the csrc file
+of its name (cuda_lib.build(swap=...)) and runs every kept route from both
+libraries in the same round-robin, the old library's as a route of its own
+("<label> [old]"). With --old-root-width N, tf.batch_inv runs a mont_mul
+tree down to N lanes and inverts those (tf._batch_inv) while the old
+library runs, so that an older field.cu runs at the root width it was
+written for (1024 before the divstep inversion); this tree's batch_inv
+inverts every lane.
 
 Prints one line per route and layout, the card's name and power limit,
 and needs the card: it exits non-zero where torch.cuda.is_available() is
@@ -63,7 +72,9 @@ def main() -> int:
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--curve", choices=("bn254", "bls12_381", "g2"), default="bn254")
-    ap.add_argument("--old", help="with --curve g2: a curve_g2.cu to run the G2 MSM from as well")
+    ap.add_argument("--routes", help="comma-separated labels of the routes to run (default: all)")
+    ap.add_argument("--old", help="a csrc source to build a second library with, every route run from both")
+    ap.add_argument("--old-root-width", type=int, help="batch_inv's tree root width while the old library runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_route_stages: no CUDA device", file=sys.stderr)
@@ -75,6 +86,8 @@ def main() -> int:
     from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
     from hekaton_tpu_torch.curves import cuda_curve as cc
     from hekaton_tpu_torch.curves.torch_curve import G1, G2, g1_bls12_381
+    from hekaton_tpu_torch.fields import cuda_field as cf
+    from hekaton_tpu_torch.fields import torch_field as tf
     from hekaton_tpu_torch.msm import pippenger as pip
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,15 +96,11 @@ def main() -> int:
     rs = np.random.RandomState(cs.SEED)
     c, L = TorchBackend.msm_params(n)
     bls = args.curve == "bls12_381"
-    libs = {}  # route label -> the kernel library it runs from (else cuda_lib.lib())
     if args.curve == "g2":
         curve = G2
         _, _, ax, ay = cs.g2_set(h, G2, rs, n)
         sc = pip.pack_scalars(cs.rand_scalars(rs, n, h.R), G2).to(DEVICE)
         routes = [("G2", L, {}, n)]
-        if args.old:
-            libs[f"G2 ({args.old})"] = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
-            routes.insert(0, (f"G2 ({args.old})", L, {}, n))
     elif bls:
         curve, P, R = g1_bls12_381(), h.bls.P, h.bls.R
         pts = [cs.bls_mul(h.bls.G1_GEN, int.from_bytes(rs.bytes(48), "little") % R, P)]
@@ -109,6 +118,23 @@ def main() -> int:
         sc = torch.randint(0, 1 << 16, (n, 16), dtype=torch.int32, device=DEVICE)
         sc[:, 15] %= 0x3064
         routes = [("v9", L, {}, n)] + [(label, rl, route, n) for label, rl, route in cs.ROUTES]
+    if args.routes:
+        keep = args.routes.split(",")
+        routes = [r for r in routes if r[0] in keep]
+    libs = {}  # old-library route label -> its library
+    this_batch_inv = old_batch_inv = tf.batch_inv
+    if args.old_root_width:
+        def old_batch_inv(spec, a):
+            return tf._batch_inv(spec, a, cf.mont_mul, cf.fermat_inv, args.old_root_width)
+    if args.old:
+        old_lib = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
+        twins = []
+        for label, *rest in routes:
+            twins += [(f"{label} [old]", *rest), (label, *rest)]
+            libs[f"{label} [old]"] = old_lib
+        routes = twins
+        how = f"a mont_mul tree down to {args.old_root_width} lanes" if args.old_root_width else "this tree's"
+        print(f"[old] {args.old}: its routes run with batch_inv as {how}")
 
     spans = []  # (stage, start event, end event) of the current call
 
@@ -141,9 +167,11 @@ def main() -> int:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
+            tf.batch_inv = old_batch_inv if label in libs else this_batch_inv  # callers look it up on tf
             with warnings.catch_warnings(), cuda_lib.using(libs.get(label) or cuda_lib.lib()):
                 warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
                 pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
+            tf.batch_inv = this_batch_inv
             end.record()
             torch.cuda.synchronize()
             if rep == 0:

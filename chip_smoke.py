@@ -11,10 +11,14 @@ native host library). Phases, one line each, every failure raises:
      PyTorch version on the card, at the main paths' shapes, bit for bit,
      with both times and the kernel's bound (and l1_rcb_mega on the
      transposed slab as well), mont_mul and fermat_inv also at BLS12-381's
-     24 limbs (rows of their own); the C entry points refuse an unknown
-     field id; pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own
-     level-1 width (the msm_g2 set's plan, every lane against the plain
-     version; lines of their own), and neither of the two may spill;
+     24 limbs (rows of their own); fermat_inv (the divstep inversion) on
+     Fq at 1024 and 2^18 lanes, Fr at 1024 and BLS12-381 Fq at 1024, with
+     inv_edge_values' lanes (0 -> 0 among them) against mont_inv (the plain
+     Fermat chain), its two rows after the main paths (below); the C entry
+     points refuse an unknown field id;
+     pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own level-1 width
+     (the msm_g2 set's plan, every lane against the plain version; lines of
+     their own); neither of the two nor fermat_inv may spill;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
@@ -52,7 +56,16 @@ native host library). Phases, one line each, every failure raises:
        --spill-dir`, which must print that the aggregate proof verified and
        round-trip stage 0 through the wire format; configuration 1's stage-0
        commitments take the compact msm;
+     after msm_bls, [batch_inv]: tf.batch_inv's calls on SWEPT_PATHS,
+     recorded by (field, lanes), each timed at every root width of
+     ROOT_WIDTHS (and held bit for bit against no tree), summed per path;
+     after the last path, the kernel table's fermat_inv rows: at the widths
+     the main paths launched it at, recorded with their launches, the
+     kernel held bit for bit against mont_inv at the width with the most
+     lanes and timed at the width launched most often (inv_rows);
   4. coverage: every kernel of each path was launched in that path's run,
+     fermat_inv as often as its callers (tf.batch_inv, to_affine_device)
+     were called on CUDA tensors,
      no path but msm_routes launched one of ROUTE_KERNELS, none but
      unfused_affine one of UNFUSED_KERNELS, none but msm_bls one of
      BLS_KERNELS (the 24-limb instances), and msm_bls nothing else.
@@ -112,6 +125,10 @@ BLS_ROUTES = (
     ("gather", {"plan": "gather"}),  # the gather plan, one add_packed per gathered row
 )
 N_BLS_COMPACT = (32, 33)  # points of the compact BLS12-381 msm (the ladder, then windows)
+# batch_inv's root widths swept in [batch_inv] (None: no tree), over the
+# calls of the paths in SWEPT_PATHS
+ROOT_WIDTHS = (1024, 4096, 16384, 65536, 1 << 18, None)
+SWEPT_PATHS = ("msm_g1", "unfused_affine", "msm_bls")
 N_TREE = 1 << 16  # transcript entries of the exec_tree phase
 N_TREE_SUB = 32  # its subcircuits
 # The [cli] phase's CLI runs: (label, setup command). BASELINE.json
@@ -239,6 +256,28 @@ def rand_limbs(shape, gen: torch.Generator, spec=None) -> torch.Tensor:
     return limbs
 
 
+def inv_edge_values(spec) -> list:
+    """Field values whose lanes probe the inversion kernel's edges: 0, 1 (the
+    Montgomery one), 2, p-1, p-2, (p-1)/2, (p+1)/2, 2^k for every k below the
+    bit length, and long runs of one and zero bits (2^k - 1, p - 2^k, every
+    seventh k); then the same patterns as raw Montgomery words (the values
+    x R^-1, whose lanes hold x: a raw 1, a raw p-1, ...)."""
+    p = spec.modulus
+    bits = p.bit_length()
+    base = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2] + [1 << k for k in range(bits)]
+    base += [(1 << k) - 1 for k in range(2, bits, 7)] + [p - (1 << k) for k in range(1, bits, 7)]
+    rinv = pow(spec.mont_r, -1, p)
+    return list(dict.fromkeys(v % p for v in base + [x * rinv for x in base]))
+
+
+def inv_lanes(tf, spec, m: int, gen: torch.Generator) -> torch.Tensor:
+    """m random lanes of `spec` with inv_edge_values' lanes first (0 first)."""
+    a = rand_limbs(m, gen, spec)
+    edge = inv_edge_values(spec)[:m]
+    a[: len(edge)] = tf.tensor(spec.pack(edge), DEVICE)
+    return a
+
+
 def bls_add(p, q, P):
     """Affine P + Q on BLS12-381 G1 over Python ints (None = infinity)."""
     if p is None or q is None:
@@ -295,35 +334,63 @@ def chain_points(n: int, k0: int, delta: int, h) -> list:
     return out
 
 
+# The divstep inversion (csrc/field.cu::fermat_inv_kernel): signed 30-bit
+# limbs and batches of 30 divsteps per word count, as field.cu's InvShape
+INV_SHAPES = {8: (9, 25), 12: (13, 37)}
+# the kernel-table rows of the inversion kernel and the fields each counts
+INV_ROWS = {"fermat_inv": ("fq", "fr"), "fermat_inv fq_bls381": ("fq_bls381",)}
+
+
+def inv_divsteps(nw: int = 8) -> int:
+    """Divsteps of one inversion at nw words: 750 at 8, 1,110 at 12."""
+    return 30 * INV_SHAPES[nw][1]
+
+
+def inv_muls(nw: int = 8) -> int:
+    """32-bit multiplies of one divstep inversion: per batch, the matrix on
+    f, g, d, e and the multiples of p, 10 L 32x32->64 multiply-adds at 2
+    each (low and high halves), and the 2 low products of p^-1 that pick
+    those multiples; the divsteps themselves multiply nothing."""
+    L, batches = INV_SHAPES[nw]
+    return batches * (20 * L + 2)
+
+
+def inv_chain(nw: int = 8) -> int:
+    """The dependent chain of one inversion, in operations: ~6 a divstep
+    (g's parity, the swap test, the selects, g's add, the shift) and ~3 a
+    limb of a batch's carry chain (a 64-bit add and shift) plus ~6 for its
+    multiple of p; the time of a launch of <= ~16K lanes is this chain's
+    latency, not its work."""
+    L, batches = INV_SHAPES[nw]
+    return batches * (30 * 6 + 3 * L + 6)
+
+
 class Bound:
     """The least time the card takes for a kernel's work (bytes moved, or
     Montgomery products at muls_per_product 32-bit multiplies each; a
     fraction where lazy_products counts them)."""
 
-    def __init__(self, tf):
+    def __init__(self):
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         self.clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-        self.fermat = self.fermat_products(tf.FQ)
-
-    @staticmethod
-    def fermat_products(spec) -> int:
-        """Products of one a^(p-2) (csrc/field.cuh::fe_inv): a square per bit
-        below the top one and a multiply per set bit below it."""
-        e = spec.modulus - 2
-        return (e.bit_length() - 1) + (bin(e).count("1") - 1)
 
     def __call__(self, nbytes: float, products: float, nw: int = 8) -> tuple:
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = products * muls_per_product(nw) / (INT_MULS_PER_SM_CLOCK * self.sms * self.clock_hz)
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
-    def batch_inv(self, m: int) -> int:
-        """Products of tf.batch_inv over m lanes on the card: the mont_mul
-        tree down to 1024 lanes and back, and a Fermat per remaining lane."""
-        mp = 1 << max(0, (m - 1).bit_length())
-        top = min(mp, 1024)
-        return 3 * (mp - top) + top * self.fermat
+    @staticmethod
+    def batch_inv(m: int, nw: int = 8) -> float:
+        """Products the inversion of m lanes needs at least: Montgomery's
+        trick, 3 a lane, and one inversion (inv_muls). The divstep kernel
+        computes the same function by more work, each lane on its own."""
+        return 3 * (m - 1) + inv_muls(nw) / muls_per_product(nw)
+
+    def inv(self, m: int, nw: int = 8) -> tuple:
+        """The work of fermat_inv on m lanes: each lane's 2 nw int32 limbs
+        read once and written once, and batch_inv's products."""
+        return 16 * nw * m, self.batch_inv(m, nw), nw
 
 
 def proj_edge_lanes(tf, proj, gx, gy, gen):
@@ -452,22 +519,139 @@ def g2_level1_inputs(pip, g2x, g2y, sc, c: int, L: int, steps: int = 3) -> tuple
     return ncols, (*acc, ax, ay), (*acc, *nxt)
 
 
+def root_width_sweep(tf, cf, calls: dict, gen, reps: int = 5) -> dict:
+    """Device ms of tf._batch_inv at every root width of ROOT_WIDTHS on
+    random lanes at each (spec, lanes) key of `calls`, the widths in turns
+    (forward, then backward; the least of the two means of `reps`), every
+    width's result held bit for bit against no tree: fermat_inv on every
+    lane, the kernel inv_check holds against mont_inv at the main paths'
+    widths. A width at or above the lanes is no tree and is not timed
+    again. Returns {(spec name, lanes): {width: ms}}."""
+    out = {}
+    for spec, m in calls:
+        a = rand_limbs(m, gen, spec)
+        a[:, 0] |= 1  # nonzero lanes
+        direct = cf.fermat_inv(spec, a)
+        ms = {}
+        for stop in ROOT_WIDTHS + ROOT_WIDTHS[::-1]:
+            if stop is not None and stop >= m:
+                continue
+            if stop is None:
+                run = lambda: cf.fermat_inv(spec, a)  # noqa: E731
+            else:
+                run = lambda stop=stop: tf._batch_inv(spec, a, cf.mont_mul, cf.fermat_inv, stop)  # noqa: E731
+                if stop not in ms:
+                    require(max_abs_err(run(), direct) == 0, f"batch_inv {spec.name} {m} lanes differs at width {stop}")
+            ms.setdefault(stop, []).append(cuda_ms(run, reps))
+        out[(spec.name, m)] = {stop: min(ms[None if stop is not None and stop >= m else stop])
+                               for stop in ROOT_WIDTHS}
+    return out
+
+
+def inv_rows(tf, cf, bound, inv_calls: dict, totals: dict, gen) -> list:
+    """The kernel-table rows of INV_ROWS at the main paths' widths: of each
+    row's fields, every width the main paths launched fermat_inv at
+    (`inv_calls`: {caller: {path: {(spec, lanes): calls}}}) is logged with
+    its launches; at the widest, at the one with the most lanes launched in
+    all, and at the one launched most often (the row's shape), inv_lanes
+    are held bit for bit against mont_inv and timed."""
+    rows = []
+    for name, fields in INV_ROWS.items():
+        widths = {}
+        for calls in inv_calls.values():
+            for path_calls in calls.values():
+                for (spec, m), n in path_calls.items():
+                    if spec.name in fields:
+                        widths[(spec, m)] = widths.get((spec, m), 0) + n
+        require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
+        require(bool(widths), f"{name}: no main path launched it")
+        ranked = sorted(widths, key=lambda k: (-widths[k], -k[1]))
+        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths): "
+            + ", ".join(f"{spec.name} {m} x{widths[(spec, m)]}" for spec, m in ranked[:12]))
+        most = ranked[0]
+        for spec, m in dict.fromkeys([max(widths, key=lambda k: k[1]),
+                                      max(widths, key=lambda k: (widths[k] * k[1], k[1]))]):
+            if (spec, m) == most:
+                continue
+            require(inv_check(tf, cf, bound, spec, inv_lanes(tf, spec, m, gen))[2] == 0,
+                    f"fermat_inv {spec.name} {m} lanes differs from mont_inv")
+        spec, m = most
+        ms, plain_ms, err, work = inv_check(tf, cf, bound, spec, inv_lanes(tf, spec, m, gen), time_plain=True)
+        row = kernel_row(bound, name, "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:238",
+                         ms, plain_ms, err, work, field=", ".join(fields))
+        rows.append({**row, "shape": f"{spec.name} {m} lanes"})
+    return rows
+
+
+def sweep_summary(inv_calls: dict, sweep: dict) -> str:
+    """root_width_sweep's times summed over each path's batch_inv calls at
+    every root width with the path's widest calls, then the per-call times
+    of each path's most called width and of each field's three widest."""
+    parts, named = [], []
+    for name, calls in inv_calls.items():
+        est = {stop: sum(n * sweep[(spec.name, m)][stop] for (spec, m), n in calls.items()) for stop in ROOT_WIDTHS}
+        widest = sorted(calls.items(), key=lambda kv: -kv[0][1])[:6]
+        parts.append(f"{name} ({sum(calls.values())} calls; widest {', '.join(f'{m} x{n}' for (_, m), n in widest)}): "
+                     + ", ".join(f"{stop or 'no tree'} {v:.3f}" for stop, v in est.items()) + " ms")
+        if calls:
+            spec, m = max(calls, key=calls.get)
+            named.append((spec.name, m))
+    for field in sorted({s for s, _ in sweep}):
+        named += sorted((k for k in sweep if k[0] == field), key=lambda k: -k[1])[:3]
+    parts.append("per call (ms): " + "; ".join(
+        f"{s} {m} lanes " + ", ".join(f"{stop or 'no tree'} {sweep[(s, m)][stop]:.4f}" for stop in ROOT_WIDTHS)
+        for s, m in dict.fromkeys(named)))
+    return " | ".join(parts)
+
+
+def kernel_row(bound, name, source, replaces, ms, plain_ms, err, work, library_ms=None, field=None) -> dict:
+    """One row of the kernel table: the kernel held bit for bit against its
+    plain version, both times and the bound of `work` (Bound's arguments)."""
+    require(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
+    bound_ms, bound_by = bound(*work)
+    library = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    log(f"[kernels] {name}: bit-identical, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library {library}, bound {bound_ms:.4f} ms ({bound_by})")
+    if field is None:  # the instance whose launches the row counts
+        field = "fq2" if name.endswith("_g2") else "fq"
+    return {"name": name, "field": field, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def inv_check(tf, cf, bound, spec, a, time_plain: bool = False) -> tuple:
+    """fermat_inv (the divstep kernel) on the lanes `a` against mont_inv (the
+    plain Fermat chain), bit for bit, inv(0) = 0 on every zero lane, and its
+    device time (and the plain version's, with time_plain); logs the bound
+    of the function (Bound.inv) and, as diagnostics of the algorithm, its
+    divsteps a lane and its dependent chain. Returns (kernel ms, plain ms or
+    None, error, work)."""
+    nw, m = spec.nlimbs // 2, a.shape[0]
+    got = cf.fermat_inv(spec, a)
+    err = max_abs_err(got, cf.fermat_inv_plain(spec, a))
+    zero = (a == 0).all(-1)
+    require(not bool(got[zero].any()), f"fermat_inv {spec.name}: inv(0) is not 0")
+    ms = cuda_ms(lambda: cf.fermat_inv(spec, a), 20)
+    plain_ms = cuda_ms(lambda: cf.fermat_inv_plain(spec, a), 1) if time_plain else None
+    work = bound.inv(m, nw)
+    b_ms, b_by = bound(*work)
+    plain = "" if plain_ms is None else f", plain {plain_ms:.3f} ms"
+    log(f"[kernels] fermat_inv {spec.name} {m} lanes ({int(zero.sum())} zero): max abs err {err}, kernel "
+        f"{ms:.4f} ms{plain}, bound {b_ms:.4f} ms ({b_by}: {work[0]} bytes, {work[1]:.0f} products); "
+        f"{inv_divsteps(nw)} divsteps a lane, {m * inv_divsteps(nw) / (ms * 1e6):.1f} divsteps a ns, "
+        f"dependent chain ~{inv_chain(nw)} operations")
+    return ms, plain_ms, err, work
+
+
 def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1) -> list:
     """Every kernel against its plain version at the main paths' shapes
-    (`g2_l1`: g2_level1_inputs' result)."""
+    (`g2_l1`: g2_level1_inputs' result). The rows of INV_ROWS come after the
+    main paths (inv_rows), at the widths those launched; here the inversion
+    kernel is held on its edge lanes."""
     rows = []
 
-    def record(name, source, replaces, ms, plain_ms, err, work, library_ms=None, field=None):
-        require(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
-        bound_ms, bound_by = bound(*work)
-        library = "none" if library_ms is None else f"{library_ms:.3f} ms"
-        log(f"[kernels] {name}: bit-identical, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {library}, bound {bound_ms:.4f} ms ({bound_by})")
-        if field is None:  # the instance whose launches the row counts
-            field = "fq2" if name.endswith("_g2") else "fq"
-        rows.append({"name": name, "field": field, "route": "cuda", "source": source, "replaces": replaces,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+    def record(*args, **kw):
+        rows.append(kernel_row(bound, *args, **kw))
 
     # mont_mul: 2^20 lanes, Fq and Fr, with 0, 1 and p-1
     errs, times = 0, {}
@@ -485,24 +669,14 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     record("mont_mul", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:253",
            *times["fq"], errs, (3 * 64 * N_MUL, N_MUL), field="fq, fr")
 
-    # fermat_inv, with 0, 1 and p-1: N_LANES lanes (to_affine_device on a
-    # fixed-base chunk), logged; then 1024 lanes (the batch_inv root width,
-    # most of the path's launches), the row of the kernel table
-    errs = 0
-    for m in (N_LANES, 1024):
-        a = rand_limbs(m, gen)
-        a[:3] = tf.tensor(tf.FQ.pack([0, 1, tf.FQ.modulus - 1]), DEVICE)
-        errs = max(errs, max_abs_err(cf.fermat_inv(tf.FQ, a), cf.fermat_inv_plain(tf.FQ, a)))
-        times = (cuda_ms(lambda: cf.fermat_inv(tf.FQ, a), 20 if m == 1024 else 3),
-                 cuda_ms(lambda: cf.fermat_inv_plain(tf.FQ, a), 1))
-        work = (2 * 64 * m, m * bound.fermat)
-        log(f"[kernels] fermat_inv {m} lanes: max abs err {errs}, kernel {times[0]:.3f} ms, "
-            f"plain {times[1]:.3f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
-    record("fermat_inv", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:238",
-           *times, errs, work, field="fq, fr")
+    # fermat_inv on inv_lanes (the edge lanes, 0 first): Fr and Fq at 1024
+    # lanes, Fq at N_LANES (to_affine_device on a fixed-base chunk)
+    for spec, m in ((tf.FR, 1024), (tf.FQ, 1024), (tf.FQ, N_LANES)):
+        require(inv_check(tf, cf, bound, spec, inv_lanes(tf, spec, m, gen))[2] == 0,
+                f"fermat_inv {spec.name} {m} lanes differs from mont_inv")
 
     # the 24-limb instances (BLS12-381 Fq, 12 words): mont_mul at 2^20 lanes
-    # with 0, 1 and p-1, fermat_inv at the batch_inv root width
+    # with 0, 1 and p-1, fermat_inv on inv_lanes at 1024 lanes
     spec = tf.FQ_BLS
     a, b = rand_limbs(N_MUL, gen, spec), rand_limbs(N_MUL, gen, spec)
     edge = tf.tensor(spec.pack([0, 1, spec.modulus - 1]), DEVICE)
@@ -512,12 +686,9 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
            cuda_ms(lambda: cf.mont_mul(spec, a, b), 20), cuda_ms(lambda: cf.mont_mul_plain(spec, a, b), 3), err,
            (3 * 96 * N_MUL, N_MUL, 12), field=spec.name)
     m = 1024
+    require(inv_check(tf, cf, bound, spec, inv_lanes(tf, spec, m, gen))[2] == 0,
+            f"fermat_inv {spec.name} {m} lanes differs from mont_inv")
     a = rand_limbs(m, gen, spec)
-    a[:3] = edge
-    err = max_abs_err(cf.fermat_inv(spec, a), cf.fermat_inv_plain(spec, a))
-    record("fermat_inv fq_bls381", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:238",
-           cuda_ms(lambda: cf.fermat_inv(spec, a), 20), cuda_ms(lambda: cf.fermat_inv_plain(spec, a), 1), err,
-           (2 * 96 * m, m * bound.fermat_products(spec), 12), field=spec.name)
     # an unknown field id launches nothing: the C entry points return an
     # error, the wrappers raise before them
     out = torch.empty_like(a)
@@ -997,9 +1168,11 @@ def main() -> int:
     log(f"[device] kernels built in {time.perf_counter() - t:.1f} s -> {os.path.basename(path)}")
     for name, regs, spill in ptxas_summary(report):
         log(f"[device] {name}: {regs} registers, {spill} bytes spilled")
-        # the two-thread G2 kernels are designed around their register count (csrc/curve_g2.cu)
-        require(spill == 0 or name not in ("pmadd_rcb_g2_kernel", "padd_rcb_g2_kernel"), f"{name} spills")
-    bound = Bound(tf)
+        # the two-thread G2 kernels (csrc/curve_g2.cu) and the divstep inversion
+        # (csrc/field.cu) are designed around their register counts
+        require(spill == 0 or not name.startswith(("pmadd_rcb_g2_kernel", "padd_rcb_g2_kernel", "fermat_inv_kernel")),
+                f"{name} spills")
+    bound = Bound()
     log(f"[device] bound: {bound.sms} SMs at {bound.clock_hz / 1e6:.0f} MHz max, "
         f"{INT_MULS_PER_SM_CLOCK} int32 multiplies / SM / clock, {HBM_BYTES_PER_S / 1e12} TB/s")
 
@@ -1048,16 +1221,36 @@ def main() -> int:
     # the launch count of every row of the kernel table: the field kernels'
     # rows count their instances (BN254 Fq and Fr, or BLS12-381 Fq)
     kernels = {"mont_mul": field_count(cf.mont_mul, ("fq", "fr")),
-               "fermat_inv": field_count(cf.fermat_inv, ("fq", "fr")),
                "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
-               "fermat_inv fq_bls381": field_count(cf.fermat_inv, ("fq_bls381",)),
+               **{k: field_count(cf.fermat_inv, fields) for k, fields in INV_ROWS.items()},
                **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
-    require(set(kernels) == {r["name"] for r in rows}, "the kernel table and the launch counts name other kernels")
+    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS),
+            "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
+    # the inversion kernel's calls on CUDA tensors by main path, (field,
+    # lanes) and caller: tf.batch_inv's (one launch each; the [batch_inv]
+    # root-width sweep takes those of SWEPT_PATHS) and to_affine_device's
+    # (pippenger imports fermat_inv by name); the callers look both up at
+    # call time. inv_rows times the kernel at the widths they launched.
+    inv_calls = {"batch_inv": {}, "to_affine_device": {}}
+    path_now = [None]
+
+    def recorded(via, fn):
+        def run(spec, a):
+            m = a.numel() // spec.nlimbs
+            if path_now[0] is not None and a.is_cuda and m:
+                calls = inv_calls[via].setdefault(path_now[0], {})
+                calls[(spec, m)] = calls.get((spec, m), 0) + 1
+            return fn(spec, a)
+        return run
+
+    tf.batch_inv = recorded("batch_inv", tf.batch_inv)
+    pip.fermat_inv = recorded("to_affine_device", pip.fermat_inv)
 
     def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
         one of its kernels was not launched, or one of `absent` was."""
+        path_now[0] = name
         cf.reset_counts(cf.mont_mul)
         cf.reset_counts(cf.fermat_inv)
         for fn in curve_kernels.values():
@@ -1068,6 +1261,12 @@ def main() -> int:
         for k, v in counts.items():
             totals[k] += v
         log(f"[coverage] {name}: {counts}")
+        recorded_by_field = {}
+        for calls in inv_calls.values():
+            for (spec, _), n in calls.get(name, {}).items():
+                recorded_by_field[spec.name] = recorded_by_field.get(spec.name, 0) + n
+        require(recorded_by_field == {f: n for f, n in cf.fermat_inv.launches_by_field.items() if n},
+                f"{name}: fermat_inv launched {cf.fermat_inv.launches_by_field}, its callers recorded {recorded_by_field}")
         missing = [k for k in expect if counts[k] <= 0]
         require(not missing, f"{name}: kernels never launched on this path: {missing}")
         stray = [k for k in absent if counts[k] > 0]
@@ -1126,8 +1325,9 @@ def main() -> int:
         log(f"[unfused_affine] aff_prep, batch_inv, aff_fin on {N_LANES} lanes equal aff_add_fused; "
             f"{secs * 1e3:.2f} ms on {card}")
 
-    main_path("unfused_affine", ["aff_prep", "aff_fin", "mont_mul", "fermat_inv"], unfused_path,
-              absent=ROUTE_KERNELS + BLS_KERNELS)
+    # batch_inv on the card runs no mont_mul tree: every lane on fermat_inv
+    main_path("unfused_affine", ["aff_prep", "aff_fin", "fermat_inv"], unfused_path,
+              absent=ROUTE_KERNELS + BLS_KERNELS + ("mont_mul",))
     del uargs
 
     # the compact msm at TorchBackend's window widths; the first rows of the
@@ -1161,6 +1361,15 @@ def main() -> int:
     del g2x, g2y, sc
 
     bls_paths(h, pip, main_path, [k for k in kernels if k not in BLS_KERNELS], card, rs, c, L)
+    path_now[0] = None
+
+    # batch_inv's root width: each swept path's calls timed at every width
+    t = time.perf_counter()
+    swept = {name: inv_calls["batch_inv"].get(name, {}) for name in SWEPT_PATHS}
+    keys = sorted({key for calls in swept.values() for key in calls}, key=lambda k: (k[0].name, k[1]))
+    sweep = root_width_sweep(tf, cf, keys, gen)
+    log(f"[batch_inv] root-width sweep ({len(keys)} widths, {time.perf_counter() - t:.1f} s; tf.batch_inv runs "
+        f"no tree): {sweep_summary(swept, sweep)}; on {card}")
     main_path("exec_tree", ["mont_mul"], lambda: exec_tree_phase(h, card, rs))
 
     # fixed-base: 2^18 scalars per curve through TorchBackend.fixed_base
@@ -1252,6 +1461,8 @@ def main() -> int:
     main_path("cli", ["dbl", "add", "madd"], lambda: cli_phase(card))
 
     log(f"[coverage] kernel launches over the main paths: {totals}")
+    path_now[0] = None
+    rows += inv_rows(tf, cf, bound, inv_calls, totals, gen)
     for row in rows:
         row["launches"] = totals[row["name"]]
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")

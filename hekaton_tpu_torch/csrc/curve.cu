@@ -26,12 +26,13 @@
 // column's k pairs for a halves round), builds the Montgomery-trick prefix
 // chain of its masked denominators, and writes the chain to scratch and its
 // end to a roots array. The caller inverts the roots with batch_inv (the
-// mont_mul kernel on the tree levels, the Fermat kernel on the last <= 1024),
-// and the finish kernel walks each chain back, giving every add its 1/den.
-// One launch with an in-thread Fermat per thread was the alternative: it
-// costs ~360 products per thread, which at a useful k leaves too few threads
-// to fill 132 SMs, while the split keeps one thread per chain and ~3 products
-// per add for the inversion.
+// divstep inversion kernel on every root), and the finish kernel walks
+// each chain back, giving every add its 1/den. One launch with an
+// in-thread inversion per thread was the alternative: a Fermat chain costs
+// ~360 products per thread (a divstep inversion ~90 products' worth of
+// operations), which at a useful k leaves too few threads to fill 132 SMs,
+// while the split keeps one thread per chain and ~3 products per add plus a
+// share of one inversion.
 //
 // What bounds them on an H100: each add is ~8 Montgomery products (~2,400
 // integer multiply-adds) against ~200 bytes of traffic, so both pairs are
@@ -40,8 +41,9 @@
 // bound by the latency of that chain. Measured on one H100 80GB HBM3
 // (700 W), in a 2^20-point MSM: the halves finish kernel ~1.6 ms per round
 // on 735K columns, the aff_add pair ~0.14 ms per call, horner ~2.2 ms at
-// W=20, c=13; the Fermat root inversion that every add and round waits on
-// (fields/cuda_field.py) costs more than any of them in total.
+// W=20, c=13; the root inversion that every add and round waits on
+// (fields/cuda_field.py) cost more than any of them in total while it was a
+// Fermat chain (~0.37 ms a call at 1024 roots).
 //
 // madd is one thread per lane on the straight-line madd-2007-bl formulas
 // (11 products, 7 more on the rare doubling lanes, which the kernel computes

@@ -39,13 +39,11 @@ static __constant__ uint32_t ONE_WORDS[2][8] = {
      0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
 };
 
-// per-field traits: word count, constants, and INV_TOP, the bit of p - 2
-// below its top bit, where the Fermat chain starts (BLS12-381's
-// specialization is at the end of this header)
+// per-field traits: word count and constants (BLS12-381's specialization is
+// at the end of this header)
 template <int F>
 struct Field {  // BN254 Fq (F = FQ) and Fr (F = FR)
   static constexpr int NW = 8;
-  static constexpr int INV_TOP = 252;  // p - 2 has bit 253 as its top bit for both
   __device__ __forceinline__ static uint32_t p(int i) { return P_WORDS[F][i]; }
   __device__ __forceinline__ static uint32_t ninv() { return NINV[F]; }
   __device__ __forceinline__ static uint32_t one(int i) { return ONE_WORDS[F][i]; }
@@ -221,19 +219,6 @@ __device__ __forceinline__ FeF<F> fe_sqr(const FeF<F>& a) {
   return fe_mul<F>(a, a);
 }
 
-// a^(p-2) by left-to-right square-and-multiply from the bit below the top
-// one (acc = a holds the top bit); inv(0) = 0
-template <int F>
-__device__ __forceinline__ FeF<F> fe_inv(const FeF<F>& a) {
-  FeF<F> acc = a;
-  for (int bit = Field<F>::INV_TOP; bit >= 0; bit--) {
-    acc = fe_sqr<F>(acc);
-    uint32_t w = Field<F>::p(bit >> 5) - ((bit >> 5) == 0 ? 2u : 0u);
-    if ((w >> (bit & 31)) & 1u) acc = fe_mul<F>(acc, a);
-  }
-  return acc;
-}
-
 // -- Fq2 = Fq[u]/(u^2+1) (pallas_curve.py::f2_add/f2_sub/f2_mul, :982-1005) --
 
 struct Fe2 {
@@ -313,7 +298,6 @@ static __constant__ uint32_t ONE381_WORDS[12] = {
 template <>
 struct Field<FQ_BLS> {
   static constexpr int NW = 12;
-  static constexpr int INV_TOP = 379;  // p - 2 has 381 bits, 229 of them set
   __device__ __forceinline__ static uint32_t p(int i) { return P381_WORDS[i]; }
   __device__ __forceinline__ static uint32_t ninv() { return NINV381; }
   __device__ __forceinline__ static uint32_t one(int i) { return ONE381_WORDS[i]; }

@@ -12,8 +12,8 @@ prime-order a=0 curve), equal-x lanes take the tangent, inverse pairs give
 object (BLS12-381 G1 takes it): `_prep` and `_fin` in plain torch with the
 products through `f.mul` (the mont_mul kernel on CUDA tensors, as
 `_big_mul` reaches the Pallas CIOS kernel) and one `tf.batch_inv` of the
-denominators between them (its tree levels on the mont_mul kernel, its root
-on the Fermat kernel).
+denominators between them (on CUDA tensors every lane on the divstep
+inversion kernel).
 
 `AFF_G1` (BN254 G1) is `KernelAffG1Ops`: its `add` is
 curves/cuda_curve.py::aff_add_fused and its `add_packed`
@@ -130,7 +130,7 @@ class AffineOps:
 
     def from_proj(self, x, y, z) -> Aff:
         """Batched projective (x : y : z) -> affine by one batch inversion
-        of the z's (the mont_mul and Fermat kernels on CUDA tensors); z = 0
+        of the z's (the inversion kernel on CUDA tensors); z = 0
         lanes give the (0,0) sentinel."""
         f = self.f
         batch = x.shape[:-1]

@@ -1,4 +1,4 @@
-"""Field kernels: the Montgomery multiply and the Fermat inversion.
+"""Field kernels: the Montgomery multiply and the modular inversion.
 
 Port of hekaton_tpu/fields/pallas_field.py. Source: csrc/field.cu (kernels)
 and csrc/field.cuh (the shared NW-word CIOS device functions). Each kernel is
@@ -11,10 +11,12 @@ builders are generic in the limb count.
   against ~264 32-bit multiplies, 288 B against ~588 on BLS12-381. One
   thread per lane, no shared memory.
 - `fermat_inv` replaces `fermat_inv_pallas` (pallas_field.py:238,
-  `_fermat_kernel` :187). On the main paths it inverts the <= 1024 roots of
-  a batch_inv tree, one thread per root in one launch, so it is bound by
-  the latency of 362-379 (BN254) or 608 (BLS12-381) dependent products per
-  thread.
+  `_fermat_kernel` :187) and keeps its name and function (a^-1 in
+  Montgomery form, canonical; inv(0) = 0), but runs no Fermat chain: one
+  thread a lane runs Bernstein-Yang divsteps at a fixed count (750 at 254
+  bits, 1,110 at 381), ~15x fewer operations than a^(p-2)'s 362-608
+  dependent products and a ~25x shorter dependent chain. On CUDA tensors
+  tf.batch_inv and to_affine_device invert every lane on it.
 
 The measured times and what they leave to do are in csrc/field.cu.
 
@@ -99,7 +101,9 @@ reset_counts(mont_mul)
 
 
 def fermat_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """a^(p-2) on (..., nlimbs) Montgomery limbs; inv(0) = 0."""
+    """a^-1 on (..., nlimbs) canonical Montgomery limbs, canonical; inv(0) =
+    0: the value of a^(p-2) (mont_inv, the plain version), by the divstep
+    kernel on a CUDA tensor."""
     if not a.is_cuda:
         return fermat_inv_plain(spec, a)
     fid = _field_id(spec)

@@ -10,9 +10,9 @@ computes in int64 and returns int32 limbs. The CUDA kernels
 (fields/cuda_field.py) compute the same canonical values on 32-bit words;
 since R is the same power of two either way, the two agree bit for bit.
 
-`batch_inv` is the one function that dispatches: on CUDA tensors its tree
-levels and root inversion go through the kernel wrappers of cuda_field.py, as
-the JAX version reaches the Pallas kernels on a TPU.
+`batch_inv` is the one function that dispatches: on CUDA tensors it goes
+through the inversion kernel's wrapper in cuda_field.py, as the JAX version
+reaches the Pallas kernels on a TPU.
 """
 from __future__ import annotations
 
@@ -292,17 +292,28 @@ def mont_inv(spec: FieldSpec, a):
 
 
 def _batch_inv(spec: FieldSpec, a, mul, root_inv, stop: int):
+    """Invert every lane of `a` by a product tree that halves the lanes
+    until at most `stop` remain, `root_inv` on those, and the tree walked
+    back. The lanes are padded with ones to the least multiple of
+    2^levels; at most `stop` lanes are inverted directly, unpadded."""
     shape = a.shape
     nl = spec.nlimbs
     a2 = a.reshape(-1, nl).contiguous()
     M = a2.shape[0]
-    Mp = 1 << max(0, (M - 1).bit_length())
+    if M == 0:
+        return a2.reshape(shape)
+    if M <= stop:
+        return root_inv(spec, a2).reshape(shape)
+    k = 1
+    while -(-M >> k) > stop:  # ceil(M / 2^k)
+        k += 1
+    Mp = -(-M >> k) << k
     if Mp > M:
         ones = consts(spec, a.device)["one"].expand(Mp - M, nl)
         a2 = torch.cat([a2, ones])
     levels = []
     cur = a2
-    while cur.shape[0] > stop:
+    for _ in range(k):
         lo, hi = cur[0::2].contiguous(), cur[1::2].contiguous()
         levels.append((lo, hi))
         cur = mul(spec, lo, hi)
@@ -329,21 +340,23 @@ def batch_inv_plain(spec: FieldSpec, a):
 
 
 def batch_inv(spec: FieldSpec, a):
-    """Simultaneous inversion via a binary product tree (Montgomery's trick,
-    log-depth form) and ONE Fermat inversion at the root
-    (jax_field.batch_inv).
+    """Simultaneous inversion of a batch (jax_field.batch_inv).
 
     a: (..., nlimbs) nonzero Montgomery elements; callers mask degenerate
-    lanes to 1 first (inv(0) = 0 is not preserved, unlike mont_inv). On a
-    CUDA tensor every tree level runs the mont_mul kernel and the tree stops
-    at 1024 lanes for the Fermat kernel; a CPU tensor takes the plain
-    formulas down to one lane.
+    lanes to 1 first (inv(0) = 0 is not preserved, unlike mont_inv). A CPU
+    tensor takes a binary product tree (Montgomery's trick, log-depth form)
+    on the plain formulas down to one lane, inverted on the host. A CUDA
+    tensor runs no tree: the divstep inversion kernel (cuda_field.fermat_inv)
+    inverts every lane, one thread a lane, which beat a mont_mul tree down
+    to any root width at every width the main paths invert (chip_smoke.py's
+    [batch_inv] sweep over _batch_inv's widths, PERF.md). Both give the
+    canonical inverse.
     """
     if not a.is_cuda:
         return batch_inv_plain(spec, a)
-    from .cuda_field import fermat_inv, mont_mul as kmul
+    from .cuda_field import fermat_inv
 
-    return _batch_inv(spec, a, kmul, fermat_inv, 1024)
+    return fermat_inv(spec, a.contiguous())
 
 
 class FpOps:

@@ -24,7 +24,7 @@ BN254: the per-window sorted plan, `level1="steps"` (an explicit "pair" runs
 the generic pairwise tree, `_level1_pair`, and the gather plan
 `_level1_tpu`), its adds on the generic AffineOps or ProjOps of
 curves/affine.py and curves/proj.py (plain torch, products and inversion
-roots on the 24-limb mont_mul and Fermat kernels), and the generic Horner:
+roots on the 24-limb mont_mul and inversion kernels), and the generic Horner:
 
   1. signed window digits (`signed_digits_for_windows`);
   2. the plan, which lays the points out in bucket-pure columns of L:
@@ -61,7 +61,7 @@ roots on the 24-limb mont_mul and Fermat kernels), and the generic Horner:
      lane).
 
 `accum="affine"` (the G1 default) accumulates stages 3-5 in complete batched
-affine (curves/affine.py: the aff_add kernel pair and the Fermat kernel;
+affine (curves/affine.py: the aff_add kernel pair and the inversion kernel;
 after the mega level 1, `AffineOps.from_proj`), `accum="proj"` (always on
 G2) in complete projective coordinates (curves/proj.py: PROJ_G1 on the
 three G1 RCB kernels, PROJ_G2 on the three G2 RCB kernels). Stages 4-5 take
@@ -71,7 +71,7 @@ versions. Every route that `resolve_route` returns runs.
 `fixed_base_table_host`, `fixed_base_msm` and `to_affine_device` port the
 fixed-base batch scalar muls of setup (:1247-1309): 32 windows of 8 bits,
 one Jacobian mixed add per window (G1: the madd kernel), then one inversion
-per lane (the Fermat kernel).
+per lane (the divstep inversion kernel).
 
 Scalars are (N, 16) int32 limbs in plain (non-Montgomery) form, below the
 curve's group order (`pack_scalars(vals, curve)` packs them modulo
@@ -824,9 +824,9 @@ def fixed_base_msm(curve, table, scalars) -> Jac:
 
 
 def to_affine_device(curve, p: Jac):
-    """Batched Jacobian -> affine with one Fermat inversion per lane (the
-    fermat_inv kernel on CUDA tensors; G2 inverts the norm z0^2 + z1^2 of
-    its Fq2 z); infinity -> (0,0)."""
+    """Batched Jacobian -> affine with one inversion per lane (the
+    fermat_inv kernel's divsteps on CUDA tensors, mont_inv's Fermat chain on
+    the CPU; G2 inverts the norm z0^2 + z1^2 of its Fq2 z); infinity -> (0,0)."""
     f = curve.f
     if f.ndim == 1:
         zinv = fermat_inv(tf.FQ, p.z.contiguous())

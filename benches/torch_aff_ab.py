@@ -1,0 +1,456 @@
+"""The port's kernels against an older csrc, on one CUDA card: the A/B of
+two kernel libraries.
+
+    python3 benches/torch_aff_ab.py --old build/old [--kernels pairs,halves,others,inv,g2,k_add]
+        [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8]
+
+--old is a directory holding an older commit's csrc sources, all of them
+or some (a .cu includes the field.cuh of its own directory, so each .cu
+there needs the header it was written against beside it), for example PR
+8's (build/ is git-ignored):
+
+    mkdir -p build/old && for f in field.cuh field.cu curve.cu curve_g2.cu; do
+        git show 54aef4e:hekaton_tpu_torch/csrc/$f > build/old/$f; done
+
+It builds one kernel library with the .cu files of --old swapped in
+(cuda_lib.build(swap=...)) and this tree's, and prints ptxas's registers
+and spills and the SASS instruction counts (cuobjdump -sass: in all, and in
+the longest loop) of every kernel of both. The older library is opened
+with its entry points declared here (open_old); where it has PR 8's
+affine pair and halves (hk_halves_fin), the bench drives them with PR 8's
+launch sequence (old_aff_add, old_halves: a root kernel, batch_inv of one
+root a chain, a finish kernel, once a round for the halves), else through
+this tree's wrappers.
+
+Each --variant is a csrc source of this tree changed (a curve.cu with
+other launch bounds, say): a library is built with it swapped in, and the
+two affine pairs are timed from it too ("variant <i>", after "new" in the
+turns).
+
+--kernels picks the sections, run in this order (all by default). Each
+times its kernels from both libraries in turns (old, new, new, old;
+chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
+- pairs: aff_add_fused and aff_add_mixed_packed at 2^18 lanes
+  (chip_smoke.aff_edge_lanes: doubling, inverse and infinity lanes), where
+  both libraries must equal the plain version bit for bit, and at N_WIDE
+  lanes (random points of the 2^20-point set), where they must equal
+  each other; this tree's also at each lanes-a-thread count of --k-add
+  (cuda_curve.K_ADD, read at call time);
+- halves: l1_aff_halves and l1_aff_halves_t on the level-1 slab of the
+  2^20-point v9 plan (734,740 columns x 32) and of a 2^16-point
+  one (chip_smoke's phase-2 slab), both layouts, equal across libraries,
+  and at 2^16 equal to the plain version; one call is one level 1;
+- others: every other kernel row of chip_smoke.py at its phase-2 shape
+  (mont_mul at 2^20 lanes, 16 and 24 limbs; the point ops and the G2 trio
+  at 2^18 lanes with chip_smoke's edge lanes; horner_fold at W=20, c=13;
+  l1_rcb_mega on the 2^16 slab; aff_prep, aff_fin), both libraries equal
+  to the plain version;
+- inv: fermat_inv at the widths the main paths invert at (BN254 Fq at 1024
+  lanes, 2^18 and N_WIDE, Fr at 1024, BLS12-381 Fq at 1024 and N_WIDE) on
+  chip_smoke.inv_lanes, every library equal to mont_inv; beside this
+  tree's time, the time its divstep SASS takes at an SM's instruction rate
+  (INSTR_PER_SM_CLOCK), a diagnostic of the algorithm, not a bound of the
+  function, and the length of its dependent chain (chip_smoke.inv_chain);
+- g2: pmadd_rcb_g2 and padd_rcb_g2 at the G2 MSM's own level-1 width
+  (chip_smoke.g2_level1_inputs on the 2^20-point msm_g2 set), the
+  libraries equal;
+- k_add: the widths of every affine-pair launch of one 2^20-point v9
+  msm_gpu and one route (h) (steps, affine) are recorded, and each
+  lanes-a-thread count of --k-add is timed at each width, the counts in
+  turns (forward, then backward; the lesser of the two); the sum over the
+  launches is printed per count and per kernel.
+The point sets are chip_smoke.py's, of N_MSM = 2^20 points (its 2^18-lane
+shapes take distinct points for P and Q). Each line carries the bound
+(chip_smoke.Bound on the work chip_smoke.py counts for the row) and the
+card's name and power limit. Exits non-zero
+where torch.cuda.is_available() is false.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEVICE = "cuda"
+N_WIDE = 734_740  # the widest affine add and inversion of the 2^20 G1 MSM (over every level-1 column)
+SECTIONS = ("pairs", "halves", "others", "inv", "g2", "k_add")
+INSTR_PER_SM_CLOCK = 128  # thread instructions an SM starts a clock: 4 schedulers, one 32-lane warp each
+
+
+def open_old(cuda_lib, path: str) -> ctypes.CDLL:
+    """Open an older kernel library: this tree's entry points as it has
+    them, PR 8's affine pair and halves (the pair without the fold's
+    scratch, the halves as one root and one finish kernel a round) where it
+    has hk_halves_fin."""
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    handle = ctypes.CDLL(path)
+    sigs = dict(cuda_lib.SIGNATURES)
+    if hasattr(handle, "hk_halves_fin"):
+        sigs.update({
+            "hk_aff_root": [vp] * 6 + [ll, ll, i32, vp],
+            "hk_aff_fin": [vp] * 8 + [ll, ll, i32, vp],
+            "hk_aff_root_packed": [vp] * 5 + [ll, ll, i32, vp],
+            "hk_aff_fin_packed": [vp] * 7 + [ll, ll, i32, vp],
+            "hk_halves_root": [vp] * 3 + [ll, i32, i32, vp],
+            "hk_halves_fin": [vp] * 4 + [ll, i32, i32, vp],
+        })
+    for name, argtypes in sigs.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return handle
+
+
+def old_aff_add(cuda_lib, tf, lib, entries, x1, y1, q_args, k=8):
+    """PR 8's wrapper: k lanes a thread, every thread's chain end inverted."""
+    n = x1.numel() // 16
+    ox, oy = torch.empty_like(x1), torch.empty_like(y1)
+    nthreads = (n + k - 1) // k
+    pre = torch.empty((k * nthreads, 8), dtype=torch.int32, device=x1.device)
+    roots = torch.empty((nthreads, 16), dtype=torch.int32, device=x1.device)
+    ins = (x1.data_ptr(), y1.data_ptr(), *(t.data_ptr() for t in q_args))
+    stream = cuda_lib.stream_ptr(x1.device)
+    cuda_lib.check(entries[0], getattr(lib, entries[0])(*ins, pre.data_ptr(), roots.data_ptr(), n, nthreads, k,
+                                                         stream))
+    rinv = tf.batch_inv(tf.FQ, roots)
+    cuda_lib.check(entries[1], getattr(lib, entries[1])(*ins, pre.data_ptr(), rinv.data_ptr(), ox.data_ptr(),
+                                                         oy.data_ptr(), n, nthreads, k, stream))
+    return ox, oy
+
+
+def old_halves(cuda_lib, tf, lib, v, L: int, ncols: int, transposed: bool):
+    """PR 8's wrapper: a root kernel, batch_inv of every column's root and a
+    finish kernel, for each of the log2(L) rounds."""
+    stream = cuda_lib.stream_ptr(v.device)
+    l = L
+    while l > 1 and ncols:
+        k = l // 2
+        pre = torch.empty((k * ncols, 8), dtype=torch.int32, device=v.device)
+        roots = torch.empty((ncols, 16), dtype=torch.int32, device=v.device)
+        cuda_lib.check("hk_halves_root", lib.hk_halves_root(v.data_ptr(), pre.data_ptr(), roots.data_ptr(), ncols,
+                                                            k, int(transposed), stream))
+        rinv = tf.batch_inv(tf.FQ, roots)
+        out = torch.empty((k * 16, ncols) if transposed else (ncols, k * 16), dtype=torch.int32, device=v.device)
+        cuda_lib.check("hk_halves_fin", lib.hk_halves_fin(v.data_ptr(), pre.data_ptr(), rinv.data_ptr(),
+                                                          out.data_ptr(), ncols, k, int(transposed), stream))
+        v, l = out, k
+    return v
+
+
+def sass_counts(cs, so: str) -> dict:
+    """{kernel instance: (SASS instructions, instructions of its longest
+    loop)} of every kernel of the library `so`, from `cuobjdump -sass`; a
+    loop is a branch back to a lower address."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.Popen([tool, "-sass", so], stdout=subprocess.PIPE, text=True)
+    out, name, ins = {}, None, []
+
+    def close():
+        if name:
+            loops = [(a - int(t, 16)) // 16 + 1 for a, t in ins if t and int(t, 16) < a]
+            out[name] = (len(ins), max(loops, default=0))
+
+    for line in proc.stdout:
+        if "Function : " in line:
+            close()
+            mangled = line.split()[-1]
+            name, ins = (cs.kernel_name(mangled) if "_kernel" in mangled else None), []
+        elif name:
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                branch = re.search(r"\bBRA (0x[0-9a-f]+)", m.group(2))
+                ins.append((int(m.group(1), 16), branch.group(1) if branch else None))
+    close()
+    cs.require(proc.wait() == 0, f"cuobjdump -sass {so} failed")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", required=True, help="a directory with an older commit's csrc sources")
+    ap.add_argument("--kernels", default=",".join(SECTIONS), help="the sections to run: " + ",".join(SECTIONS))
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variant", nargs="*", default=[], help="changed csrc sources of this tree to time too")
+    ap.add_argument("--k-add", default="2,4,8", help="lanes a thread of this tree's affine pair to time")
+    args = ap.parse_args()
+    sections = args.kernels.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"--kernels: unknown sections {set(sections) - set(SECTIONS)}")
+    if not torch.cuda.is_available():
+        print("torch_aff_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    from hekaton_tpu_torch import cuda_lib
+    from hekaton_tpu_torch import host as h
+    from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
+    from hekaton_tpu_torch.curves import cuda_curve as cc
+    from hekaton_tpu_torch.curves import proj
+    from hekaton_tpu_torch.curves.torch_curve import G1, G2
+    from hekaton_tpu_torch.fields import cuda_field as cf
+    from hekaton_tpu_torch.fields import torch_field as tf
+    from hekaton_tpu_torch.msm import pippenger as pip
+
+    card = cs.smi("name,power.limit")
+    swap = [os.path.join(args.old, f) for f in ("field.cu", "curve.cu", "curve_g2.cu")
+            if os.path.exists(os.path.join(args.old, f))]
+    cs.require(bool(swap), f"--old {args.old}: no csrc source there")
+    old_path, old_report = cuda_lib.build(swap=swap)
+    new_path, new_report = cuda_lib.build()
+    old, new = open_old(cuda_lib, old_path), cuda_lib.lib()
+    pr8_pairs = hasattr(old, "hk_halves_fin")
+    builds = [("old", old_path, old_report), ("this tree", new_path, new_report)]
+    variants = {}
+    for i, path in enumerate(args.variant):
+        v_path, v_report = cuda_lib.build(swap=[path])
+        variants[f"variant {i}"] = cuda_lib.load(v_path)
+        builds.append((f"variant {i} ({path})", v_path, v_report))
+    new_sass = {}
+    for label, path, report in builds:
+        sass = sass_counts(cs, path)
+        if label == "this tree":
+            new_sass = sass
+        for name, regs, spill in cs.ptxas_summary(report):
+            total, loop = sass.get(name, (0, 0))
+            print(f"[ptxas] {label} {name}: {regs} registers, {spill} bytes spilled, SASS {total} instructions, "
+                  f"{loop} in its longest loop")
+
+    bound = cs.Bound()
+    gen = torch.Generator(device=DEVICE).manual_seed(cs.SEED)
+    rs = np.random.RandomState(cs.SEED)
+    n_pts = cs.N_MSM
+    k0, delta = (int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(2))
+    ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(cs.chain_points(n_pts, k0, delta, h)))
+    c, L = TorchBackend.msm_params(n_pts)
+    k_adds = [int(k) for k in args.k_add.split(",")]
+    k_default = cc.K_ADD
+
+    def in_turns(label, shape, fns: dict, work, extra=""):
+        """Time fns ({library: fn}) old, new, new, old; print one line."""
+        ms = {k: [] for k in fns}
+        for lib_label in list(fns) + list(fns)[::-1]:
+            ms[lib_label].append(cs.cuda_ms(fns[lib_label], args.reps))
+        b_ms, b_by = bound(*work)
+        ratio = min(ms["old"]) / min(ms["new"]) if "old" in ms else 1.0
+        print(f"[ab] {label} {shape}: " + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} ms" for k, v in ms.items())
+              + f"; old / new {ratio:.2f}; bound {b_ms:.4f} ms ({b_by}){extra}; bit-identical; on {card}",
+              flush=True)
+        return ms
+
+    def using(lib, fn):
+        def run():
+            with cuda_lib.using(lib):
+                return fn()
+        return run
+
+    if "pairs" in sections:
+        edge = cs.aff_edge_lanes(tf, ax, ay)
+        n_wide = min(N_WIDE, n_pts - 1)  # lane i adds points i and i + n_pts - n_wide
+        wide = (ax[:n_wide], ay[:n_wide], ax[n_pts - n_wide:], ay[n_pts - n_wide:])
+        for name, entries in (("aff_add_fused", ("hk_aff_root", "hk_aff_fin")),
+                              ("aff_add_mixed_packed", ("hk_aff_root_packed", "hk_aff_fin_packed"))):
+            packed = name == "aff_add_mixed_packed"
+            fn = getattr(cc, name)
+            for shape, lanes in ((f"{cs.N_LANES} lanes", edge), (f"{n_wide} lanes", wide)):
+                x1, y1, x2, y2 = (t.contiguous() for t in lanes)
+                q = (cc.AffineOps.pack_rows(cc.Aff(x2, y2)).contiguous(),) if packed else (x2, y2)
+                got = fn(x1, y1, *q)
+                ref = getattr(cc, name + "_plain")(x1, y1, *q) if lanes is edge else got
+                run_old = (lambda: old_aff_add(cuda_lib, tf, old, entries, x1, y1, q)) if pr8_pairs \
+                    else using(old, lambda: fn(x1, y1, *q))
+                cs.require(cs.max_abs_err(got, ref) == 0 and cs.max_abs_err(run_old(), ref) == 0,
+                           f"{name} {shape}: a library differs")
+                for label, lib in variants.items():
+                    with cuda_lib.using(lib):
+                        cs.require(cs.max_abs_err(fn(x1, y1, *q), ref) == 0, f"{name} {shape}: {label} differs")
+                in_turns(name, shape, {"old": run_old, "new": lambda: fn(x1, y1, *q),
+                                       **{k: using(lib, lambda: fn(x1, y1, *q)) for k, lib in variants.items()}},
+                         cs.aff_work(x1, y1, x2, y2, (6 - packed) * 64 * x1.shape[0]))
+                for k in k_adds:
+                    cc.K_ADD = k
+                    cs.require(cs.max_abs_err(fn(x1, y1, *q), ref) == 0, f"{name} K_ADD={k} differs")
+                    print(f"[k_add] {name} {shape} K_ADD={k}: {cs.cuda_ms(lambda: fn(x1, y1, *q), args.reps):.4f} "
+                          f"ms on {card}", flush=True)
+                cc.K_ADD = k_default
+        del wide, edge
+
+    if "halves" in sections:  # the 2^20 v9 slab and the 2^16 one
+        sc = torch.randint(0, 1 << 16, (n_pts, 16), generator=gen, device=DEVICE, dtype=torch.int32)
+        sc[:, 15] %= 0x3064
+        for m, (mc, mL) in ((n_pts, (c, L)), (cs.N_PLAN, (11, 32))):
+            slab, _, meta = pip._plan_sorted_w(ax[:m].contiguous(), ay[:m].contiguous(), sc[:m].contiguous(), mc, mL)
+            ncols = meta[4]
+            slab_t = slab.t().contiguous()
+            work = cs.halves_work(slab, mL)
+            for name, v, tr in (("l1_aff_halves", slab, False), ("l1_aff_halves_t", slab_t, True)):
+                fn = getattr(cc, name)
+                got = fn(v, mL)
+                run_old = (lambda: old_halves(cuda_lib, tf, old, v, mL, ncols, tr)) if pr8_pairs \
+                    else using(old, lambda: fn(v, mL))
+                cs.require(cs.max_abs_err(got, run_old()) == 0, f"{name} {ncols} columns: the libraries differ")
+                if m == cs.N_PLAN:
+                    cs.require(cs.max_abs_err(got, getattr(cc, name + "_plain")(v, mL)) == 0,
+                               f"{name} {ncols} columns: differs from the plain version")
+                for label, lib in variants.items():
+                    with cuda_lib.using(lib):
+                        cs.require(cs.max_abs_err(fn(v, mL), got) == 0, f"{name} {ncols} columns: {label} differs")
+                in_turns(name, f"{ncols} columns x L={mL}", {
+                    "old": run_old, "new": lambda: fn(v, mL),
+                    **{k: using(lib, lambda: fn(v, mL)) for k, lib in variants.items()}}, work)
+            del slab, slab_t
+        del sc
+
+    g2x = g2y = None
+    if "others" in sections or "g2" in sections:
+        _, _, g2x, g2y = cs.g2_set(h, G2, rs, n_pts)
+
+    if "others" in sections:  # before and after the field product
+        n = cs.N_LANES
+        others = []
+        for spec, nl in ((tf.FQ, 16), (tf.FQ_BLS, 24)):
+            a, b = cs.rand_limbs(cs.N_MUL, gen, spec), cs.rand_limbs(cs.N_MUL, gen, spec)
+            others.append((f"mont_mul {spec.name}", f"{cs.N_MUL} lanes",
+                           lambda spec=spec, a=a, b=b: cf.mont_mul(spec, a, b),
+                           lambda spec=spec, a=a, b=b: cf.mont_mul_plain(spec, a, b),
+                           (3 * 4 * nl * cs.N_MUL, cs.N_MUL, nl // 2)))
+        args_aff = cs.aff_edge_lanes(tf, ax, ay)
+        den, num = cc.aff_prep(*args_aff)
+        fin_args = (*args_aff, tf.batch_inv(tf.FQ, den), num)
+        adds, dbls = cs.aff_lanes(*args_aff)
+        others += [("aff_prep", f"{n} lanes", lambda: cc.aff_prep(*args_aff), lambda: cc.aff_prep_plain(*args_aff),
+                    (6 * 64 * n, cs.g1_products(0, dbls))),
+                   ("aff_fin", f"{n} lanes", lambda: cc.aff_fin(*fin_args), lambda: cc.aff_fin_plain(*fin_args),
+                    (8 * 64 * n, cs.g1_work("aff_sum", adds)))]
+        jp, (qx, qy) = cs.g1_edge_lanes(tf, ax, ay, gen)
+        margs = (*jp, qx, qy)
+        jp2, jq2 = cs.g1_jacobian_pairs(tf, ax, ay, gen)
+        others += [("madd", f"{n} lanes", lambda: cc.madd(*margs), lambda: cc.madd_plain(*margs),
+                    (8 * 64 * n, cs.g1_work("madd", n) + cs.g1_work("dbl", 64))),
+                   ("dbl", f"{n} lanes", lambda: cc.dbl(*jp2), lambda: cc.dbl_plain(*jp2),
+                    (6 * 64 * n, cs.g1_work("dbl", n))),
+                   ("add", f"{n} lanes", lambda: cc.add(*jp2, *jq2), lambda: cc.add_plain(*jp2, *jq2),
+                    (9 * 64 * n, cs.g1_work("add", n) + cs.g1_work("dbl", 64)))]
+        g1_rcb = tuple(cs.g1_work(op, 1) for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb"))
+        for sfx, pts, coord_bytes, products in (("", (ax, ay), 64, g1_rcb),
+                                                ("_g2", (g2x, g2y), 128, tuple(cs.RCB_G2_PRODUCTS.values()))):
+            gp, gq, (bx, by) = cs.proj_edge_lanes(tf, proj, *pts, gen)
+            for op, kargs, nio, prods in zip(("pmadd_rcb", "padd_rcb", "pdbl_rcb"),
+                                             ((*gp, bx, by), (*gp, *gq), tuple(gp)), (8, 9, 6), products):
+                kargs = tuple(t.contiguous() for t in kargs)
+                fn, plain = getattr(cc, op + sfx), getattr(cc, op + sfx + "_plain")
+                others.append((op + sfx, f"{n} lanes", lambda fn=fn, kargs=kargs: fn(*kargs),
+                               lambda plain=plain, kargs=kargs: plain(*kargs), (nio * coord_bytes * n, prods * n)))
+        W = 20
+        hp = proj.PROJ_G1.dbl(proj.PROJ_G1.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
+        hp = proj.Proj(*(t.contiguous() for t in hp))
+        others.append(("horner_fold", f"W={W}, c=13", lambda: tuple(cc.horner_fold(hp.x, hp.y, hp.z, 13)),
+                       lambda: tuple(cc.horner_fold_plain(hp.x, hp.y, hp.z, 13)),
+                       (3 * 64 * (W + 1), (W - 1) * (13 * cs.g1_work("pdbl_rcb", 1) + cs.g1_work("padd_rcb", 1)))))
+        slab, _, meta = pip._plan_sorted_w(ax[:cs.N_PLAN].contiguous(), ay[:cs.N_PLAN].contiguous(),
+                                           cs.rand_limbs(cs.N_PLAN, gen), 11, 32)
+        ncols = meta[4]
+        others.append(("l1_rcb_mega", f"{ncols} columns x L=32", lambda: tuple(cc.l1_rcb_mega(slab, 32)),
+                       lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)),
+                       (ncols * (32 * 64 + 192), cs.g1_work("pmadd_rcb", cs.slab_adds(slab, 32)))))
+        for name, shape, fn, plain, work in others:
+            ref = plain()
+            for label, lib in (("old", old), ("new", new)):
+                with cuda_lib.using(lib):
+                    got = fn()
+                if name == "horner_fold":  # a projective point: compare in affine
+                    g = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in got))))
+                    r = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in ref))))
+                    err = 0 if g == r else 1
+                else:
+                    err = cs.max_abs_err(got, ref)
+                cs.require(err == 0, f"{name} from the {label} library differs from its plain version")
+            in_turns(name, shape, {"old": using(old, fn), "new": using(new, fn)}, work)
+
+    if "inv" in sections:
+        fids = {"fq": 0, "fr": 1, "fq_bls381": 2}
+        instr_rate = INSTR_PER_SM_CLOCK * bound.sms * bound.clock_hz
+        for spec, m in ((tf.FQ, 1024), (tf.FQ, cs.N_LANES), (tf.FQ, N_WIDE), (tf.FR, 1024), (tf.FQ_BLS, 1024),
+                        (tf.FQ_BLS, N_WIDE)):
+            nw = spec.nlimbs // 2
+            a = cs.inv_lanes(tf, spec, m, gen)
+            ref = cf.fermat_inv_plain(spec, a)
+            fn = lambda spec=spec, a=a: cf.fermat_inv(spec, a)  # noqa: E731
+            for label, lib in (("old", old), ("new", new)):
+                with cuda_lib.using(lib):
+                    err = cs.max_abs_err(fn(), ref)
+                cs.require(err == 0, f"fermat_inv {spec.name} {m} lanes from the {label} library differs from mont_inv")
+            # this tree's SASS a lane: the kernel once, its loop (a batch of 30 divsteps) once a batch
+            total, loop = new_sass[f"fermat_inv_kernel<{fids[spec.name]}>"]
+            ins = total - loop + cs.INV_SHAPES[nw][1] * loop
+            ms = in_turns(f"fermat_inv {spec.name}", f"{m} lanes", {"old": using(old, fn), "new": using(new, fn)},
+                          bound.inv(m, nw))
+            instr_ms = m * ins / instr_rate * 1e3
+            print(f"[inv] fermat_inv {spec.name} {m} lanes: this tree's divsteps {ins} SASS instructions a lane, "
+                  f"at {INSTR_PER_SM_CLOCK} an SM a clock {instr_ms:.4f} ms ({100 * instr_ms / min(ms['new']):.1f}% "
+                  f"of its time); dependent chain ~{cs.inv_chain(nw)} operations; on {card}", flush=True)
+
+    if "g2" in sections:  # at the G2 MSM's own level-1 width
+        sc = pip.pack_scalars(cs.rand_scalars(rs, n_pts, h.R), G2).to(DEVICE)
+        ncols, pm_args, pa_args = cs.g2_level1_inputs(pip, g2x, g2y, sc, c, L)
+        for op, kargs, nio in (("pmadd_rcb_g2", pm_args, 8), ("padd_rcb_g2", pa_args, 9)):
+            fn = getattr(cc, op)
+            got = fn(*kargs)
+            with cuda_lib.using(old):
+                cs.require(cs.max_abs_err(fn(*kargs), got) == 0, f"{op} at {ncols} lanes: the libraries differ")
+            in_turns(op, f"{ncols} lanes (the msm_g2 level-1 width)",
+                     {"old": using(old, lambda: fn(*kargs)), "new": lambda: fn(*kargs)},
+                     (nio * 128 * ncols, cs.RCB_G2_PRODUCTS[op] * ncols))
+        del sc
+
+    if "k_add" in sections:  # K_ADD at the main path's widths
+        widths = {}
+        launch = cc._launch_aff_add
+
+        def recorded(fn, entries, x1, *rest):
+            key = (fn.__name__, x1.numel() // 16)
+            widths[key] = widths.get(key, 0) + 1
+            return launch(fn, entries, x1, *rest)
+
+        cc._launch_aff_add = recorded
+        sc = cs.rand_limbs(n_pts, gen)
+        pip.msm_gpu(ax, ay, sc, c=c, L=L)
+        pip.msm_gpu(ax, ay, sc, c=c, L=L, level1="steps")
+        cc._launch_aff_add = launch
+        print(f"[k_add] {sum(widths.values())} affine-pair launches at {len(widths)} widths: "
+              + ", ".join(f"{name} {n} x{k}" for (name, n), k in sorted(widths.items(), key=lambda kv: -kv[1])[:12]))
+        totals, by_name, per = {}, {}, {}
+        for (name, n), calls in widths.items():
+            x1, y1 = ax[:n].contiguous(), ay[:n].contiguous()
+            x2, y2 = ax[n_pts - n:].contiguous(), ay[n_pts - n:].contiguous()
+            q = (cc.AffineOps.pack_rows(cc.Aff(x2, y2)).contiguous(),) if name == "aff_add_mixed_packed" else (x2, y2)
+            fn = getattr(cc, name)
+            ms = {k: [] for k in k_adds}
+            for k in k_adds + k_adds[::-1]:  # in turns: forward, then backward
+                cc.K_ADD = k
+                ms[k].append(cs.cuda_ms(lambda: fn(x1, y1, *q), args.reps))
+            for k in k_adds:
+                per[(name, n, k)] = min(ms[k])
+                totals[k] = totals.get(k, 0.0) + calls * per[(name, n, k)]
+                by_name[(name, k)] = by_name.get((name, k), 0.0) + calls * per[(name, n, k)]
+        cc.K_ADD = k_default
+        for name, n in sorted(widths, key=lambda w: -widths[w] * per[(*w, k_default)])[:8]:
+            print(f"[k_add] {name} {n} lanes x{widths[(name, n)]}: "
+                  + ", ".join(f"K_ADD={k} {per[(name, n, k)]:.4f} ms" for k in k_adds))
+        print("[k_add] the two routes' affine-pair launches summed: "
+              + ", ".join(f"K_ADD={k} {t:.3f} ms" for k, t in totals.items()) + "; by kernel: "
+              + ", ".join(f"{name} K_ADD={k} {t:.3f} ms" for (name, k), t in sorted(by_name.items())) + f" on {card}")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

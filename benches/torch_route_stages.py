@@ -33,7 +33,7 @@ total, left out of "other").
 --routes keeps the routes of those labels (comma-separated; "v9", "(a)"...
 "(h)", "default", "pair", ...). With --old (a csrc source, for example an
 older commit's curve_g2.cu or field.cu, placed in the git-ignored build/;
-a field.cu beside the field.cuh it includes, see benches/torch_inv_ab.py)
+a field.cu beside the field.cuh it includes, see benches/torch_aff_ab.py)
 it builds a second kernel library with that file in place of the csrc file
 of its name (cuda_lib.build(swap=...)) and runs every kept route from both
 libraries in the same round-robin, the old library's as a route of its own
@@ -127,7 +127,7 @@ def main() -> int:
         def old_batch_inv(spec, a):
             return tf._batch_inv(spec, a, cf.mont_mul, cf.fermat_inv, args.old_root_width)
     if args.old:
-        old_lib = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
+        old_lib = cuda_lib.load(cuda_lib.build(swap=[args.old])[0])
         twins = []
         for label, *rest in routes:
             twins += [(f"{label} [old]", *rest), (label, *rest)]

@@ -18,7 +18,12 @@ native host library). Phases, one line each, every failure raises:
      points refuse an unknown field id;
      pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own level-1 width
      (the msm_g2 set's plan, every lane against the plain version; lines of
-     their own); neither of the two nor fermat_inv may spill;
+     their own); l1_aff_halves and l1_aff_halves_t on the G1 MSM's own v9
+     slab (734,740 columns x 32 at 2^20 points; one launch is one level 1),
+     every column against the plain version, and on a 2^16-point plan's
+     slab (lines of their own); aff_add_fused and aff_add_mixed_packed on
+     2^18 edge lanes (lines of their own; their rows come after the main
+     paths, below); no kernel may spill;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
@@ -62,7 +67,10 @@ native host library). Phases, one line each, every failure raises:
      after the last path, the kernel table's fermat_inv rows: at the widths
      the main paths launched it at, recorded with their launches, the
      kernel held bit for bit against mont_inv at the width with the most
-     lanes and timed at the width launched most often (inv_rows);
+     lanes and timed at the width launched most often (inv_rows); and the
+     affine pair's rows the same way (aff_rows: held against the plain
+     version at the widest width, the one with the most lanes and the one
+     launched most often, with edge lanes, timed at the last);
   4. coverage: every kernel of each path was launched in that path's run,
      fermat_inv as often as its callers (tf.batch_inv, to_affine_device)
      were called on CUDA tensors,
@@ -160,6 +168,33 @@ def muls_per_product(nw: int = 8) -> int:
     return 4 * nw * nw + nw
 
 
+def muls_per_square(nw: int = 8) -> int:
+    """32-bit multiplies of one nw-word square (csrc/field.cuh::fe_sqr): the
+    nw(nw-1)/2 cross products a_i*a_j and the nw squares a_i^2, each a low
+    and a high multiply, then the reduction's 2 nw^2 + nw: 208 at 8 words."""
+    return nw * (nw + 1) + 2 * nw * nw + nw
+
+
+def g1_products(products: float, squares: float) -> float:
+    """BN254 products and squares in CIOS products' worth (muls_per_product)."""
+    return products + squares * muls_per_square() / muls_per_product()
+
+
+# What a BN254 G1 op needs a lane, (products, squares), csrc/curve.cu: an
+# affine sum from 1/den is lambda, lambda^2 and lambda (x1 - x3) (Montgomery's
+# trick adds 3 products an add, a doubling lane the square x1^2);
+# madd-2007-bl 7 and 4, its doubling escape dbl-2009-l 2 and 5, add-2007-bl
+# 11 and 5; the RCB mixed add 11 and 0, add 12 and 0, double 6 and 2.
+G1_OPS = {"aff_sum": (2, 1), "madd": (7, 4), "dbl": (2, 5), "add": (11, 5),
+          "pmadd_rcb": (11, 0), "padd_rcb": (12, 0), "pdbl_rcb": (6, 2)}
+
+
+def g1_work(op: str, lanes: float) -> float:
+    """The products of `lanes` lanes of the G1 op `op` (G1_OPS)."""
+    products, squares = G1_OPS[op]
+    return g1_products(products * lanes, squares * lanes)
+
+
 def lazy_products(wide: int, reductions: int, nw: int = 8) -> float:
     """The 32-bit multiplies of `wide` nw x nw-word products (nw^2 word
     products, each a low and a high multiply) and `reductions` Montgomery
@@ -198,14 +233,15 @@ def smi(query: str) -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The `*_kernel` identifier (and template argument) in a mangled name:
+    """The `*_kernel` identifier (and template arguments) in a mangled name:
     the identifier is preceded by its length in decimal."""
     end = mangled.index("_kernel") + len("_kernel")
     for start in range(end - len("_kernel"), 0, -1):
         if any(mangled[start - k : start].isdigit() and int(mangled[start - k : start]) == end - start
                for k in (1, 2, 3) if start >= k):
-            m = re.match(r"IL[ib](\d)E", mangled[end:])
-            return mangled[start:end] + (f"<{m.group(1)}>" if m else "")
+            m = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) if m else ""
+            return mangled[start:end] + (f"<{args}>" if m else "")
     return mangled
 
 
@@ -237,6 +273,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), its device time in ms), one run: for a plain version that
+    takes seconds at the main path's width."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(got, ref) -> int:
@@ -341,6 +389,12 @@ INV_SHAPES = {8: (9, 25), 12: (13, 37)}
 INV_ROWS = {"fermat_inv": ("fq", "fr"), "fermat_inv fq_bls381": ("fq_bls381",)}
 
 
+# the kernel-table rows of the affine pair, at the widths the main paths
+# launched it at (aff_rows), and the TPU kernels they replace
+AFF_ROWS = {"aff_add_fused": "hekaton_tpu/curves/pallas_curve.py:760",
+            "aff_add_mixed_packed": "hekaton_tpu/curves/pallas_curve.py:712"}
+
+
 def inv_divsteps(nw: int = 8) -> int:
     """Divsteps of one inversion at nw words: 750 at 8, 1,110 at 12."""
     return 30 * INV_SHAPES[nw][1]
@@ -368,7 +422,7 @@ def inv_chain(nw: int = 8) -> int:
 class Bound:
     """The least time the card takes for a kernel's work (bytes moved, or
     Montgomery products at muls_per_product 32-bit multiplies each; a
-    fraction where lazy_products counts them)."""
+    fraction where lazy_products or g1_products counts them)."""
 
     def __init__(self):
         props = torch.cuda.get_device_properties(0)
@@ -385,7 +439,7 @@ class Bound:
         """Products the inversion of m lanes needs at least: Montgomery's
         trick, 3 a lane, and one inversion (inv_muls). The divstep kernel
         computes the same function by more work, each lane on its own."""
-        return 3 * (m - 1) + inv_muls(nw) / muls_per_product(nw)
+        return 3 * max(m - 1, 0) + inv_muls(nw) / muls_per_product(nw)
 
     def inv(self, m: int, nw: int = 8) -> tuple:
         """The work of fermat_inv on m lanes: each lane's 2 nw int32 limbs
@@ -462,19 +516,63 @@ def g1_jacobian_pairs(tf, ax, ay, gen):
     return p, q
 
 
-def aff_edge_lanes(tf, ax, ay) -> tuple:
-    """N_LANES affine pairs (x1, y1) + (x2, y2) of the G1 set, with doubling
-    lanes 0-63, inverse pairs 64-127, inf + Q 128-191, P + inf 192-255 and
-    inf + inf 256-319."""
-    n = N_LANES
-    x1, y1 = ax[:n].clone(), ay[:n].clone()
-    x2, y2 = ax[n:2 * n].clone(), ay[n:2 * n].clone()
+def aff_edge_lanes(tf, ax, ay, m: int | None = None) -> tuple:
+    """m (N_LANES by default) affine pairs (x1, y1) + (x2, y2) of the G1
+    set, P_i + P_(N-m+i), with doubling lanes 0-63, inverse pairs 64-127,
+    inf + Q 128-191, P + inf 192-255 and inf + inf 256-319 (as far as m
+    reaches)."""
+    n, m = ax.shape[0], N_LANES if m is None else m
+    x1, y1 = ax[:m].clone(), ay[:m].clone()
+    x2, y2 = ax[n - m:].clone(), ay[n - m:].clone()
     x2[:64], y2[:64] = x1[:64], y1[:64]  # doubling lanes
     x2[64:128], y2[64:128] = x1[64:128], tf.neg(tf.FQ, y1[64:128])  # inverse pairs
     x1[128:192], y1[128:192] = 0, 0  # inf + Q
     x2[192:256], y2[192:256] = 0, 0  # P + inf
     x1[256:320], y1[256:320], x2[256:320], y2[256:320] = 0, 0, 0, 0  # inf + inf
     return x1, y1, x2, y2
+
+
+def unaligned(t):
+    """A copy of t one word into its storage: not 16-byte aligned."""
+    odd = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    odd.copy_(t)
+    return odd
+
+
+def aff_lanes(x1, y1, x2, y2) -> tuple:
+    """(adds, doublings) of batched-affine add lanes: the lanes whose sum
+    needs a slope (no infinity operand, no inverse pair), and those of them
+    that double."""
+    q_inf, p_inf = (y2 == 0).all(-1), (y1 == 0).all(-1)
+    same_x = (x1 == x2).all(-1)
+    dbl = same_x & (y1 == y2).all(-1)
+    adds = ~(q_inf | p_inf | (same_x & ~dbl))
+    return int(adds.sum()), int((adds & dbl).sum())
+
+
+def aff_work(x1, y1, x2, y2, nbytes: int) -> tuple:
+    """The bound's work (Bound's arguments) of the batched-affine add of
+    these lanes: `nbytes`, and over its adds (aff_lanes) each sum, a
+    doubling's x1^2 and Montgomery's trick with its one inversion."""
+    adds, dbls = aff_lanes(x1, y1, x2, y2)
+    return nbytes, g1_work("aff_sum", adds) + g1_products(0, dbls) + Bound.batch_inv(adds)
+
+
+def slab_adds(slab, L: int) -> int:
+    """The adds a level 1 needs on the (ncols, L*16) packed slab: n - 1 for a
+    column of n points other than the (0,0) sentinel (an add with the
+    sentinel needs none, and the MSM's points are distinct, so no inverse
+    pair or doubling occurs)."""
+    n = (slab.reshape(slab.shape[0], L, 16) != 0).any(-1).sum(-1)
+    return int((n - 1).clamp(min=0).sum())
+
+
+def halves_work(slab, L: int) -> tuple:
+    """The bound's work of l1_aff_halves on the slab: the slab read once and
+    the sums written once; each add's sum and 3 products of Montgomery's
+    trick, and one inversion a round."""
+    adds = slab_adds(slab, L)
+    return slab.shape[0] * (L + 1) * 64, g1_work("aff_sum", adds) + 3 * adds + (L.bit_length() - 1) * Bound.batch_inv(1)
 
 
 def rand_scalars(rs, n: int, r: int) -> list:
@@ -583,6 +681,40 @@ def inv_rows(tf, cf, bound, inv_calls: dict, totals: dict, gen) -> list:
     return rows
 
 
+def aff_rows(tf, cc, bound, aff_calls: dict, totals: dict, ax, ay) -> list:
+    """The kernel-table rows of AFF_ROWS at the main paths' widths: every
+    width the main paths launched each at (`aff_calls`: {name: {lanes:
+    launches}}) is counted; the kernel is held bit for bit against its plain
+    version on aff_edge_lanes at the widest, at the one with the most lanes
+    launched in all, and at the one launched most often, the row's shape,
+    where both are timed."""
+    rows = []
+    for name, replaces in AFF_ROWS.items():
+        widths = aff_calls.get(name, {})
+        require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
+        require(bool(widths), f"{name}: no main path launched it")
+        ranked = sorted(widths, key=lambda m: (-widths[m], -m))
+        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths): "
+            + ", ".join(f"{m} x{widths[m]}" for m in ranked[:12]))
+        fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
+        for m in dict.fromkeys([max(widths), max(widths, key=lambda m: (widths[m] * m, m)), ranked[0]]):
+            x1, y1, x2, y2 = aff_edge_lanes(tf, ax, ay, m)
+            packed = name == "aff_add_mixed_packed"
+            kargs = (x1, y1, cc.AffineOps.pack_rows(cc.Aff(x2, y2))) if packed else (x1, y1, x2, y2)
+            ref, plain_ms = timed_once(lambda: plain(*kargs))
+            err = max_abs_err(fn(*kargs), ref)
+            ms = cuda_ms(lambda: fn(*kargs), 10)
+            if m != ranked[0]:
+                require(err == 0, f"{name} at {m} lanes: kernel differs from its plain version (max abs err {err})")
+                log(f"[kernels] {name} at {m} lanes (x{widths[m]}): bit-identical, kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.3f} ms")
+                continue
+            work = aff_work(x1, y1, x2, y2, (5 if packed else 6) * 64 * m)
+            rows.append({**kernel_row(bound, name, "hekaton_tpu_torch/csrc/curve.cu", replaces, ms, plain_ms, err, work),
+                         "shape": f"{m} lanes"})
+    return rows
+
+
 def sweep_summary(inv_calls: dict, sweep: dict) -> str:
     """root_width_sweep's times summed over each path's batch_inv calls at
     every root width with the path's widest calls, then the per-call times
@@ -643,11 +775,13 @@ def inv_check(tf, cf, bound, spec, a, time_plain: bool = False) -> tuple:
     return ms, plain_ms, err, work
 
 
-def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1) -> list:
+def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1, msm) -> list:
     """Every kernel against its plain version at the main paths' shapes
-    (`g2_l1`: g2_level1_inputs' result). The rows of INV_ROWS come after the
-    main paths (inv_rows), at the widths those launched; here the inversion
-    kernel is held on its edge lanes."""
+    (`g2_l1`: g2_level1_inputs' result; `msm`: the G1 MSM's (scalars, c,
+    L), whose v9 plan gives the halves rows their slab). The rows of
+    INV_ROWS and AFF_ROWS come after the main paths (inv_rows, aff_rows), at
+    the widths those launched; here the inversion kernel and the affine pair
+    are held on their edge lanes."""
     rows = []
 
     def record(*args, **kw):
@@ -666,6 +800,9 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
                             cuda_ms(lambda: cf.mont_mul_plain(spec, a, b), 3))
         log(f"[kernels] mont_mul {spec.name} {N_MUL} lanes: kernel {times[spec.name][0]:.3f} ms, "
             f"plain {times[spec.name][1]:.3f} ms")
+        # a view one word into its storage: not 16-byte aligned, so the
+        # wrapper copies it before the kernel's 16-byte loads
+        errs = max(errs, max_abs_err(cf.mont_mul(spec, unaligned(a), b), ref))
     record("mont_mul", "hekaton_tpu_torch/csrc/field.cu", "hekaton_tpu/fields/pallas_field.py:253",
            *times["fq"], errs, (3 * 64 * N_MUL, N_MUL), field="fq, fr")
 
@@ -704,59 +841,73 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     require(refused, "mont_mul took a field it has no kernel for")
     log(f"[kernels] unknown field id 7: hk_mont_mul, hk_fermat_inv return {rcs}; the wrappers raise")
 
-    # aff_add_fused: 2^18 lanes with infinity, doubling and inverse-pair lanes
+    # aff_add_fused and aff_add_mixed_packed (the second operand as packed slab
+    # rows, the sentinel lanes all-zero rows): 2^18 lanes with infinity,
+    # doubling and inverse-pair lanes, lines of their own; their rows come
+    # from aff_rows, at the widths the main paths launch them at
     n = N_LANES
     ax, ay = g1_pts
     args = aff_edge_lanes(tf, ax, ay)
     x1, y1, x2, y2 = args
-    add_products = 6 * n + 64 + bound.batch_inv((n + cc.K_ADD - 1) // cc.K_ADD)
-    err = max_abs_err(cc.aff_add_fused(*args), cc.aff_add_fused_plain(*args))
-    record("aff_add_fused", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:760",
-           cuda_ms(lambda: cc.aff_add_fused(*args), 10), cuda_ms(lambda: cc.aff_add_fused_plain(*args), 2),
-           err, (6 * 64 * n, add_products))
-
-    # aff_add_mixed_packed: the same lanes, the second operand as packed slab
-    # rows (the sentinel lanes all-zero rows)
     rows_q = cc.AffineOps.pack_rows(cc.Aff(x2, y2))
-    pargs = (x1, y1, rows_q)
-    err = max_abs_err(cc.aff_add_mixed_packed(*pargs), cc.aff_add_mixed_packed_plain(*pargs))
-    record("aff_add_mixed_packed", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:712",
-           cuda_ms(lambda: cc.aff_add_mixed_packed(*pargs), 10),
-           cuda_ms(lambda: cc.aff_add_mixed_packed_plain(*pargs), 2), err, (5 * 64 * n, add_products))
+    for name, kargs in (("aff_add_fused", args), ("aff_add_mixed_packed", (x1, y1, rows_q))):
+        fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
+        ref = plain(*kargs)
+        # also with every operand a view off the 16-byte grid (the wrapper copies it)
+        err = max(max_abs_err(fn(*kargs), ref), max_abs_err(fn(*map(unaligned, kargs)), ref))
+        require(err == 0, f"{name} at {n} edge lanes: kernel differs from its plain version (max abs err {err})")
+        log(f"[kernels] {name} at {n} lanes (doubling, inverse-pair and infinity lanes): bit-identical, kernel "
+            f"{cuda_ms(lambda: fn(*kargs), 10):.4f} ms")
 
     # aff_prep and aff_fin: the same lanes, fin on the batch inverse of prep's den
     den, num = cc.aff_prep(*args)
     err = max_abs_err((den, num), cc.aff_prep_plain(*args))
     record("aff_prep", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1305",
            cuda_ms(lambda: cc.aff_prep(*args), 10), cuda_ms(lambda: cc.aff_prep_plain(*args), 2), err,
-           (6 * 64 * n, 64))
+           (6 * 64 * n, g1_products(0, aff_lanes(*args)[1])))
     fargs = (*args, tf.batch_inv(tf.FQ, den), num)
     err = max_abs_err(cc.aff_fin(*fargs), cc.aff_fin_plain(*fargs))
     record("aff_fin", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1310",
            cuda_ms(lambda: cc.aff_fin(*fargs), 10), cuda_ms(lambda: cc.aff_fin_plain(*fargs), 2), err,
-           (8 * 64 * n, 3 * n))
+           (8 * 64 * n, g1_work("aff_sum", aff_lanes(*args)[0])))
 
-    # l1_aff_halves: the level-1 slab of a 2^16-point plan at L=32
+    # l1_aff_halves and l1_aff_halves_t: the level-1 slab of the G1 MSM's v9
+    # plan (one launch is one level 1), every column held against the plain
+    # version, which is timed on the same call; and the slab of a 2^16-point
+    # plan at L=32 in both layouts, lines of their own
+    sc, mc, mL = msm
+    slab, _, meta = pip._plan_sorted_w(ax, ay, sc, mc, mL)
+    ncols = meta[4]
+    log(f"[kernels] l1_aff_halves slab: {ncols} columns x L={mL} (the {ax.shape[0]}-point G1 MSM's v9 plan, c={mc})")
+    work = halves_work(slab, mL)
+    log(f"[kernels] l1_aff_halves work: {slab_adds(slab, mL)} adds of {ncols * (mL - 1)} (adds with the sentinel "
+        f"need none), bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
+    for name, tr in (("l1_aff_halves", False), ("l1_aff_halves_t", True)):
+        v = slab.t().contiguous() if tr else slab
+        fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
+        got = fn(v, mL)
+        ref, plain_ms = timed_once(lambda: plain(v, mL))
+        err = max(max_abs_err(got, ref), max_abs_err(got.t(), sums) if tr else 0)
+        sums = got
+        record(name, "hekaton_tpu_torch/csrc/curve.cu", f"hekaton_tpu/curves/pallas_curve.py:{906 if tr else 930}",
+               cuda_ms(lambda: fn(v, mL), 5), plain_ms, err, work)
+        del ref
+    del slab, v, got, sums
     m = N_PLAN
     c, L = 11, 32
     scal = torch.randint(0, 1 << 16, (m, 16), generator=gen, device=DEVICE, dtype=torch.int32)
     scal[:, 15] %= 0x3064
     slab, _, meta = pip._plan_sorted_w(ax[:m].contiguous(), ay[:m].contiguous(), scal, c, L)
-    err = max_abs_err(cc.l1_aff_halves(slab, L), cc.l1_aff_halves_plain(slab, L))
     ncols = meta[4]
-    log(f"[kernels] l1_aff_halves slab: {ncols} columns x L={L} ({m} points, c={c})")
-    halves_work = (ncols * (L + 1) * 64, 6 * ncols * (L - 1) + 5 * bound.batch_inv(ncols))
-    record("l1_aff_halves", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:930",
-           cuda_ms(lambda: cc.l1_aff_halves(slab, L), 5), cuda_ms(lambda: cc.l1_aff_halves_plain(slab, L), 1),
-           err, halves_work)
-
-    # l1_aff_halves_t: the same slab, transposed to (L*16, ncols)
     slab_t = slab.t().contiguous()
-    got = cc.l1_aff_halves_t(slab_t, L)
-    err = max(max_abs_err(got, cc.l1_aff_halves_t_plain(slab_t, L)), max_abs_err(got.t(), cc.l1_aff_halves(slab, L)))
-    record("l1_aff_halves_t", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:906",
-           cuda_ms(lambda: cc.l1_aff_halves_t(slab_t, L), 5),
-           cuda_ms(lambda: cc.l1_aff_halves_t_plain(slab_t, L), 1), err, halves_work)
+    got = cc.l1_aff_halves(slab, L)
+    got_t = cc.l1_aff_halves_t(slab_t, L)
+    err = max(max_abs_err(got, cc.l1_aff_halves_plain(slab, L)), max_abs_err(got_t, cc.l1_aff_halves_t_plain(slab_t, L)),
+              max_abs_err(got_t.t(), got), max_abs_err(cc.l1_aff_halves(unaligned(slab), L), got))
+    require(err == 0, f"l1_aff_halves at {ncols} columns: a kernel differs from its plain version (max abs err {err})")
+    log(f"[kernels] l1_aff_halves, l1_aff_halves_t on a {m}-point plan's slab ({ncols} columns x L={L}, c={c}): "
+        f"bit-identical, kernel {cuda_ms(lambda: cc.l1_aff_halves(slab, L), 5):.3f} ms (rows), "
+        f"{cuda_ms(lambda: cc.l1_aff_halves_t(slab_t, L), 5):.3f} ms (transposed)")
 
     # interleave_slab_t: the word planes of the tsort plan of the same points;
     # one PyTorch copy (a permuted .contiguous()) computes the same function
@@ -765,10 +916,7 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     log(f"[kernels] interleave_slab_t planes: {tuple(planes.shape)} ({planes.numel() * 4 / 2**20:.1f} MiB), "
         f"{tmeta[4]} columns")
     # a view one word into its storage: not 16-byte aligned, so the word-a-thread path
-    odd = torch.empty(planes.numel() + 1, dtype=planes.dtype, device=DEVICE)[1:].view(planes.shape)
-    odd.copy_(planes)
-    err = max(err, max_abs_err(cc.interleave_slab_t(odd), cc.interleave_slab_t_plain(planes)))
-    del odd
+    err = max(err, max_abs_err(cc.interleave_slab_t(unaligned(planes)), cc.interleave_slab_t_plain(planes)))
     record("interleave_slab_t", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:529",
            cuda_ms(lambda: cc.interleave_slab_t(planes), 10),
            cuda_ms(lambda: cc.interleave_slab_t_plain(planes), 10), err, (2 * 4 * planes.numel(), 0),
@@ -787,7 +935,7 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     record("horner_fold", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:625",
            cuda_ms(lambda: cc.horner_fold(p.x, p.y, p.z, 13), 10),
            cuda_ms(lambda: cc.horner_fold_plain(p.x, p.y, p.z, 13), 1), 0,
-           (3 * 64 * (W + 1), (W - 1) * (13 * 8 + 12)))
+           (3 * 64 * (W + 1), (W - 1) * (13 * g1_work("pdbl_rcb", 1) + g1_work("padd_rcb", 1))))
 
     # madd: 2^18 lanes with test_pallas.py:33's edge lanes
     jp, (qx, qy) = g1_edge_lanes(tf, ax, ay, gen)
@@ -795,26 +943,28 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
     err = max_abs_err(cc.madd(*margs), cc.madd_plain(*margs))
     record("madd", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1281",
            cuda_ms(lambda: cc.madd(*margs), 10), cuda_ms(lambda: cc.madd_plain(*margs), 1), err,
-           (8 * 64 * n, 11 * n + 7 * 64))
+           (8 * 64 * n, g1_work("madd", n) + g1_work("dbl", 64)))
 
     # dbl and add: 2^18 Jacobian lanes with infinity, doubling and inverse
-    # lanes; add computes the doubling (7 products) on its 64 escape lanes only
+    # lanes; add computes the doubling (2 products, 5 squares) on its 64
+    # escape lanes only
     jp, jq = g1_jacobian_pairs(tf, ax, ay, gen)
     err = max_abs_err(cc.dbl(*jp), cc.dbl_plain(*jp))
     record("dbl", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1285",
            cuda_ms(lambda: cc.dbl(*jp), 10), cuda_ms(lambda: cc.dbl_plain(*jp), 1), err,
-           (6 * 64 * n, 7 * n))
+           (6 * 64 * n, g1_work("dbl", n)))
     aargs = (*jp, *jq)
     err = max_abs_err(cc.add(*aargs), cc.add_plain(*aargs))
     record("add", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1289",
            cuda_ms(lambda: cc.add(*aargs), 10), cuda_ms(lambda: cc.add_plain(*aargs), 1), err,
-           (9 * 64 * n, 16 * n + 7 * 64))
+           (9 * 64 * n, g1_work("add", n) + g1_work("dbl", 64)))
 
     # the three RCB ops on G2, then on G1: 2^18 lanes with test_pallas.py:58's
     # completeness lanes
     for sfx, pts, src, lines, coord_bytes, products in (
         ("_g2", g2_pts, "curve_g2.cu", (1315, 1320, 1324), 128, tuple(RCB_G2_PRODUCTS.values())),
-        ("", g1_pts, "curve.cu", (1293, 1297, 1301), 64, (11, 12, 8)),
+        ("", g1_pts, "curve.cu", (1293, 1297, 1301), 64,
+         tuple(g1_work(op, 1) for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb"))),
     ):
         gp, gq, (bx, by) = proj_edge_lanes(tf, proj, *pts, gen)
         for op, line, kargs, nio, prods in zip(("pmadd_rcb", "padd_rcb", "pdbl_rcb"), lines,
@@ -837,11 +987,11 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
             f"against the plain version): bit-identical, kernel {cuda_ms(lambda: fn(*kargs), 10):.3f} ms, "
             f"bound {work[0]:.4f} ms ({work[1]})")
 
-    # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products per row,
-    # sentinel rows included
+    # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products an add
+    # (slab_adds: a sentinel row needs none)
     got = cc.l1_rcb_mega(slab, L)
     err = max_abs_err(got, cc.l1_rcb_mega_plain(slab, L))
-    mega_work = (ncols * (L * 64 + 192), 11 * L * ncols)
+    mega_work = (ncols * (L * 64 + 192), g1_work("pmadd_rcb", slab_adds(slab, L)))
     record("l1_rcb_mega", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:572",
            cuda_ms(lambda: cc.l1_rcb_mega(slab, L), 10), cuda_ms(lambda: cc.l1_rcb_mega_plain(slab, L), 1),
            err, mega_work)
@@ -1168,10 +1318,7 @@ def main() -> int:
     log(f"[device] kernels built in {time.perf_counter() - t:.1f} s -> {os.path.basename(path)}")
     for name, regs, spill in ptxas_summary(report):
         log(f"[device] {name}: {regs} registers, {spill} bytes spilled")
-        # the two-thread G2 kernels (csrc/curve_g2.cu) and the divstep inversion
-        # (csrc/field.cu) are designed around their register counts
-        require(spill == 0 or not name.startswith(("pmadd_rcb_g2_kernel", "padd_rcb_g2_kernel", "fermat_inv_kernel")),
-                f"{name} spills")
+        require(spill == 0, f"{name} spills {spill} bytes")
     bound = Bound()
     log(f"[device] bound: {bound.sms} SMs at {bound.clock_hz / 1e6:.0f} MHz max, "
         f"{INT_MULS_PER_SM_CLOCK} int32 multiplies / SM / clock, {HBM_BYTES_PER_S / 1e12} TB/s")
@@ -1205,7 +1352,7 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     c, L = TorchBackend.msm_params(N)
     rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib,
-                         g2_level1_inputs(pip, g2x, g2y, sc, c, L))
+                         g2_level1_inputs(pip, g2x, g2y, sc, c, L), (sc, c, L))
 
     curve_kernels = {"aff_add_fused": cc.aff_add_fused, "l1_aff_halves": cc.l1_aff_halves,
                      "horner_fold": cc.horner_fold, "madd": cc.madd, "pmadd_rcb_g2": cc.pmadd_rcb_g2,
@@ -1224,7 +1371,7 @@ def main() -> int:
                "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
                **{k: field_count(cf.fermat_inv, fields) for k, fields in INV_ROWS.items()},
                **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
-    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS),
+    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS),
             "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
     # the inversion kernel's calls on CUDA tensors by main path, (field,
@@ -1246,6 +1393,19 @@ def main() -> int:
 
     tf.batch_inv = recorded("batch_inv", tf.batch_inv)
     pip.fermat_inv = recorded("to_affine_device", pip.fermat_inv)
+    # the affine pair's launches on the main paths by width: its wrappers
+    # launch through cuda_curve._launch_aff_add, looked up at call time
+    aff_calls = {}
+    launch_aff = cc._launch_aff_add
+
+    def recorded_aff(fn, entries, x1, *rest):
+        m = x1.numel() // 16
+        if path_now[0] is not None and m:
+            calls = aff_calls.setdefault(fn.__name__, {})
+            calls[m] = calls.get(m, 0) + 1
+        return launch_aff(fn, entries, x1, *rest)
+
+    cc._launch_aff_add = recorded_aff
 
     def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
@@ -1463,6 +1623,8 @@ def main() -> int:
     log(f"[coverage] kernel launches over the main paths: {totals}")
     path_now[0] = None
     rows += inv_rows(tf, cf, bound, inv_calls, totals, gen)
+    rows += aff_rows(tf, cc, bound, aff_calls, totals, torch.from_numpy(ax_np).to(DEVICE),
+                     torch.from_numpy(ay_np).to(DEVICE))
     for row in rows:
         row["launches"] = totals[row["name"]]
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")

@@ -3,8 +3,8 @@
 // add of the fixed-base scalar muls.
 //
 // aff_add (root + fin) replaces curves/pallas_curve.py::aff_add_fused
-// (_aff_root_kernel :426, _aff_fin_tree_kernel :442). halves (root + fin)
-// replaces one round of curves/pallas_curve.py::l1_aff_halves
+// (_aff_root_kernel :426, _aff_fin_tree_kernel :442). halves (a root, then
+// a step a round) replaces curves/pallas_curve.py::l1_aff_halves
 // (_aff_halves_root_kernel :802, _aff_halves_fin_kernel :822, tr=False).
 // horner replaces curves/pallas_curve.py::horner_fold (_horner_kernel :583).
 // pmadd_rcb, padd_rcb and pdbl_rcb replace curves/pallas_curve.py::pmadd_rcb,
@@ -21,38 +21,63 @@
 // an inverse pair P == -Q gives infinity; degenerate denominators are 1 so
 // the shared inversion stays defined.
 //
-// Design: the root / batch_inv / finish split. Each thread owns a run of k
-// adds (k lanes strided by the thread count for the plain add, or one slab
-// column's k pairs for a halves round), builds the Montgomery-trick prefix
-// chain of its masked denominators, and writes the chain to scratch and its
-// end to a roots array. The caller inverts the roots with batch_inv (the
-// divstep inversion kernel on every root), and the finish kernel walks
-// each chain back, giving every add its 1/den. One launch with an
-// in-thread inversion per thread was the alternative: a Fermat chain costs
-// ~360 products per thread (a divstep inversion ~90 products' worth of
-// operations), which at a useful k leaves too few threads to fill 132 SMs,
-// while the split keeps one thread per chain and ~3 products per add plus a
-// share of one inversion.
+// Design of the affine pairs: Montgomery's trick in two levels around
+// batch_inv.
+// - A chain a thread: each thread owns a run of k adds (K_ADD lanes strided
+//   by the thread count for aff_add, a slab column's pairs for a halves
+//   round) and multiplies their masked denominators into a prefix chain,
+//   kept in a planar scratch (word w of entry j of chain t at
+//   pre[(j*8 + w)*nchains + t], so a warp's loads are 32 adjacent words).
+// - A fold a warp: warp_fold multiplies the warp's 32 chain ends together
+//   by a butterfly of shuffles (9 products a thread) and leaves each thread
+//   the product of the other 31; batch_inv (the divstep kernel) inverts one
+//   root a warp instead of one a thread: 22,961 lanes instead of 734,740
+//   for a round of a 2^20 MSM's level 1.
+// - The finish unfolds (one product) and walks its chain back, giving every
+//   add its 1/den; it computes an add's flags once, for the sum and for the
+//   den the walk needs. An in-kernel inversion was the alternative: ~43K
+//   cycles of one thread's divsteps that the block's other warps would wait
+//   on, five times a level 1.
+// A lane's limb rows, and a packed row, are four 16-byte loads each (the
+// wrappers pass 16-byte aligned rows, copying a view that is not).
 //
-// What bounds them on an H100: each add is ~8 Montgomery products (~2,400
-// integer multiply-adds) against ~200 bytes of traffic, so both pairs are
-// bound by integer multiply throughput once enough threads are resident. The
-// horner fold is one thread walking (W-1)(c+1) dependent point operations:
-// bound by the latency of that chain. Measured on one H100 80GB HBM3
-// (700 W), in a 2^20-point MSM: the halves finish kernel ~1.6 ms per round
-// on 735K columns, the aff_add pair ~0.14 ms per call, horner ~2.2 ms at
-// W=20, c=13; the root inversion that every add and round waits on
-// (fields/cuda_field.py) cost more than any of them in total while it was a
-// Fermat chain (~0.37 ms a call at 1024 roots).
+// The halves are log2(L)+1 kernels with a fold each round, not a root and
+// a finish kernel each round: halves_root builds round 1's chains from the
+// slab, and each halves_step finishes a round and, with its sums still in
+// registers, builds the next round's chains. Round r+1 adds round r's sums
+// i and i + k/2. A round's chain visits its pairs in bit-reversed order
+// (chain_pair), so the walk back meets the two sums of each next-round pair
+// one after the other, and the order they complete in is the next round's
+// chain order: the bit reversal of k-1-p, so the rounds alternate (`flip`).
+// Between rounds the sums sit in transposed (k*16, ncols) slabs whatever
+// the first slab's layout, so every later load is 32 adjacent words; each
+// operand is read once a round, the first slab twice (root and step).
+//
+// What bounds them on an H100: an add needs 5 Montgomery products and a
+// square (3 products of the trick; lambda, lambda^2, lambda (x1 - x3) of the
+// sum: 1,528 32-bit multiplies) against 384 bytes
+// (aff_add) or ~128 (a halves add: its share of the slab and of the
+// output), so both pairs are bound by integer multiply throughput; the
+// folds add ~10 products a chain, a fifth of a level 1's products. Measured
+// on one H100 80GB HBM3 (700 W) in turns with the previous design (a root
+// and a finish kernel a round, batch_inv of every chain end, C carries;
+// benches/torch_aff_ab.py): a 2^20 MSM's level 1 (734,740 columns x 32)
+// 6.2 ms in either layout against 14.3 (rows) and 11.5 (transposed), bound
+// 1.85 (the 89% of its 734,740 x 31 adds that have no (0,0) sentinel
+// operand: an add with the sentinel needs no product); aff_add 0.12 ms at
+// 2^18 lanes against 0.215, bound 0.030 (PERF.md).
+// The horner fold is one thread walking (W-1)(c+1) dependent point
+// operations: bound by the latency of that chain, 1.09 ms at W=20, c=13.
 //
 // madd is one thread per lane on the straight-line madd-2007-bl formulas
-// (11 products, 7 more on the rare doubling lanes, which the kernel computes
-// only where they are taken) against 512 bytes of (n, 16) limb rows in and
-// out: ~5.6 multiplies per byte, so bound by integer multiply throughput
-// once the card is full. Its edge overrides follow _madd_tiles in its order,
-// which fixes the limbs of infinity lanes (curves/cuda_curve.py::madd_plain).
-// dbl (dbl-2009-l, 7 products) and add (add-2007-bl, 16 products, 7 more on
-// doubling lanes only) are the same one-thread-per-lane design; add's
+// (11 products, 4 of them squares; 7 more, 5 squares, on the rare doubling
+// lanes, which the kernel computes only where they are taken) against 512
+// bytes of (n, 16) limb rows in and out: ~5.6 multiplies per byte, so bound
+// by integer multiply throughput once the card is full. Its edge overrides
+// follow _madd_tiles in its order, which fixes the limbs of infinity lanes
+// (curves/cuda_curve.py::madd_plain). dbl (dbl-2009-l, 7 products, 5 of
+// them squares) and add (add-2007-bl, 16, 5 squares; 7 more on doubling
+// lanes only) are the same one-thread-per-lane design; add's
 // overrides follow _add_tiles (curves/cuda_curve.py::add_plain). The compact
 // msm launches them at 1 to a few thousand lanes, where launch latency, not
 // the multiplies, sets their time.
@@ -82,15 +107,16 @@
 // card hides that chain with the ~735K independent columns of a 2^20-point
 // MSM.
 //
-// Slab layouts. The halves pair and l1_rcb_mega take a template flag TR:
-// false reads the port's (ncols, l*16) slab, where word w of element i of
-// column c is at v[c*l*16 + i*16 + w] (each thread walks its own 64-byte
-// runs); true reads the transposed (l*16, ncols) slab of the tsort plan,
-// word w of element i at v[(i*16 + w)*ncols + c], so the 32 threads of a
-// warp read 32 adjacent words for every word they load. The halves pair
-// with TR = true replaces curves/pallas_curve.py::l1_aff_halves_t (:906, the
-// same two bodies with tr=True) and emits the next round's (k*16, ncols)
-// slab; l1_rcb_mega with TR = true is the JAX l1_rcb_mega's own layout.
+// Slab layouts. The halves kernels and l1_rcb_mega take a template flag
+// TR: false reads the port's (ncols, l*16) slab, where word w of element i
+// of column c is at v[c*l*16 + i*16 + w] (each thread reads its own 64-byte
+// runs, in 16-byte loads in the halves); true reads the transposed
+// (l*16, ncols) slab of the tsort plan, word w of element i at
+// v[(i*16 + w)*ncols + c], so the 32 threads of a warp read 32 adjacent
+// words for every word they load. The halves with TR = true replace
+// curves/pallas_curve.py::l1_aff_halves_t (:906, the same two bodies with
+// tr=True) and return a (16, ncols) slab; l1_rcb_mega with TR = true is the
+// JAX l1_rcb_mega's own layout.
 //
 // interleave_slab_t replaces curves/pallas_curve.py::interleave_slab_t
 // (_interleave_slab_t_kernel :498): 16 (W, L, mcols) word planes to the
@@ -114,7 +140,8 @@
 // aff_prep and aff_finish replace curves/pallas_curve.py::aff_prep and
 // ::aff_fin (:1305/:1310; _aff_prep_kernel :957 on _aff_prep_tiles :374,
 // _aff_fin_kernel :963 on _aff_fin_tiles :392): the unfused halves of the
-// complete add around a caller's batch inversion, one thread per lane.
+// complete add around a caller's batch inversion, one thread per lane, its
+// rows by 16-byte loads and stores.
 // aff_prep writes the masked denominator and the numerator (3*x1^2 on
 // doubling lanes, dy elsewhere; _num_tiles' block-level lax.cond does not
 // change the values); aff_finish takes the numerator it is given. aff_prep
@@ -153,12 +180,13 @@ __device__ __forceinline__ AffFlags aff_flags(const Aff& p, const Aff& q) {
 }
 
 // masked slope denominator: dx, 2*y1 when doubling, 1 when degenerate
-__device__ __forceinline__ Fe aff_den(const Aff& p, const Aff& q) {
-  AffFlags f = aff_flags(p, q);
+__device__ __forceinline__ Fe den_of(const Aff& p, const AffFlags& f) {
   Fe den = f.dbl ? fe_add<FQ>(p.y, p.y) : f.dx;
   bool degen = f.q_inf || f.p_inf || (f.same_x && !f.dbl);
   return degen ? fe_one<FQ>() : den;
 }
+
+__device__ __forceinline__ Fe aff_den(const Aff& p, const Aff& q) { return den_of(p, aff_flags(p, q)); }
 
 // slope numerator: 3*x1^2 when doubling, dy otherwise
 __device__ __forceinline__ Fe aff_num(const Aff& p, const AffFlags& f) {
@@ -185,16 +213,6 @@ __device__ __forceinline__ Aff aff_sum(const Aff& p, const Aff& q, const AffFlag
   return r;
 }
 
-// complete P + Q from the inverted denominator
-__device__ __forceinline__ Aff aff_fin(const Aff& p, const Aff& q, const Fe& inv) {
-  AffFlags f = aff_flags(p, q);
-  return aff_sum(p, q, f, inv, aff_num(p, f));
-}
-
-__device__ __forceinline__ Aff load_aff(const int32_t* x, const int32_t* y, long long i) {
-  return Aff{load_limbs(x + i * 16), load_limbs(y + i * 16)};
-}
-
 // packed slab element whose 16 words lie `stride` apart: 8 x-words then 8
 // y-words
 __device__ __forceinline__ Aff load_packed(const int32_t* e, long long stride = 1) {
@@ -215,6 +233,30 @@ __device__ __forceinline__ void store_packed(int32_t* e, long long stride, const
   }
 }
 
+// -- 16-byte loads and stores of a packed row (the row 16-byte aligned) --
+
+// packed (16,) row (8 x-words, 8 y-words) -> a point, and back
+__device__ __forceinline__ Aff load_packed4(const int32_t* e) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(e);
+  Aff a;
+#pragma unroll
+  for (int q = 0; q < 2; q++) {
+    uint4 x = s4[q], y = s4[2 + q];
+    a.x.w[4 * q] = x.x, a.x.w[4 * q + 1] = x.y, a.x.w[4 * q + 2] = x.z, a.x.w[4 * q + 3] = x.w;
+    a.y.w[4 * q] = y.x, a.y.w[4 * q + 1] = y.y, a.y.w[4 * q + 2] = y.z, a.y.w[4 * q + 3] = y.w;
+  }
+  return a;
+}
+
+__device__ __forceinline__ void store_packed4(int32_t* e, const Aff& a) {
+  uint4* d4 = reinterpret_cast<uint4*>(e);
+#pragma unroll
+  for (int q = 0; q < 2; q++) {
+    d4[q] = make_uint4(a.x.w[4 * q], a.x.w[4 * q + 1], a.x.w[4 * q + 2], a.x.w[4 * q + 3]);
+    d4[2 + q] = make_uint4(a.y.w[4 * q], a.y.w[4 * q + 1], a.y.w[4 * q + 2], a.y.w[4 * q + 3]);
+  }
+}
+
 // element i of column c of a slab of l elements a column: its first word and
 // the distance between its words (the TR flag of the slab layouts above)
 template <bool TR>
@@ -227,93 +269,209 @@ __device__ __forceinline__ long long slab_stride(long long ncols) {
   return TR ? ncols : 1;
 }
 
+// a slab element: in the transposed layout a warp's 16 loads are each 32
+// adjacent words; in the rows layout each thread's 64-byte run is four
+// 16-byte loads
+template <bool TR>
+__device__ __forceinline__ Aff load_elem(const int32_t* v, long long c, int i, int l, long long ncols) {
+  if constexpr (TR) {
+    return load_packed(v + slab_at<true>(c, i, l, ncols), ncols);
+  } else {
+    return load_packed4(v + slab_at<false>(c, i, l, ncols));
+  }
+}
+
+template <bool TR>
+__device__ __forceinline__ void store_elem(int32_t* v, long long c, int i, int l, long long ncols, const Aff& a) {
+  if constexpr (TR) {
+    store_packed(v + slab_at<true>(c, i, l, ncols), ncols, a);
+  } else {
+    store_packed4(v + slab_at<false>(c, i, l, ncols), a);
+  }
+}
+
+// entry j of chain t in a planar scratch of `nchains` chains: word w at
+// buf[(j*8 + w)*nchains + t], so a warp's loads are 32 adjacent words
+__device__ __forceinline__ Fe load_planar(const int32_t* buf, long long nchains, int j, long long t) {
+  Fe r;
+#pragma unroll
+  for (int w = 0; w < 8; w++) r.w[w] = (uint32_t)buf[((long long)j * 8 + w) * nchains + t];
+  return r;
+}
+
+__device__ __forceinline__ void store_planar(int32_t* buf, long long nchains, int j, long long t, const Fe& a) {
+#pragma unroll
+  for (int w = 0; w < 8; w++) buf[((long long)j * 8 + w) * nchains + t] = (int32_t)a.w[w];
+}
+
+// -- the fold: Montgomery's trick across the chains of a warp --
+
+// `total` gets the product of the 32 lanes' r (the same canonical value in
+// every lane, since the product commutes), `others` the product of the
+// other 31 lanes' r, so that 1/r = others / total. A butterfly: at step d
+// a lane multiplies in lane^d's partial product, the product of the group
+// of d lanes that its own group pairs with; those partners, multiplied
+// together, hold every other lane's r once. 9 products, 40 shuffles.
+__device__ __forceinline__ void warp_fold(const Fe& r, Fe& total, Fe& others) {
+  Fe g = r;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    Fe q;
+#pragma unroll
+    for (int i = 0; i < 8; i++) q.w[i] = __shfl_xor_sync(0xffffffffu, g.w[i], d);
+    others = d == 1 ? q : fe_mul<FQ>(others, q);
+    g = fe_mul<FQ>(g, q);
+  }
+  total = g;
+}
+
+// fold the warp's chain ends `acc`: each chain's `others` to ex (planar),
+// the warp's product to roots (limb rows, one a warp), for batch_inv
+__device__ __forceinline__ void fold_out(const Fe& acc, int32_t* ex, int32_t* roots, long long nchains,
+                                         long long t) {
+  Fe total, others;
+  warp_fold(acc, total, others);
+  if (t < nchains) store_planar(ex, nchains, 0, t, others);
+  if ((t & 31) == 0) store_limbs(roots + (t >> 5) * 16, total);
+}
+
+// 1 / (chain t's product) from its warp's inverted root and its `others`
+__device__ __forceinline__ Fe unfold(const int32_t* ex, const int32_t* rinv, long long nchains, long long t) {
+  return fe_mul<FQ>(load_limbs(rinv + (t >> 5) * 16), load_planar(ex, nchains, 0, t));
+}
+
+// the pair at position p of a halves round's chain of k pairs (k a power of
+// two): p bit-reversed, or k-1-p bit-reversed when `flip` (see the note)
+__device__ __forceinline__ int chain_pair(int p, int k, bool flip) {
+  const unsigned q = flip ? k - 1 - p : p;
+  return k == 1 ? 0 : (int)(__brev(q) >> (33 - __ffs(k)));
+}
+
+// -- complete batched-affine add over n lanes --
+
 // the second operand of lane i: (n, 16) limb rows px, py, or (PACKED) the
 // packed (n, 16) slab row px[i]
 template <bool PACKED>
 __device__ __forceinline__ Aff load_q(const int32_t* px, const int32_t* py, long long i) {
-  return PACKED ? load_packed(px + i * 16) : load_aff(px, py, i);
+  return PACKED ? load_packed4(px + i * 16) : Aff{load_limbs16(px + i * 16), load_limbs16(py + i * 16)};
 }
 
-// -- complete batched-affine add over n lanes -------------------------------
+__device__ __forceinline__ Aff load_p(const int32_t* x1, const int32_t* y1, long long i) {
+  return Aff{load_limbs16(x1 + i * 16), load_limbs16(y1 + i * 16)};
+}
 
+// chain t: lanes j*nthreads + t (j < k, lane < n); pre[j] = den_0 ... den_j
+// (j < k-1), then the warp's fold
 template <bool PACKED>
-__global__ void aff_root_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-                                const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-                                int32_t* __restrict__ pre, int32_t* __restrict__ roots,
-                                long long n, long long nthreads, int k) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nthreads) return;
+__global__ void __launch_bounds__(THREADS)
+    aff_root_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                    const int32_t* __restrict__ px, const int32_t* __restrict__ py, int32_t* __restrict__ pre,
+                    int32_t* __restrict__ ex, int32_t* __restrict__ roots, long long n, long long nthreads,
+                    int k) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((t & ~31LL) >= nthreads) return;  // a warp with no chain
   Fe acc = fe_one<FQ>();
-  for (int j = 0; j < k; j++) {
-    long long lane = (long long)j * nthreads + t;
-    Fe den = fe_one<FQ>();
-    if (lane < n) den = aff_den(load_aff(x1, y1, lane), load_q<PACKED>(px, py, lane));
-    acc = j == 0 ? den : fe_mul<FQ>(acc, den);
-    store_words(pre + ((long long)j * nthreads + t) * 8, acc);
-  }
-  store_limbs(roots + t * 16, acc);
-}
-
-template <bool PACKED>
-__global__ void aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-                               const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-                               const int32_t* __restrict__ pre, const int32_t* __restrict__ rinv,
-                               int32_t* __restrict__ ox, int32_t* __restrict__ oy, long long n,
-                               long long nthreads, int k) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nthreads) return;
-  Fe inv_run = load_limbs(rinv + t * 16);  // 1 / (den_0 ... den_{k-1})
-  for (int j = k - 1; j >= 0; j--) {
-    long long lane = (long long)j * nthreads + t;
-    Fe inv = j > 0 ? fe_mul<FQ>(inv_run, load_words(pre + ((long long)(j - 1) * nthreads + t) * 8))
-                   : inv_run;
-    Fe den = fe_one<FQ>();
-    if (lane < n) {
-      Aff p = load_aff(x1, y1, lane);
-      Aff q = load_q<PACKED>(px, py, lane);
-      Aff r = aff_fin(p, q, inv);
-      store_limbs(ox + lane * 16, r.x);
-      store_limbs(oy + lane * 16, r.y);
-      den = aff_den(p, q);
+  if (t < nthreads) {
+    for (int j = 0; j < k; j++) {
+      const long long lane = (long long)j * nthreads + t;
+      if (lane >= n) break;  // lanes grow with j
+      Fe den = aff_den(load_p(x1, y1, lane), load_q<PACKED>(px, py, lane));
+      acc = j == 0 ? den : fe_mul<FQ>(acc, den);
+      if (j < k - 1) store_planar(pre, nthreads, j, t, acc);
     }
-    if (j > 0) inv_run = fe_mul<FQ>(inv_run, den);
+  }
+  fold_out(acc, ex, roots, nthreads, t);
+}
+
+// chain t walked back from its inverse: each lane's 1/den and its sum
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS)
+    aff_fin_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                   const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                   const int32_t* __restrict__ pre, const int32_t* __restrict__ ex,
+                   const int32_t* __restrict__ rinv, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                   long long n, long long nthreads, int k) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nthreads) return;
+  Fe inv_run = unfold(ex, rinv, nthreads, t);  // 1 / (den_0 ... den_j) for the last lane j below n
+  for (int j = k - 1; j >= 0; j--) {
+    const long long lane = (long long)j * nthreads + t;
+    if (lane >= n) continue;
+    const Aff p = load_p(x1, y1, lane);
+    const Aff q = load_q<PACKED>(px, py, lane);
+    const AffFlags f = aff_flags(p, q);
+    const Fe inv = j > 0 ? fe_mul<FQ>(inv_run, load_planar(pre, nthreads, j - 1, t)) : inv_run;
+    const Aff r = aff_sum(p, q, f, inv, aff_num(p, f));
+    store_limbs16(ox + lane * 16, r.x);
+    store_limbs16(oy + lane * 16, r.y);
+    if (j > 0) inv_run = fe_mul<FQ>(inv_run, den_of(p, f));
   }
 }
 
-// -- one level-1 halves round: element i + element k+i of every column ------
+// -- MSM level 1 by halves: element i + element k+i of every column ------
 
+// round 1's chain: column c's k pairs in chain order, pre[p] = den_0 ...
+// den_p (p < k-1), then the warp's fold
 template <bool TR>
-__global__ void halves_root_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre,
-                                   int32_t* __restrict__ roots, long long ncols, int k) {
-  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncols) return;
-  long long s = slab_stride<TR>(ncols);
+__global__ void __launch_bounds__(THREADS)
+    halves_root_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre, int32_t* __restrict__ ex,
+                       int32_t* __restrict__ roots, long long ncols, int k) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((c & ~31LL) >= ncols) return;  // a warp with no column
   Fe acc = fe_one<FQ>();
-  for (int i = 0; i < k; i++) {
-    Fe den = aff_den(load_packed(v + slab_at<TR>(c, i, 2 * k, ncols), s),
-                     load_packed(v + slab_at<TR>(c, k + i, 2 * k, ncols), s));
-    acc = i == 0 ? den : fe_mul<FQ>(acc, den);
-    store_words(pre + ((long long)i * ncols + c) * 8, acc);
+  if (c < ncols) {
+    for (int p = 0; p < k; p++) {
+      const int i = chain_pair(p, k, false);
+      Fe den = aff_den(load_elem<TR>(v, c, i, 2 * k, ncols), load_elem<TR>(v, c, k + i, 2 * k, ncols));
+      acc = p == 0 ? den : fe_mul<FQ>(acc, den);
+      if (p < k - 1) store_planar(pre, ncols, p, c, acc);
+    }
   }
-  store_limbs(roots + c * 16, acc);
+  fold_out(acc, ex, roots, ncols, c);
 }
 
-template <bool TR>
-__global__ void halves_fin_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ pre,
-                                  const int32_t* __restrict__ rinv, int32_t* __restrict__ out,
-                                  long long ncols, int k) {
-  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncols) return;
-  long long s = slab_stride<TR>(ncols);
-  Fe inv_run = load_limbs(rinv + c * 16);
-  for (int i = k - 1; i >= 0; i--) {
-    Aff p = load_packed(v + slab_at<TR>(c, i, 2 * k, ncols), s);
-    Aff q = load_packed(v + slab_at<TR>(c, k + i, 2 * k, ncols), s);
-    Fe inv = i > 0 ? fe_mul<FQ>(inv_run, load_words(pre + ((long long)(i - 1) * ncols + c) * 8))
-                   : inv_run;
-    store_packed(out + slab_at<TR>(c, i, k, ncols), s, aff_fin(p, q, inv));
-    if (i > 0) inv_run = fe_mul<FQ>(inv_run, aff_den(p, q));
+// the finish of a round of k pairs a column (its chain order `flip`): the
+// chain walked back gives every pair its sum, written at the pair's index;
+// with k > 1 the sums go to the transposed (k*16, ncols) slab of the next
+// round, whose pairs (i, i + k/2) complete two steps at a time, and whose
+// chain (pre2, then the warp's fold) is built as they do; with k = 1 the
+// sum is the column's, in the layout TR_OUT
+template <bool TR_IN, bool TR_OUT>
+__global__ void __launch_bounds__(THREADS)
+    halves_step_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ pre,
+                       const int32_t* __restrict__ ex, const int32_t* __restrict__ rinv,
+                       int32_t* __restrict__ out, int32_t* __restrict__ pre2, int32_t* __restrict__ ex2,
+                       int32_t* __restrict__ roots2, long long ncols, int k, bool flip) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((c & ~31LL) >= ncols) return;
+  Fe acc2 = fe_one<FQ>();
+  if (c < ncols) {
+    Fe inv_run = unfold(ex, rinv, ncols, c);
+    Aff held;  // the sum of chain position p+1 (odd)
+    for (int p = k - 1; p >= 0; p--) {
+      const int i = chain_pair(p, k, flip);
+      const Aff a = load_elem<TR_IN>(in, c, i, 2 * k, ncols);
+      const Aff b = load_elem<TR_IN>(in, c, k + i, 2 * k, ncols);
+      const AffFlags f = aff_flags(a, b);
+      const Fe inv = p > 0 ? fe_mul<FQ>(inv_run, load_planar(pre, ncols, p - 1, c)) : inv_run;
+      const Aff s = aff_sum(a, b, f, inv, aff_num(a, f));
+      if (p > 0) inv_run = fe_mul<FQ>(inv_run, den_of(a, f));
+      if (k == 1) {
+        store_elem<TR_OUT>(out, c, 0, 1, ncols, s);
+      } else if (p & 1) {
+        store_elem<true>(out, c, i, k, ncols, s);
+        held = s;
+      } else {
+        store_elem<true>(out, c, i, k, ncols, s);
+        // pairs i and chain_pair(p+1) differ by k/2; i is the lower unless flip
+        const Fe den = flip ? aff_den(held, s) : aff_den(s, held);
+        const int g = (k - 2 - p) / 2;
+        acc2 = g == 0 ? den : fe_mul<FQ>(acc2, den);
+        if (g < k / 2 - 1) store_planar(pre2, ncols, g, c, acc2);
+      }
+    }
   }
+  if (k > 1) fold_out(acc2, ex2, roots2, ncols, c);
 }
 
 // -- the tsort plan's word planes -> the transposed slab ---------------------
@@ -346,10 +504,11 @@ __global__ void __launch_bounds__(THREADS)
                     int32_t* __restrict__ den, int32_t* __restrict__ num, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Aff p = load_aff(x1, y1, i);
-  Aff q = load_aff(px, py, i);
-  store_limbs(den + i * 16, aff_den(p, q));
-  store_limbs(num + i * 16, aff_num(p, aff_flags(p, q)));
+  const Aff p = load_p(x1, y1, i);
+  const Aff q = load_p(px, py, i);
+  const AffFlags f = aff_flags(p, q);
+  store_limbs16(den + i * 16, den_of(p, f));
+  store_limbs16(num + i * 16, aff_num(p, f));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -359,11 +518,11 @@ __global__ void __launch_bounds__(THREADS)
                       int32_t* __restrict__ ox, int32_t* __restrict__ oy, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Aff p = load_aff(x1, y1, i);
-  Aff q = load_aff(px, py, i);
-  Aff r = aff_sum(p, q, aff_flags(p, q), load_limbs(inv + i * 16), load_limbs(num + i * 16));
-  store_limbs(ox + i * 16, r.x);
-  store_limbs(oy + i * 16, r.y);
+  const Aff p = load_p(x1, y1, i);
+  const Aff q = load_p(px, py, i);
+  const Aff r = aff_sum(p, q, aff_flags(p, q), load_limbs16(inv + i * 16), load_limbs16(num + i * 16));
+  store_limbs16(ox + i * 16, r.x);
+  store_limbs16(oy + i * 16, r.y);
 }
 
 // -- window Horner fold on complete RCB15 projective formulas (a=0, b3=9) ---
@@ -651,57 +810,63 @@ unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS
 
 }  // namespace
 
-extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const void* py,
-                           void* pre, void* roots, long long n, long long nthreads, int k,
-                           void* stream) {
+// the pairs' 16-byte loads and stores need 16-byte aligned rows
+extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const void* py, void* pre,
+                           void* ex, void* roots, long long n, long long nthreads, int k, void* stream) {
   aff_root_kernel<false><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
-      (int32_t*)pre, (int32_t*)roots, n, nthreads, k);
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py, (int32_t*)pre,
+      (int32_t*)ex, (int32_t*)roots, n, nthreads, k);
   return (int)cudaGetLastError();
 }
 
-extern "C" int hk_aff_fin(const void* x1, const void* y1, const void* px, const void* py,
-                          const void* pre, const void* rinv, void* ox, void* oy, long long n,
-                          long long nthreads, int k, void* stream) {
+extern "C" int hk_aff_fin(const void* x1, const void* y1, const void* px, const void* py, const void* pre,
+                          const void* ex, const void* rinv, void* ox, void* oy, long long n, long long nthreads,
+                          int k, void* stream) {
   aff_fin_kernel<false><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py,
-      (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)px, (const int32_t*)py, (const int32_t*)pre,
+      (const int32_t*)ex, (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
   return (int)cudaGetLastError();
 }
 
 // the complete add with a packed (n, 16) slab row as second operand
-extern "C" int hk_aff_root_packed(const void* x1, const void* y1, const void* rows, void* pre,
-                                  void* roots, long long n, long long nthreads, int k,
-                                  void* stream) {
+extern "C" int hk_aff_root_packed(const void* x1, const void* y1, const void* rows, void* pre, void* ex,
+                                  void* roots, long long n, long long nthreads, int k, void* stream) {
   aff_root_kernel<true><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)rows, nullptr, (int32_t*)pre,
+      (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)rows, nullptr, (int32_t*)pre, (int32_t*)ex,
       (int32_t*)roots, n, nthreads, k);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hk_aff_fin_packed(const void* x1, const void* y1, const void* rows, const void* pre,
-                                 const void* rinv, void* ox, void* oy, long long n,
+                                 const void* ex, const void* rinv, void* ox, void* oy, long long n,
                                  long long nthreads, int k, void* stream) {
   aff_fin_kernel<true><<<blocks_for(nthreads), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)rows, nullptr, (const int32_t*)pre,
-      (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
+      (const int32_t*)ex, (const int32_t*)rinv, (int32_t*)ox, (int32_t*)oy, n, nthreads, k);
   return (int)cudaGetLastError();
 }
 
-// one halves round on a (ncols, 2k*16) slab, or (transposed) a (2k*16, ncols) one
-extern "C" int hk_halves_root(const void* v, void* pre, void* roots, long long ncols, int k,
+// round 1's chains on a (ncols, 2k*16) slab, or (transposed) a (2k*16, ncols)
+// one, 16-byte aligned
+extern "C" int hk_halves_root(const void* v, void* pre, void* ex, void* roots, long long ncols, int k,
                               int transposed, void* stream) {
   auto kern = transposed ? halves_root_kernel<true> : halves_root_kernel<false>;
-  kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>((const int32_t*)v, (int32_t*)pre,
+  kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>((const int32_t*)v, (int32_t*)pre, (int32_t*)ex,
                                                                 (int32_t*)roots, ncols, k);
   return (int)cudaGetLastError();
 }
 
-extern "C" int hk_halves_fin(const void* v, const void* pre, const void* rinv, void* out,
-                             long long ncols, int k, int transposed, void* stream) {
-  auto kern = transposed ? halves_fin_kernel<true> : halves_fin_kernel<false>;
+// the finish of a round of k pairs a column (and with k > 1 the next
+// round's chains): `in` in either layout, `out` the transposed (k*16, ncols)
+// slab, or with k = 1 the (ncols, 16) or (16, ncols) sums
+extern "C" int hk_halves_step(const void* in, const void* pre, const void* ex, const void* rinv, void* out,
+                              void* pre2, void* ex2, void* roots2, long long ncols, int k, int in_transposed,
+                              int out_transposed, int flip, void* stream) {
+  auto kern = in_transposed ? (out_transposed ? halves_step_kernel<true, true> : halves_step_kernel<true, false>)
+                            : (out_transposed ? halves_step_kernel<false, true> : halves_step_kernel<false, false>);
   kern<<<blocks_for(ncols), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (const int32_t*)pre, (const int32_t*)rinv, (int32_t*)out, ncols, k);
+      (const int32_t*)in, (const int32_t*)pre, (const int32_t*)ex, (const int32_t*)rinv, (int32_t*)out,
+      (int32_t*)pre2, (int32_t*)ex2, (int32_t*)roots2, ncols, k, flip != 0);
   return (int)cudaGetLastError();
 }
 
@@ -719,7 +884,8 @@ extern "C" int hk_interleave_slab_t(const void* planes, void* out, int W, int L,
   return (int)cudaGetLastError();
 }
 
-// n lanes of (16,) limb rows per coordinate; outputs must not alias inputs
+// n lanes of (16,) limb rows per coordinate, 16-byte aligned; outputs must
+// not alias inputs
 extern "C" int hk_aff_prep(const void* x1, const void* y1, const void* px, const void* py,
                            void* den, void* num, long long n, void* stream) {
   aff_prep_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(

@@ -38,10 +38,9 @@
 //   reductions a thread, an add 28 and 11: ~9.4K and ~10.2K multiplies a
 //   lane, ~1.2 times what Karatsuba needs (schoolbook's 4 wide products an
 //   Fq2 product, traded for threads that never wait on each other).
-// - The 32x32-bit products accumulate on PTX carry chains (mac_row: a row
-//   of 8 products as two chains of mad.lo.cc / madc.hi.cc), which ptxas
-//   turns into IMAD.WIDE.U32.X; 64-bit C carries (s = a b + t + c) cost an
-//   IMAD.WIDE, an IADD3 and an IMAD.X or IADD3.X a product.
+// - The 32x32-bit products accumulate on the PTX carry chains of
+//   field.cuh (mac_wide: rows of 8 products, each as two chains of
+//   mad.lo.cc / madc.hi.cc; redc_wide), which every kernel's fe_mul shares.
 // - The operands live in shared memory, not in registers: a block stages
 //   its 64 lanes' input rows there with coalesced 16-byte loads (two 16-bit
 //   limbs packed into each 32-bit word), and the temporaries of the closing
@@ -50,13 +49,15 @@
 //   multiplies it (volatile loads), so no thread leaves early and nothing
 //   is exchanged through registers. 8 coordinates of 64 lanes are 32 KB a
 //   block.
-// - Kept: 128 threads a block under __launch_bounds__(128, 3), 154
-//   (pmadd) and 162 (padd) registers, no spills (ptxas, sm_90a, CUDA 12.9):
+// - Kept: 128 threads a block under __launch_bounds__(128, 3), 112
+//   (pmadd) and 110 (padd) registers, no spills (ptxas, sm_90a, CUDA 12.9):
 //   3 blocks, 12 warps, an SM. On an H100 (700 W), in turns with the
-//   one-thread bodies in one call (benches/torch_g2_ab.py): at 2^18 lanes
-//   0.27 ms against 1.73 (mixed add) and 0.37 against 1.75 (add); at the
-//   G2 MSM's 734,740 level-1 lanes 0.73 against 4.83 and 1.03 against 4.79:
-//   ~45% and ~35% of the multiply bound above at either width.
+//   one-thread bodies in one call: at 2^18 lanes 0.27 ms against 1.73
+//   (mixed add) and 0.37 against 1.75 (add); at the G2 MSM's 734,740
+//   level-1 lanes 0.73 against 4.83 and 1.03 against 4.79: ~45% and ~35% of
+//   the multiply bound above at either width. On field.cuh's shared chains
+//   (fe_sqr, one reduction) 0.244 and 0.270 ms at 2^18 lanes
+//   (benches/torch_aff_ab.py).
 //   Tried and left, all on C carries: this design (142 registers;
 //   0.48-0.53 and 0.64-0.68 ms at 2^18), held to 128 registers (4 blocks)
 //   or in blocks of 64 or 32 threads (5-16% slower, padd spills), and the
@@ -69,7 +70,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <initializer_list>
 
 #include "field.cuh"
 
@@ -137,75 +137,6 @@ __device__ __forceinline__ void store_proj2(int32_t* x, int32_t* y, int32_t* z, 
 
 __device__ __forceinline__ Fe fe_neg(const Fe& a) { return fe_sub<FQ>(fe_zero(), a); }
 
-// T[I..I+8] += s v, plus e_in (the carries owed to word I+8), in two PTX
-// carry chains: the products of v's even words (low halves at I, I+2, ..,
-// high halves at I+1, I+3, ..), then of its odd words one word up. e_out
-// gets the carries owed to word I+9 (at most 2). Each chain is one asm
-// statement, so the carry flag never crosses code the compiler places.
-template <int I>
-__device__ __forceinline__ void mac_row(uint32_t T[16], const Fe& v, uint32_t s, uint32_t e_in,
-                                        uint32_t& e_out) {
-  asm("{\n\t"
-      ".reg .u32 e1;\n\t"
-      "mad.lo.cc.u32  %0, %10, %18, %0;\n\t"
-      "madc.hi.cc.u32 %1, %10, %18, %1;\n\t"
-      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-      "addc.cc.u32    %8, %8, %19;\n\t"
-      "addc.u32       e1, 0, 0;\n\t"
-      "mad.lo.cc.u32  %1, %11, %18, %1;\n\t"
-      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-      "addc.u32       %9, e1, 0;\n\t"
-      "}"
-      : "+r"(T[I]), "+r"(T[I + 1]), "+r"(T[I + 2]), "+r"(T[I + 3]), "+r"(T[I + 4]), "+r"(T[I + 5]),
-        "+r"(T[I + 6]), "+r"(T[I + 7]), "+r"(T[I + 8]), "=r"(e_out)
-      : "r"(v.w[0]), "r"(v.w[1]), "r"(v.w[2]), "r"(v.w[3]), "r"(v.w[4]), "r"(v.w[5]), "r"(v.w[6]),
-        "r"(v.w[7]), "r"(s), "r"(e_in));
-}
-
-// T += a b over 16 words (the sum must stay below 2^512): row I adds a_I b
-// at word I
-template <int I = 0>
-__device__ __forceinline__ void mac_wide(uint32_t T[16], const Fe& a, const Fe& b, uint32_t e = 0) {
-  if constexpr (I < 8) {
-    uint32_t e_next;
-    mac_row<I>(T, b, a.w[I], e, e_next);
-    mac_wide<I + 1>(T, a, b, e_next);
-  }
-}
-
-template <int I>
-__device__ __forceinline__ uint32_t redc_rows(uint32_t T[16], const Fe& p, uint32_t e) {
-  if constexpr (I < 8) {
-    uint32_t e_next;
-    mac_row<I>(T, p, T[I] * Field<FQ>::ninv(), e, e_next);
-    return redc_rows<I + 1>(T, p, e_next);
-  } else {
-    return e;
-  }
-}
-
-// T R^-1 mod p for T < p R (here T < 4 p^2): row I adds m p at word I, m =
-// T_I (-p^-1) mod 2^32, which clears word I; the result, words 8-15 and the
-// carry above them, is below 2p, and one conditional subtraction ends it
-__device__ __forceinline__ Fe redc_wide(uint32_t T[16]) {
-  Fe p;
-#pragma unroll
-  for (int i = 0; i < 8; i++) p.w[i] = Field<FQ>::p(i);
-  uint32_t top = redc_rows<0>(T, p, 0u);
-  return reduce_once<FQ>(T + 8, top);
-}
-
 using Slots = uint32_t (*)[COORD_WORDS];
 
 // thread t's half (lane t / 2, component t % 2) of a slot. The load is
@@ -251,7 +182,7 @@ __device__ __forceinline__ void mac_f2(uint32_t T[16], Slots sm, int t, Op x, Op
 __device__ __forceinline__ Fe f2_mul_half(Slots sm, int t, Op x, Op y) {
   uint32_t T[16] = {0};
   mac_f2(T, sm, t, x, y);
-  return redc_wide(T);
+  return redc_wide<FQ>(T);
 }
 
 // the k-th component of x b3 = x 9/(9+u), b3's halves from constant memory
@@ -266,7 +197,7 @@ __device__ __forceinline__ Fe mul_b3_half(Slots sm, int t, Op x) {
   uint32_t T[16] = {0};
   mac_wide(T, ld(sm, x, t & ~1), b);
   mac_wide(T, ld(sm, x, t | 1), k == 0 ? fe_neg(bo) : bo);
-  return redc_wide(T);
+  return redc_wide<FQ>(T);
 }
 
 struct Half3 {
@@ -283,15 +214,15 @@ __device__ __forceinline__ Half3 rcb_close(Slots sm, int t) {
   uint32_t T[16] = {0};
   mac_f2(T, sm, t, t3, t1);
   mac_f2(T, sm, t, t4, y3, true);
-  r.x = redc_wide(T);  // t3 t1 - t4 y3
+  r.x = redc_wide<FQ>(T);  // t3 t1 - t4 y3
   uint32_t U[16] = {0};
   mac_f2(U, sm, t, t1, z3);
   mac_f2(U, sm, t, y3, t0);
-  r.y = redc_wide(U);  // t1 z3 + y3 t0
+  r.y = redc_wide<FQ>(U);  // t1 z3 + y3 t0
   uint32_t V[16] = {0};
   mac_f2(V, sm, t, z3, t4);
   mac_f2(V, sm, t, t0, t3);
-  r.z = redc_wide(V);  // z3 t4 + t0 t3
+  r.z = redc_wide<FQ>(V);  // z3 t4 + t0 t3
   return r;
 }
 
@@ -459,22 +390,13 @@ __global__ void __launch_bounds__(THREADS)
 
 unsigned blocks_for(long long n, int lanes) { return (unsigned)((n + lanes - 1) / lanes); }
 
-// the split kernels read and write 16-byte chunks of every row
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if ((uintptr_t)p & 15u) return false;
-  return true;
-}
-
 }  // namespace
 
 // n lanes of (2, 16) limb rows per coordinate; outputs must not alias
-// inputs; pmadd and padd need 16-byte aligned rows (else
-// cudaErrorMisalignedAddress, nothing launched)
+// inputs; pmadd and padd need 16-byte aligned rows
 extern "C" int hk_pmadd_rcb_g2(const void* x, const void* y, const void* z, const void* ax,
                                const void* ay, void* ox, void* oy, void* oz, long long n,
                                void* stream) {
-  if (!aligned16({x, y, z, ax, ay, ox, oy, oz})) return (int)cudaErrorMisalignedAddress;
   pmadd_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)ax,
       (const int32_t*)ay, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
@@ -484,7 +406,6 @@ extern "C" int hk_pmadd_rcb_g2(const void* x, const void* y, const void* z, cons
 extern "C" int hk_padd_rcb_g2(const void* x1, const void* y1, const void* z1, const void* x2,
                               const void* y2, const void* z2, void* ox, void* oy, void* oz,
                               long long n, void* stream) {
-  if (!aligned16({x1, y1, z1, x2, y2, z2, ox, oy, oz})) return (int)cudaErrorMisalignedAddress;
   padd_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);

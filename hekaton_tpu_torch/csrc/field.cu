@@ -13,10 +13,12 @@
 // multiplies, 288 B at 12 words for ~588, so at full occupancy it is bound
 // by bytes, not by the integer pipes. The design keeps the framework's limb
 // layout at the boundary so that callers need no relayout; a packed layout
-// would halve the bytes and is left to a later change. Measured on one H100
-// 80GB HBM3 (700 W): 0.215 ms at 2^20 BN254 lanes, ~0.94 TB/s, a quarter of
-// the card's bytes bound, so the strided row per thread still costs more
-// than the bytes themselves.
+// would halve the bytes and is left to a later change. A row is NW/2
+// 16-byte loads (the wrapper passes 16-byte aligned rows, copying a view
+// that is not): with 2 NW 4-byte loads a row, 64 bytes apart across a warp,
+// the kernel took 0.215 ms at 2^20 BN254 lanes, with 16-byte loads 0.080
+// (~2.4 TB/s, 75% of the bytes bound; one H100 80GB HBM3, 700 W,
+// benches/torch_aff_ab.py).
 //
 // fermat_inv keeps the Pallas kernel's name and function (a^-1 in Montgomery
 // form, canonical, inv(0) = 0), but no longer runs a Fermat chain: a^(p-2)
@@ -42,9 +44,10 @@
 // A batch of 30 divsteps with its 10 L 32x32->64 multiply-adds compiles to
 // 864 SASS instructions at 8 words and 975 at 12 (sm_90a), ~21,900 and
 // ~36,500 a lane; one thread a lane in blocks of INV_THREADS = 64.
-// batch_inv now gives it every lane (10,243 roots for a suffix add of the
-// 2^20 MSM, 734,740 for a level-1 round). Measured on one H100 80GB HBM3
-// (700 W; benches/torch_inv_ab.py): 0.029 ms at 1024 BN254 lanes, where the
+// batch_inv gives it every lane: the affine pairs' roots, one a warp of
+// chains (641 for the most launched add of the 2^20 MSM, 22,961 for a
+// level-1 round; csrc/curve.cu). Measured on one H100 80GB HBM3
+// (700 W; benches/torch_aff_ab.py): 0.029 ms at 1024 BN254 lanes, where the
 // ~5,300-operation dependent chain sets the time (~57 cycles a divstep),
 // 0.247 ms at 2^18 lanes and 0.050 ms at 1024 BLS12-381 lanes (the Fermat
 // chain: 0.37, 2.7 and 1.3 ms). At 2^18 lanes the function's bound
@@ -222,15 +225,16 @@ __device__ __forceinline__ FeN<NW> from_s30(const int32_t* r) {
   return x;
 }
 
+// rows by 16-byte loads and stores (every pointer 16-byte aligned)
 template <int F>
 __global__ void mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                                 int32_t* __restrict__ out, long long n, long long nb) {
   constexpr int NW = Field<F>::NW;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  FeF<F> x = load_limbs<NW>(a + i * 2 * NW);
-  FeF<F> y = load_limbs<NW>(b + (i % nb) * 2 * NW);
-  store_limbs(out + i * 2 * NW, fe_mul<F>(x, y));
+  FeF<F> x = load_limbs16<NW>(a + i * 2 * NW);
+  FeF<F> y = load_limbs16<NW>(b + (i % nb) * 2 * NW);
+  store_limbs16(out + i * 2 * NW, fe_mul<F>(x, y));
 }
 
 // a^-1 R^2 for the Montgomery form x = a R of each lane, by divsteps (see
@@ -265,8 +269,8 @@ unsigned blocks_for(long long n, int threads = THREADS) { return (unsigned)((n +
 
 }  // namespace
 
-// out[i] = a[i] * b[i % nb] * R^-1 mod p over n lanes of 2 NW limbs; an
-// unknown field id launches nothing and returns cudaErrorInvalidValue
+// out[i] = a[i] * b[i % nb] * R^-1 mod p over n lanes of 2 NW limbs, 16-byte
+// aligned rows; an unknown field id launches nothing and returns cudaErrorInvalidValue
 extern "C" int hk_mont_mul(int field, const void* a, const void* b, void* out, long long n,
                            long long nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

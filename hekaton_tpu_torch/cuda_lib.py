@@ -9,10 +9,11 @@ interface, loaded with ctypes: one nvcc per source, all started together,
 then one link, `nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
 build/hekaton_tpu_torch/libhk_<hash>.so <build>/*.o`.
 
-`build(swap=path)` builds the same way with the source of path's file name
-swapped for path (a timing script's second library, with an older version
-of one source); `load` opens such a library and `using` makes it the one
-the wrappers launch from for a block of code.
+`build(swap=paths)` builds the same way with each source swapped for the
+path of its file name (a timing script's second library, with older
+versions of some sources; a swapped source includes the field.cuh beside
+it); `load` opens such a library and `using` makes it the one the
+wrappers launch from for a block of code.
 
 The library is keyed by a sha256 of the sources (as hekaton_tpu/native keys
 its host library), so an edited source builds a new library at its first
@@ -45,14 +46,14 @@ _int = ctypes.c_int
 SIGNATURES = {
     "hk_mont_mul": [_int, _vp, _vp, _vp, _ll, _ll, _vp],
     "hk_fermat_inv": [_int, _vp, _vp, _ll, _vp],
-    "hk_aff_root": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _int, _vp],
-    "hk_aff_fin": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _int, _vp],
-    "hk_aff_root_packed": [_vp] * 5 + [_ll, _ll, _int, _vp],
-    "hk_aff_fin_packed": [_vp] * 7 + [_ll, _ll, _int, _vp],
+    "hk_aff_root": [_vp] * 7 + [_ll, _ll, _int, _vp],
+    "hk_aff_fin": [_vp] * 9 + [_ll, _ll, _int, _vp],
+    "hk_aff_root_packed": [_vp] * 6 + [_ll, _ll, _int, _vp],
+    "hk_aff_fin_packed": [_vp] * 8 + [_ll, _ll, _int, _vp],
     "hk_aff_prep": [_vp] * 6 + [_ll, _vp],
     "hk_aff_finish": [_vp] * 8 + [_ll, _vp],
-    "hk_halves_root": [_vp, _vp, _vp, _ll, _int, _int, _vp],
-    "hk_halves_fin": [_vp, _vp, _vp, _vp, _ll, _int, _int, _vp],
+    "hk_halves_root": [_vp] * 4 + [_ll, _int, _int, _vp],
+    "hk_halves_step": [_vp] * 8 + [_ll, _int, _int, _int, _int, _vp],
     "hk_interleave_slab_t": [_vp, _vp, _int, _int, _int, _vp],
     "hk_horner": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     "hk_madd": [_vp] * 8 + [_ll, _vp],
@@ -76,7 +77,9 @@ def sources() -> list:
 
 def _src_hash(cu: list) -> str:
     h = hashlib.sha256()
-    for path in cu + [p for p in sources() if p.endswith(".cuh")]:
+    headers = {os.path.join(os.path.dirname(p), os.path.basename(hd)) for p in cu
+               for hd in sources() if hd.endswith(".cuh")}
+    for path in cu + sorted(hd for hd in headers if os.path.exists(hd)):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -91,14 +94,14 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(swap: str | None = None) -> tuple:
-    """Compile the kernels (csrc/*.cu, or with the one named like the file
-    `swap` replaced by it) if no library for these sources exists yet.
-    Returns (library path, compiler output of the build that made it, kept
-    beside the library)."""
+def build(swap: list = ()) -> tuple:
+    """Compile the kernels (csrc/*.cu, each one named like a path of `swap`
+    replaced by it) if no library for these sources exists yet. Returns
+    (library path, compiler output of the build that made it, kept beside
+    the library)."""
     cu = [p for p in sources() if p.endswith(".cu")]
-    if swap is not None:
-        cu = [os.path.abspath(swap) if os.path.basename(p) == os.path.basename(swap) else p for p in cu]
+    swaps = {os.path.basename(q): os.path.abspath(q) for q in swap}
+    cu = [swaps.get(os.path.basename(p), p) for p in cu]
     path = os.path.join(_BUILD_DIR, f"libhk_{_src_hash(cu)}.so")
     if os.path.exists(path) and os.path.exists(path + ".ptxas.txt"):
         with open(path + ".ptxas.txt") as f:
@@ -165,6 +168,13 @@ def check(name: str, rc: int) -> None:
     """Raise if a kernel launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def aligned(t):
+    """The tensor t, or a copy of it where its data does not start on a
+    16-byte boundary (a view into its storage): the kernels load and store
+    rows 16 bytes at a time, and a fresh allocation is aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(device) -> int:

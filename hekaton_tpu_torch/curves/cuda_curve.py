@@ -46,21 +46,25 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
   the JAX shape: (..., 2, 16) int32 Fq2 limbs per coordinate.
 
 Bounds on an H100 and the design that meets them are in the source note of
-csrc/curve.cu: the adds are bound by integer multiply throughput and run as a
-root kernel / batch_inv / finish kernel split with one thread per prefix
-chain; the Horner fold is one thread, bound by the latency of its chain.
+csrc/curve.cu: the adds are bound by integer multiply throughput and run as
+a root kernel / batch_inv / finish kernel split, a prefix chain a thread and
+the chains of a warp folded into one batch_inv root; a halves level 1 is a
+root kernel and one step kernel a round, each step finishing a round and
+building the next one's chains; every product is field.cuh's carry-chain
+one; the Horner fold is one thread, bound by the latency of its chain.
 `madd`, `dbl`, `add`, the G1 RCB ops and `pdbl_rcb_g2` are one thread per
 lane, straight-line formulas, bound by integer multiply throughput once the
 card is full; `pmadd_rcb_g2` and `padd_rcb_g2` run two threads a lane, one
-Fq2 component each, with their operands in shared memory (their rows must
-start on 16-byte boundaries, as torch's allocations do); `l1_rcb_mega` is
+Fq2 component each, with their operands in shared memory; `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
 (csrc/curve.cu, csrc/curve_g2.cu).
 `interleave_slab_t`, `aff_prep` and `aff_fin` are bound by bytes.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (`*_plain`) and
-CUDA tensors to its kernels; nothing falls back. `launches` on each wrapper
-counts its kernel launches (one per add, per halves round, per fold, per
+CUDA tensors to its kernels; nothing falls back. The kernels that move rows
+16 bytes at a time get rows on 16-byte boundaries: a wrapper copies a view
+that does not start on one (`cuda_lib.aligned`). `launches` on each wrapper
+counts its kernel launches (one per add, per halves level 1, per fold, per
 level-1 slab, per interleave, per batch of point ops).
 """
 from __future__ import annotations
@@ -78,7 +82,7 @@ from .host import B_G2
 from .proj import Proj, ProjOps
 from .torch_curve import CurveOps, Jac
 
-K_ADD = 8  # lanes per thread (one prefix chain) in the aff_add kernel pair
+K_ADD = 4  # lanes per thread (one prefix chain) in the aff_add kernel pair, chosen on the card (PERF.md)
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +316,7 @@ def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple, n_out: int
     (..., *coord_shape) batch of one shape on one device; count the launch
     on the wrapper `fn` and return its `n_out` outputs of that shape."""
     _check_batch(fn, args, coord_shape)
+    args = tuple(cuda_lib.aligned(t) for t in args)
     first = args[0]
     n = first.numel() // math.prod(coord_shape)
     outs = tuple(torch.empty_like(first) for _ in range(n_out))
@@ -325,28 +330,40 @@ def _launch_point_op(fn, entry: str, args: tuple, coord_shape: tuple, n_out: int
     return outs
 
 
+def _fold_scratch(nchains: int, k: int, dev) -> tuple:
+    """The scratch of k-link chains folded a warp at a time: the planar
+    prefixes ((k-1)*8, nchains), each chain's product of the other chains
+    of its warp (8, nchains), and one root a warp as limb rows (the
+    batch_inv operand)."""
+    return (torch.empty(((k - 1) * 8, nchains), dtype=torch.int32, device=dev),
+            torch.empty((8, nchains), dtype=torch.int32, device=dev),
+            torch.empty(((nchains + 31) // 32, 16), dtype=torch.int32, device=dev))
+
+
 def _launch_aff_add(fn, entries: tuple, x1, y1, q_args: tuple):
     """The root kernel / batch_inv / finish kernel of one complete batched
     affine add of (x1, y1) and the second operand `q_args` (the limb rows
-    px, py, or packed rows): K_ADD lanes a thread, lanes strided by the
-    thread count. Counts one launch on the wrapper `fn`."""
+    px, py, or packed rows): a chain of K_ADD lanes a thread, lanes strided
+    by the thread count, the chains folded a warp at a time, so batch_inv
+    inverts one root a warp. Counts one launch on the wrapper `fn`."""
     n = x1.numel() // 16
+    x1, y1, *q_args = (cuda_lib.aligned(t) for t in (x1, y1, *q_args))
     ox = torch.empty_like(x1)
     oy = torch.empty_like(y1)
     if n == 0:
         return ox, oy
-    nthreads = (n + K_ADD - 1) // K_ADD
+    k = K_ADD
+    nthreads = (n + k - 1) // k
     dev = x1.device
-    pre = torch.empty((K_ADD * nthreads, 8), dtype=torch.int32, device=dev)
-    roots = torch.empty((nthreads, 16), dtype=torch.int32, device=dev)
+    pre, ex, roots = _fold_scratch(nthreads, k, dev)
     lib = cuda_lib.lib()
     ins = (x1.data_ptr(), y1.data_ptr(), *(t.data_ptr() for t in q_args))
-    rc = getattr(lib, entries[0])(*ins, pre.data_ptr(), roots.data_ptr(), n, nthreads, K_ADD,
+    rc = getattr(lib, entries[0])(*ins, pre.data_ptr(), ex.data_ptr(), roots.data_ptr(), n, nthreads, k,
                                   cuda_lib.stream_ptr(dev))
     cuda_lib.check(entries[0], rc)
     rinv = tf.batch_inv(FQ, roots)
-    rc = getattr(lib, entries[1])(*ins, pre.data_ptr(), rinv.data_ptr(), ox.data_ptr(), oy.data_ptr(), n,
-                                  nthreads, K_ADD, cuda_lib.stream_ptr(dev))
+    rc = getattr(lib, entries[1])(*ins, pre.data_ptr(), ex.data_ptr(), rinv.data_ptr(), ox.data_ptr(),
+                                  oy.data_ptr(), n, nthreads, k, cuda_lib.stream_ptr(dev))
     cuda_lib.check(entries[1], rc)
     fn.launches += 1
     return ox, oy
@@ -405,28 +422,39 @@ def _check_slab(fn, v, shape: tuple) -> None:
 
 
 def _halves_rounds(fn, v, L: int, ncols: int, transposed: bool):
-    """log2(L) halves rounds on the (ncols, L*16) slab, or (transposed) the
-    (L*16, ncols) one: a root kernel, batch_inv of the per-column roots and
-    a finish kernel each, counted on `fn`."""
+    """The log2(L) halves rounds on the (ncols, L*16) slab, or (transposed)
+    the (L*16, ncols) one: a root kernel (round 1's chains), then for each
+    round batch_inv of its warp roots and a step kernel, which finishes the
+    round and builds the next one's chains; the rounds between keep their
+    sums in transposed slabs. One launch on `fn` a call."""
+    if L == 1 or ncols == 0:
+        return v
+    v = cuda_lib.aligned(v)
     dev = v.device
     lib = cuda_lib.lib()
-    l = L
-    while l > 1 and ncols:
-        k = l // 2
-        pre = torch.empty((k * ncols, 8), dtype=torch.int32, device=dev)
-        roots = torch.empty((ncols, 16), dtype=torch.int32, device=dev)
-        rc = lib.hk_halves_root(v.data_ptr(), pre.data_ptr(), roots.data_ptr(), ncols, k, int(transposed),
-                                cuda_lib.stream_ptr(dev))
-        cuda_lib.check("hk_halves_root", rc)
+    k = L // 2
+    pre, ex, roots = _fold_scratch(ncols, k, dev)
+    rc = lib.hk_halves_root(v.data_ptr(), pre.data_ptr(), ex.data_ptr(), roots.data_ptr(), ncols, k,
+                            int(transposed), cuda_lib.stream_ptr(dev))
+    cuda_lib.check("hk_halves_root", rc)
+    src, src_tr, flip = v, transposed, False
+    while True:
         rinv = tf.batch_inv(FQ, roots)
-        out = torch.empty((k * 16, ncols) if transposed else (ncols, k * 16), dtype=torch.int32, device=dev)
-        rc = lib.hk_halves_fin(v.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(), ncols, k,
-                               int(transposed), cuda_lib.stream_ptr(dev))
-        cuda_lib.check("hk_halves_fin", rc)
-        fn.launches += 1
-        v = out
-        l = k
-    return v
+        if k == 1:
+            out = torch.empty((16, ncols) if transposed else (ncols, 16), dtype=torch.int32, device=dev)
+            nxt = (out,) * 3  # not written: no next round
+        else:
+            out = torch.empty((k * 16, ncols), dtype=torch.int32, device=dev)
+            nxt = _fold_scratch(ncols, k // 2, dev)
+        rc = lib.hk_halves_step(src.data_ptr(), pre.data_ptr(), ex.data_ptr(), rinv.data_ptr(), out.data_ptr(),
+                                *(t.data_ptr() for t in nxt), ncols, k, int(src_tr),
+                                int(transposed or k > 1), int(flip), cuda_lib.stream_ptr(dev))
+        cuda_lib.check("hk_halves_step", rc)
+        if k == 1:
+            fn.launches += 1
+            return out
+        src, src_tr, flip, k = out, True, not flip, k // 2
+        pre, ex, roots = nxt
 
 
 def l1_aff_halves(rows, L: int):

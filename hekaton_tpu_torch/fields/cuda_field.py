@@ -85,6 +85,7 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_limbs("mont_mul b", b, a.device, nl)
     if tuple(a.shape[a.dim() - b.dim():]) != tuple(b.shape):
         raise ValueError(f"mont_mul: b {tuple(b.shape)} does not broadcast onto a {tuple(a.shape)}")
+    a, b = cuda_lib.aligned(a), cuda_lib.aligned(b)
     out = torch.empty_like(a)
     n = a.numel() // nl
     if n:

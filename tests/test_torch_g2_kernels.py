@@ -50,7 +50,7 @@ def _words(x: int) -> list:
 def mac_row(T: list, i: int, v: list, s: int, e_in: int) -> int:
     """T[i..i+8] += s v (v as 8 words) plus e_in at word i+8, in the
     kernel's two carry chains: v's even words, then its odd words one word
-    up (curve_g2.cu::mac_row). Returns the carries owed to word i+9."""
+    up (field.cuh::mac_row<8>). Returns the carries owed to word i+9."""
     e_out = 0
     for h in (0, 1):
         cf = 0
@@ -66,7 +66,7 @@ def mac_row(T: list, i: int, v: list, s: int, e_in: int) -> int:
 
 
 def mac_wide(T: list, a: int, b: int) -> None:
-    """T (16 words) += a b, row i adding a_i b at word i (curve_g2.cu::mac_wide)."""
+    """T (16 words) += a b, row i adding a_i b at word i (field.cuh::mac_wide)."""
     aw, bw, e = _words(a), _words(b), 0
     for i in range(8):
         e = mac_row(T, i, bw, aw[i], e)
@@ -75,7 +75,7 @@ def mac_wide(T: list, a: int, b: int) -> None:
 
 def redc_wide(T: list) -> int:
     """T R^-1 mod p: row i adds m p at word i, m = T_i (-p^-1) mod 2^32
-    (curve_g2.cu::redc_wide)."""
+    (field.cuh::redc_wide)."""
     e = 0
     for i in range(8):
         e = mac_row(T, i, P_WORDS, T[i] * NINV & MASK, e)

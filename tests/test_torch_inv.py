@@ -13,7 +13,7 @@ bits of each update zero, every limb in range and every sum inside int64,
 g = 0 and |f| = 1 at the end, d in (-2p, p)), that the fixed count is at
 least Bernstein and Yang's bound for the bit length, and that field.cu
 holds the constants the model computes. The kernel itself runs on the card
-(chip_smoke.py, benches/torch_inv_ab.py).
+(chip_smoke.py, benches/torch_aff_ab.py).
 """
 import re
 from pathlib import Path

@@ -24,8 +24,8 @@ this tree's wrappers.
 
 Each --variant is a csrc source of this tree changed (a curve.cu with
 other launch bounds, say): a library is built with it swapped in, and the
-two affine pairs are timed from it too ("variant <i>", after "new" in the
-turns).
+two affine pairs and horner_fold are timed from it too ("variant <i>",
+after "new" in the turns).
 
 --kernels picks the sections, run in this order (all by default). Each
 times its kernels from both libraries in turns (old, new, new, old;
@@ -42,18 +42,23 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   and at 2^16 equal to the plain version; one call is one level 1;
 - others: every other kernel row of chip_smoke.py at its phase-2 shape
   (mont_mul at 2^20 lanes, 16 and 24 limbs; the point ops and the G2 trio
-  at 2^18 lanes with chip_smoke's edge lanes; horner_fold at W=20, c=13;
-  l1_rcb_mega on the 2^16 slab; aff_prep, aff_fin), both libraries equal
-  to the plain version;
+  at 2^18 lanes with chip_smoke's edge lanes; horner_fold at the (W, c)
+  of the 2^20, 2^16, 2^15 and 2^12 MSMs and at W=20, c=0; l1_rcb_mega on the
+  2^16 slab; aff_prep, aff_fin), both libraries equal to the plain version
+  limb for limb; then the Horner chain's latency a point op, from the c=13
+  and c=0 times, and one product's latency in the old one-thread body
+  (from its products and additions a double and an add), times the new
+  chain's dependent product levels: a diagnostic, not a bound;
 - inv: fermat_inv at the widths the main paths invert at (BN254 Fq at 1024
   lanes, 2^18 and N_WIDE, Fr at 1024, BLS12-381 Fq at 1024 and N_WIDE) on
   chip_smoke.inv_lanes, every library equal to mont_inv; beside this
   tree's time, the time its divstep SASS takes at an SM's instruction rate
   (INSTR_PER_SM_CLOCK), a diagnostic of the algorithm, not a bound of the
   function, and the length of its dependent chain (chip_smoke.inv_chain);
-- g2: pmadd_rcb_g2 and padd_rcb_g2 at the G2 MSM's own level-1 width
-  (chip_smoke.g2_level1_inputs on the 2^20-point msm_g2 set), the
-  libraries equal;
+- g2: pmadd_rcb_g2, padd_rcb_g2 and pdbl_rcb_g2 at the G2 MSM's own
+  level-1 width (chip_smoke.g2_level1_inputs on the 2^20-point msm_g2 set),
+  and pdbl_rcb_g2 at one lane (the G2 Horner's width, also against the
+  plain version), the libraries equal;
 - k_add: the widths of every affine-pair launch of one 2^20-point v9
   msm_gpu and one route (h) (steps, affine) are recorded, and each
   lanes-a-thread count of --k-add is timed at each width, the counts in
@@ -349,31 +354,46 @@ def main() -> int:
                 fn, plain = getattr(cc, op + sfx), getattr(cc, op + sfx + "_plain")
                 others.append((op + sfx, f"{n} lanes", lambda fn=fn, kargs=kargs: fn(*kargs),
                                lambda plain=plain, kargs=kargs: plain(*kargs), (nio * coord_bytes * n, prods * n)))
-        W = 20
-        hp = proj.PROJ_G1.dbl(proj.PROJ_G1.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
-        hp = proj.Proj(*(t.contiguous() for t in hp))
-        others.append(("horner_fold", f"W={W}, c=13", lambda: tuple(cc.horner_fold(hp.x, hp.y, hp.z, 13)),
-                       lambda: tuple(cc.horner_fold_plain(hp.x, hp.y, hp.z, 13)),
-                       (3 * 64 * (W + 1), (W - 1) * (13 * cs.g1_work("pdbl_rcb", 1) + cs.g1_work("padd_rcb", 1)))))
+        # horner_fold at the (W, c) of the 2^20, 2^16, 2^15 and 2^12 MSMs (chip_smoke.horner_shapes), and at c=0
+        # (adds only) for the latency fit below
+        for W, hc in (*cs.horner_shapes(), (20, 0)):
+            hp = cs.horner_windows(proj, ax, ay, W)
+            others.append(("horner_fold", f"W={W}, c={hc}",
+                           lambda hp=hp, hc=hc: tuple(cc.horner_fold(hp.x, hp.y, hp.z, hc)),
+                           lambda hp=hp, hc=hc: tuple(cc.horner_fold_plain(hp.x, hp.y, hp.z, hc)),
+                           cs.horner_work(W, hc)))
         slab, _, meta = pip._plan_sorted_w(ax[:cs.N_PLAN].contiguous(), ay[:cs.N_PLAN].contiguous(),
                                            cs.rand_limbs(cs.N_PLAN, gen), 11, 32)
         ncols = meta[4]
         others.append(("l1_rcb_mega", f"{ncols} columns x L=32", lambda: tuple(cc.l1_rcb_mega(slab, 32)),
                        lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)),
                        (ncols * (32 * 64 + 192), cs.g1_work("pmadd_rcb", cs.slab_adds(slab, 32)))))
+        horner_ms = {}
         for name, shape, fn, plain, work in others:
             ref = plain()
-            for label, lib in (("old", old), ("new", new)):
+            libs = {"old": old, "new": new, **(variants if name == "horner_fold" else {})}
+            for label, lib in libs.items():
                 with cuda_lib.using(lib):
-                    got = fn()
-                if name == "horner_fold":  # a projective point: compare in affine
-                    g = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in got))))
-                    r = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in ref))))
-                    err = 0 if g == r else 1
-                else:
-                    err = cs.max_abs_err(got, ref)
-                cs.require(err == 0, f"{name} from the {label} library differs from its plain version")
-            in_turns(name, shape, {"old": using(old, fn), "new": using(new, fn)}, work)
+                    err = cs.max_abs_err(fn(), ref)
+                cs.require(err == 0, f"{name} {shape} from the {label} library differs from its plain version")
+            ms = in_turns(name, shape, {label: using(lib, fn) for label, lib in libs.items()}, work)
+            if name == "horner_fold":
+                horner_ms[shape] = {k: min(v) for k, v in ms.items()}
+        # the Horner chain's latency: (W-1) adds at c=0, 13 (W-1) doublings more at c=13; the old
+        # one-thread body runs 8 products and 13 field additions a double, 12 and 27 an add, in
+        # program order (the carry chains are volatile), which gives one product's latency there
+        full, adds = horner_ms["W=20, c=13"], horner_ms["W=20, c=0"]
+        per = {k: (adds[k] / 19, (full[k] - adds[k]) / (19 * 13)) for k in full}
+        a_old, d_old = per["old"]
+        prod_us = (27 * d_old - 13 * a_old) / (27 * 8 - 13 * 12) * 1e3
+        add_us = (d_old * 1e3 - 8 * prod_us) / 13
+        levels = 2 * 19 * 14
+        print("[horner] per point op (W=20): " + "; ".join(f"{k} double {d * 1e3:.3f} us, add {a * 1e3:.3f} us"
+                                                        for k, (a, d) in per.items())
+              + f"; the old body's product ~{prod_us:.3f} us, field "
+              f"addition ~{add_us:.3f} us; the new chain's {levels} dependent product levels x one product = "
+              f"{levels * prod_us / 1e3:.3f} ms (a latency diagnostic, not a bound) against {full['new']:.3f} ms; "
+              f"on {card}", flush=True)
 
     if "inv" in sections:
         fids = {"fq": 0, "fr": 1, "fq_bls381": 2}
@@ -409,6 +429,18 @@ def main() -> int:
             in_turns(op, f"{ncols} lanes (the msm_g2 level-1 width)",
                      {"old": using(old, lambda: fn(*kargs)), "new": lambda: fn(*kargs)},
                      (nio * 128 * ncols, cs.RCB_G2_PRODUCTS[op] * ncols))
+        # pdbl_rcb_g2 on the level-1 width's projective points, and on one lane (the G2 Horner's launches)
+        fn = cc.pdbl_rcb_g2
+        for m in (ncols, 1):
+            kargs = tuple(t[:m].contiguous() for t in pa_args[:3])
+            got = fn(*kargs)
+            if m == 1:
+                cs.require(cs.max_abs_err(got, cc.pdbl_rcb_g2_plain(*kargs)) == 0,
+                           "pdbl_rcb_g2 at 1 lane differs from its plain version")
+            with cuda_lib.using(old):
+                cs.require(cs.max_abs_err(fn(*kargs), got) == 0, f"pdbl_rcb_g2 at {m} lanes: the libraries differ")
+            in_turns("pdbl_rcb_g2", f"{m} lanes", {"old": using(old, lambda: fn(*kargs)), "new": lambda: fn(*kargs)},
+                     (6 * 128 * m, cs.RCB_G2_PRODUCTS["pdbl_rcb_g2"] * m))
         del sc
 
     if "k_add" in sections:  # K_ADD at the main path's widths

@@ -1,7 +1,7 @@
 """Where the time of msm_gpu's routes goes, on one CUDA card.
 
     python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381|g2]
-        [--routes v9,(d),(e)] [--old build/old/<source>.cu [--old-root-width 1024]]
+        [--routes v9,(d),(e)] [--old build/old/<source>.cu ... [--old-root-width 1024]]
 
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
@@ -28,14 +28,17 @@ infinity sentinel; random scalars below r) along its one route (sort plan,
 projective steps; the Horner is `_horner_generic`), and inside level 1 and
 the Horner also the spans of `_mixed_step`'s `unpack_words` and of the three
 G2 kernel wrappers, each summed over the call ("of which" columns after the
-total, left out of "other").
+total, left out of "other"). Then the G2 Horner of one call alone, from each
+library (g2_horner_clocks): its host clock over its launches against its
+kernels' device time a launch (torch.profiler), and the share of the host
+span the device was busy.
 
 --routes keeps the routes of those labels (comma-separated; "v9", "(a)"...
-"(h)", "default", "pair", ...). With --old (a csrc source, for example an
-older commit's curve_g2.cu or field.cu, placed in the git-ignored build/;
-a field.cu beside the field.cuh it includes, see benches/torch_aff_ab.py)
-it builds a second kernel library with that file in place of the csrc file
-of its name (cuda_lib.build(swap=...)) and runs every kept route from both
+"(h)", "default", "pair", ...). With --old (csrc sources, for example an
+older commit's curve.cu and curve_g2.cu, placed in the git-ignored build/;
+each .cu beside the field.cuh it includes, see benches/torch_aff_ab.py)
+it builds a second kernel library with those files in place of the csrc
+files of their names (cuda_lib.build(swap=...)) and runs every kept route from both
 libraries in the same round-robin, the old library's as a route of its own
 ("<label> [old]"). With --old-root-width N, tf.batch_inv runs a mont_mul
 tree down to N lanes and inverts those (tf._batch_inv) while the old
@@ -54,6 +57,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -67,13 +71,60 @@ STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", 
           "_horner_generic")
 
 
+def g2_horner_clocks(cs, pip, cc, cuda_lib, ax, ay, sc, c, L, curve, old_lib, card) -> None:
+    """The G2 Horner (`_horner_generic` on one lane) of one msm_gpu call,
+    from each library in turns (this tree, old, old, this tree): its host
+    clock (a synchronize before and after, best of 3) over its launches,
+    against its kernels' device time a launch, from torch.profiler's trace
+    of one more call (chip_smoke.kernel_device_times); and the share of the
+    host span the device was busy, where the trace holds every launch."""
+    horner, got = pip._horner_generic, {}
+
+    def grab(*a):
+        got["args"] = a
+        return horner(*a)
+
+    pip._horner_generic = grab
+    pip.msm_gpu(ax, ay, sc, c=c, L=L, curve=curve)
+    pip._horner_generic = horner
+    kernels = ("pdbl_rcb_g2", "padd_rcb_g2")
+    turns = [("this tree", cuda_lib.lib())]
+    if old_lib is not None:
+        turns = [turns[0], ("old", old_lib), ("old", old_lib), turns[0]]
+    for label, lib in turns:
+        with cuda_lib.using(lib):
+            horner(*got["args"])
+            host = []
+            for _ in range(3):
+                for k in kernels:
+                    getattr(cc, k).launches = 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                horner(*got["args"])
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            launches = {f"{k}_kernel": getattr(cc, k).launches for k in kernels}
+            dev = cs.kernel_device_times(lambda: horner(*got["args"]), launches)
+        host_ms, n = min(host), sum(launches.values())
+        parts = []
+        for k, (count, us) in dev.items():
+            parts.append(f"{k[:-len('_kernel')]} {launches[k]} x "
+                         + (f"{us:.2f} us" if us is not None else f"not measured (the trace holds {count})"))
+        complete = all(us is not None for _, us in dev.values())
+        busy = sum(launches[k] * us for k, (_, us) in dev.items()) / 1e3 if complete else None
+        print(f"[g2_horner] {label}: host {host_ms:.2f} ms (best of {len(host)}) for {n} launches, "
+              f"{host_ms * 1e3 / max(n, 1):.1f} us a launch; device " + ", ".join(parts) + "; device busy "
+              + (f"{busy:.3f} ms, {100 * busy / host_ms:.1f}% of the host span" if complete else "not measured")
+              + f"; on {card}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--curve", choices=("bn254", "bls12_381", "g2"), default="bn254")
     ap.add_argument("--routes", help="comma-separated labels of the routes to run (default: all)")
-    ap.add_argument("--old", help="a csrc source to build a second library with, every route run from both")
+    ap.add_argument("--old", nargs="+", help="csrc sources to build a second library with, every route run from both")
     ap.add_argument("--old-root-width", type=int, help="batch_inv's tree root width while the old library runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -127,14 +178,14 @@ def main() -> int:
         def old_batch_inv(spec, a):
             return tf._batch_inv(spec, a, cf.mont_mul, cf.fermat_inv, args.old_root_width)
     if args.old:
-        old_lib = cuda_lib.load(cuda_lib.build(swap=[args.old])[0])
+        old_lib = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
         twins = []
         for label, *rest in routes:
             twins += [(f"{label} [old]", *rest), (label, *rest)]
             libs[f"{label} [old]"] = old_lib
         routes = twins
         how = f"a mont_mul tree down to {args.old_root_width} lanes" if args.old_root_width else "this tree's"
-        print(f"[old] {args.old}: its routes run with batch_inv as {how}")
+        print(f"[old] {' '.join(args.old)}: its routes run with batch_inv as {how}")
 
     spans = []  # (stage, start event, end event) of the current call
 
@@ -198,6 +249,8 @@ def main() -> int:
         setattr(pip, name, fn)
     for name, (mod, fn) in nested.items():
         setattr(mod, name, fn)
+    if args.curve == "g2":
+        g2_horner_clocks(cs, pip, cc, cuda_lib, ax, ay, sc, c, L, curve, old_lib if args.old else None, card)
     if args.curve != "bn254":
         print(card)
         return 0

@@ -18,8 +18,10 @@ native host library). Phases, one line each, every failure raises:
      points refuse an unknown field id;
      pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own level-1 width
      (the msm_g2 set's plan, every lane against the plain version; lines of
-     their own); l1_aff_halves and l1_aff_halves_t on the G1 MSM's own v9
-     slab (734,740 columns x 32 at 2^20 points; one launch is one level 1),
+     their own), pdbl_rcb_g2 on those accumulators, on one lane (the G2
+     Horner's width; timed, with its device time a launch from
+     torch.profiler) and on 2^18 edge lanes as unaligned views;
+     l1_aff_halves and l1_aff_halves_t on the G1 MSM's own v9 slab (734,740 columns x 32 at 2^20 points; one launch is one level 1),
      every column against the plain version, and on a 2^16-point plan's
      slab (lines of their own); aff_add_fused and aff_add_mixed_packed on
      2^18 edge lanes (lines of their own; their rows come after the main
@@ -70,8 +72,15 @@ native host library). Phases, one line each, every failure raises:
      lanes and timed at the width launched most often (inv_rows); and the
      affine pair's rows the same way (aff_rows: held against the plain
      version at the widest width, the one with the most lanes and the one
-     launched most often, with edge lanes, timed at the last);
+     launched most often, with edge lanes, timed at the last); before them
+     horner_fold's row (horner_rows): limb for limb against
+     horner_fold_plain at every (W, c) the main paths launched it at and at
+     those of 2^20-, 2^16-, 2^15- and 2^12-point MSMs (horner_shapes), timed
+     at the one launched most often, on edge window sums
+     (horner_edge_sets) and at its widest W, one window more refused;
   4. coverage: every kernel of each path was launched in that path's run,
+     the point-op kernels' launches by width (lanes) and horner_fold's by
+     (W, c), summed over the main paths, are printed,
      fermat_inv as often as its callers (tf.batch_inv, to_affine_device)
      were called on CUDA tensors,
      no path but msm_routes launched one of ROUTE_KERNELS, none but
@@ -87,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -273,6 +283,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_times(fn, launches: dict, reps: int = 1) -> dict:
+    """{kernel: (trace count, device time in us a launch)} of the CUDA
+    kernels named in `launches` ({part of a kernel's name: its launches a
+    call of fn}) over reps calls of fn after a warm one, from
+    torch.profiler's trace; the time is None (not measured) unless the
+    trace holds every launch, launches x reps of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for kernel, n in launches.items():
+        evs = [e for e in events if kernel in e.key]
+        total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0) for e in evs)
+        count = sum(e.count for e in evs)
+        out[kernel] = (count, total / count if count == n * reps and total else None)
+    return out
 
 
 def timed_once(fn) -> tuple:
@@ -539,6 +573,49 @@ def unaligned(t):
     return odd
 
 
+def horner_shapes() -> list:
+    """(W, c) of horner_fold in a G1 msm_gpu of 2^20, 2^16, 2^15 and 2^12
+    points: c from TorchBackend.msm_params, W = ceil(254 / c) signed-digit
+    windows (msm.pippenger.signed_digits_for_windows)."""
+    from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
+
+    return [(-(-254 // c), c) for c in (TorchBackend.msm_params(1 << lg)[0] for lg in (20, 16, 15, 12))]
+
+
+def horner_windows(proj, ax, ay, W: int):
+    """W projective window sums 2 P_i (z != 1) of the first W affine points."""
+    p = proj.PROJ_G1.dbl(proj.PROJ_G1.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
+    return proj.Proj(*(t.contiguous() for t in p))
+
+
+def horner_edge_sets(tf, proj, ax, ay) -> list:
+    """(label, window sums, c) of horner_fold's edge cases: identity (0:1:0)
+    windows (every third one, and all of them), every window the same
+    point (with c=0 the first add is a doubling), P and -P alternating
+    (with c=0 the sums cancel), and W=2."""
+    one = tf.consts(tf.FQ, DEVICE)["one"]
+    p = horner_windows(proj, ax, ay, 20)
+    sets = []
+    holes = proj.Proj(*(t.clone() for t in p))
+    holes.x[::3], holes.y[::3], holes.z[::3] = 0, one, 0
+    sets.append(("identity windows (every third)", holes, 13))
+    sets.append(("identity windows (all)", proj.Proj(torch.zeros_like(p.x), one.expand_as(p.y).contiguous(),
+                                                     torch.zeros_like(p.z)), 13))
+    same = proj.Proj(*(t[:1].repeat(20, 1) for t in p))
+    sets += [("all windows equal", same, 13), ("all windows equal", same, 0)]
+    alt = proj.Proj(*(t.clone() for t in same))
+    alt.y[1::2] = tf.neg(tf.FQ, alt.y[1::2])
+    sets += [("P and -P alternating", alt, 13), ("P and -P alternating", alt, 0)]
+    sets.append(("W=2", proj.Proj(*(t[:2].contiguous() for t in p)), 13))
+    return sets
+
+
+def horner_work(W: int, c: int) -> tuple:
+    """horner_fold's work: 3 (W, 16) limb rows in, 3 rows out; (W-1) c RCB
+    doublings and W-1 adds."""
+    return 3 * 64 * (W + 1), (W - 1) * (c * g1_work("pdbl_rcb", 1) + g1_work("padd_rcb", 1))
+
+
 def aff_lanes(x1, y1, x2, y2) -> tuple:
     """(adds, doublings) of batched-affine add lanes: the lanes whose sum
     needs a slope (no infinity operand, no inverse pair), and those of them
@@ -681,6 +758,49 @@ def inv_rows(tf, cf, bound, inv_calls: dict, totals: dict, gen) -> list:
     return rows
 
 
+def horner_rows(tf, cc, proj, bound, widths: dict, ax, ay) -> list:
+    """horner_fold's row at the (W, c) the main paths launched it at
+    (`widths`: {(W, c): launches}): held limb for limb against
+    horner_fold_plain at every one of them and at horner_shapes' (each with
+    an empty window), the row at the one launched most often, where both are
+    timed; then on horner_edge_sets, at the kernel's widest W
+    (cc.horner_max_w(), c=0), and one window past it, which it refuses."""
+    one = tf.consts(tf.FQ, DEVICE)["one"]
+    ranked = sorted(widths, key=lambda k: (-widths[k], -k[0]))
+    rows = []
+    for W, hc in dict.fromkeys(ranked + horner_shapes()):
+        p = horner_windows(proj, ax, ay, W)
+        p.x[3], p.y[3], p.z[3] = 0, one, 0  # an empty window
+        ref, plain_ms = timed_once(lambda: cc.horner_fold_plain(p.x, p.y, p.z, hc))
+        err = max_abs_err(cc.horner_fold(p.x, p.y, p.z, hc), ref)
+        ms = cuda_ms(lambda: cc.horner_fold(p.x, p.y, p.z, hc), 10)
+        if (W, hc) == ranked[0]:
+            rows.append({**kernel_row(bound, "horner_fold", "hekaton_tpu_torch/csrc/curve.cu",
+                                      "hekaton_tpu/curves/pallas_curve.py:625", ms, plain_ms, err, horner_work(W, hc)),
+                         "shape": f"W={W}, c={hc}"})
+            continue
+        require(err == 0, f"horner_fold W={W}, c={hc}: kernel differs from its plain version (max abs err {err})")
+        log(f"[kernels] horner_fold W={W}, c={hc} (x{widths.get((W, hc), 0)}): bit-identical, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {bound(*horner_work(W, hc))[0]:.6f} ms")
+    for label, p, hc in horner_edge_sets(tf, proj, ax, ay):
+        err = max_abs_err(cc.horner_fold(p.x, p.y, p.z, hc), cc.horner_fold_plain(p.x, p.y, p.z, hc))
+        require(err == 0, f"horner_fold on {label}, c={hc}: kernel differs from its plain version (max abs err {err})")
+        log(f"[kernels] horner_fold on {label} (W={p.x.shape[0]}, c={hc}): bit-identical")
+    top = cc.horner_max_w()
+    p = horner_windows(proj, ax, ay, top + 1)
+    widest = proj.Proj(*(t[:top] for t in p))
+    err = max_abs_err(cc.horner_fold(*widest, 0), cc.horner_fold_plain(*widest, 0))
+    require(err == 0, f"horner_fold W={top}, c=0: kernel differs from its plain version (max abs err {err})")
+    try:
+        cc.horner_fold(*p, 0)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"horner_fold took {top + 1} windows, past its limit of {top}")
+    log(f"[kernels] horner_fold W={top} (its widest), c=0: bit-identical; W={top + 1} refused")
+    return rows
+
+
 def aff_rows(tf, cc, bound, aff_calls: dict, totals: dict, ax, ay) -> list:
     """The kernel-table rows of AFF_ROWS at the main paths' widths: every
     width the main paths launched each at (`aff_calls`: {name: {lanes:
@@ -775,13 +895,13 @@ def inv_check(tf, cf, bound, spec, a, time_plain: bool = False) -> tuple:
     return ms, plain_ms, err, work
 
 
-def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1, msm) -> list:
+def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib, g2_l1, msm) -> list:
     """Every kernel against its plain version at the main paths' shapes
     (`g2_l1`: g2_level1_inputs' result; `msm`: the G1 MSM's (scalars, c,
     L), whose v9 plan gives the halves rows their slab). The rows of
-    INV_ROWS and AFF_ROWS come after the main paths (inv_rows, aff_rows), at
-    the widths those launched; here the inversion kernel and the affine pair
-    are held on their edge lanes."""
+    INV_ROWS, AFF_ROWS and horner_fold come after the main paths (inv_rows,
+    aff_rows, horner_rows), at the widths those launched; here the
+    inversion kernel and the affine pair are held on their edge lanes."""
     rows = []
 
     def record(*args, **kw):
@@ -923,20 +1043,6 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
            library_ms=cuda_ms(lambda: planes.permute(2, 0, 1, 3).contiguous(), 10))
     del planes
 
-    # horner_fold: W=20 windows at c=13, compared in affine
-    W = 20
-    p = proj.PROJ_G1.dbl(proj.PROJ_G1.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
-    p = proj.Proj(*(t.contiguous() for t in p))
-    p.x[3], p.y[3], p.z[3] = 0, tf.consts(tf.FQ, DEVICE)["one"], 0  # an empty window
-    got, ref = cc.horner_fold(p.x, p.y, p.z, 13), cc.horner_fold_plain(p.x, p.y, p.z, 13)
-    g_aff = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in got))))
-    r_aff = G1.unpack_jacobian(proj.PROJ_G1.to_jacobian(proj.Proj(*(t[None] for t in ref))))
-    require(g_aff == r_aff, "horner_fold: kernel differs from its plain version in affine")
-    record("horner_fold", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:625",
-           cuda_ms(lambda: cc.horner_fold(p.x, p.y, p.z, 13), 10),
-           cuda_ms(lambda: cc.horner_fold_plain(p.x, p.y, p.z, 13), 1), 0,
-           (3 * 64 * (W + 1), (W - 1) * (13 * g1_work("pdbl_rcb", 1) + g1_work("padd_rcb", 1))))
-
     # madd: 2^18 lanes with test_pallas.py:33's edge lanes
     jp, (qx, qy) = g1_edge_lanes(tf, ax, ay, gen)
     margs = (*jp, qx, qy)
@@ -986,6 +1092,28 @@ def phase_kernels(h, tf, cf, cc, proj, G1, pip, g1_pts, g2_pts, gen, bound, cuda
         log(f"[kernels] {op} at the G2 MSM's level-1 width ({g2_cols} lanes of the msm_g2 plan, all held "
             f"against the plain version): bit-identical, kernel {cuda_ms(lambda: fn(*kargs), 10):.3f} ms, "
             f"bound {work[0]:.4f} ms ({work[1]})")
+    # pdbl_rcb_g2 on the same accumulators, on one lane (the G2 Horner's
+    # launches: timed, and its device time a launch from the profiler's
+    # trace), and on 2^18 edge lanes as views off the 16-byte grid
+    fn, plain = cc.pdbl_rcb_g2, cc.pdbl_rcb_g2_plain
+    gp = proj_edge_lanes(tf, proj, *g2_pts, gen)[0]
+    one_lane = tuple(t[:1].contiguous() for t in pa_args[:3])
+    for label, kargs, timed in ((f"{g2_cols} lanes (the msm_g2 level-1 accumulators)", pa_args[:3], True),
+                                ("1 lane", one_lane, True),
+                                ("1 lane (the identity)", tuple(t[128:129].contiguous() for t in gp), False),
+                                (f"{N_LANES} edge lanes, unaligned views", tuple(unaligned(t) for t in gp), False)):
+        err = max_abs_err(fn(*kargs), plain(*kargs))
+        require(err == 0, f"pdbl_rcb_g2 at {label}: kernel differs from its plain version (max abs err {err})")
+        line = f"[kernels] pdbl_rcb_g2 at {label}: bit-identical"
+        if timed:
+            m = kargs[0].shape[0]
+            work = bound(6 * 128 * m, RCB_G2_PRODUCTS["pdbl_rcb_g2"] * m)
+            line += f", kernel {cuda_ms(lambda: fn(*kargs), 20):.4f} ms, bound {work[0]:.6f} ms ({work[1]})"
+        log(line)
+    count, dev = kernel_device_times(lambda: fn(*one_lane), {"pdbl_rcb_g2_kernel": 1}, 50)["pdbl_rcb_g2_kernel"]
+    log("[kernels] pdbl_rcb_g2 at 1 lane: device time a launch "
+        + (f"{dev:.2f} us (torch.profiler)" if dev is not None
+           else f"not measured (the profiler's trace holds {count} of 50 launches)"))
 
     # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products an add
     # (slab_adds: a sentinel row needs none)
@@ -1351,7 +1479,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     c, L = TorchBackend.msm_params(N)
-    rows = phase_kernels(h, tf, cf, cc, proj, G1, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib,
+    rows = phase_kernels(h, tf, cf, cc, proj, pip, (ax, ay), (g2x, g2y), gen, bound, cuda_lib,
                          g2_level1_inputs(pip, g2x, g2y, sc, c, L), (sc, c, L))
 
     curve_kernels = {"aff_add_fused": cc.aff_add_fused, "l1_aff_halves": cc.l1_aff_halves,
@@ -1371,7 +1499,7 @@ def main() -> int:
                "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
                **{k: field_count(cf.fermat_inv, fields) for k, fields in INV_ROWS.items()},
                **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
-    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS),
+    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS) | {"horner_fold"},
             "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
     # the inversion kernel's calls on CUDA tensors by main path, (field,
@@ -1406,6 +1534,32 @@ def main() -> int:
         return launch_aff(fn, entries, x1, *rest)
 
     cc._launch_aff_add = recorded_aff
+    # the point-op kernels' launches on the main paths by width (lanes) and
+    # horner_fold's by (W, c): the wrappers launch through
+    # cuda_curve._launch_point_op, and pippenger calls horner_fold, both
+    # looked up at call time
+    op_calls = {}
+    launch_op = cc._launch_point_op
+
+    def record_width(name, width):
+        calls = op_calls.setdefault(name, {})
+        calls[width] = calls.get(width, 0) + 1
+
+    def recorded_op(fn, entry, args, coord_shape, n_out=3):
+        m = args[0].numel() // math.prod(coord_shape)
+        if path_now[0] is not None and m:
+            record_width(fn.__name__, m)
+        return launch_op(fn, entry, args, coord_shape, n_out)
+
+    cc._launch_point_op = recorded_op
+    fold = pip.horner_fold
+
+    def recorded_fold(x, y, z, c):
+        if path_now[0] is not None and x.is_cuda:
+            record_width("horner_fold", (x.shape[0], c))
+        return fold(x, y, z, c)
+
+    pip.horner_fold = recorded_fold
 
     def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
@@ -1621,10 +1775,18 @@ def main() -> int:
     main_path("cli", ["dbl", "add", "madd"], lambda: cli_phase(card))
 
     log(f"[coverage] kernel launches over the main paths: {totals}")
+    for name, widths in sorted(op_calls.items()):
+        require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
+        ranked = sorted(widths, key=lambda m: -widths[m])
+        log(f"[coverage] {name} launches by width on the main paths ({len(widths)} widths): "
+            + ", ".join(f"{'W={}, c={}'.format(*m) if name == 'horner_fold' else m} x{widths[m]}"
+                        for m in ranked[:12]))
+    require(set(op_calls) >= {"horner_fold", "pdbl_rcb_g2"}, f"widths recorded for {sorted(op_calls)} only")
     path_now[0] = None
+    ax, ay = torch.from_numpy(ax_np).to(DEVICE), torch.from_numpy(ay_np).to(DEVICE)
+    rows += horner_rows(tf, cc, proj, bound, op_calls["horner_fold"], ax, ay)
     rows += inv_rows(tf, cf, bound, inv_calls, totals, gen)
-    rows += aff_rows(tf, cc, bound, aff_calls, totals, torch.from_numpy(ax_np).to(DEVICE),
-                     torch.from_numpy(ay_np).to(DEVICE))
+    rows += aff_rows(tf, cc, bound, aff_calls, totals, ax, ay)
     for row in rows:
         row["launches"] = totals[row["name"]]
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")

@@ -66,8 +66,18 @@
 // 1.85 (the 89% of its 734,740 x 31 adds that have no (0,0) sentinel
 // operand: an add with the sentinel needs no product); aff_add 0.12 ms at
 // 2^18 lanes against 0.215, bound 0.030 (PERF.md).
-// The horner fold is one thread walking (W-1)(c+1) dependent point
-// operations: bound by the latency of that chain, 1.09 ms at W=20, c=13.
+// The horner fold is a chain of (W-1)(c+1) dependent point operations on
+// one lane: bound by that chain's latency, not by bytes or multiplies. One
+// warp walks it, a Montgomery product a lane: a point op is two levels of
+// independent products (a double 4 + 4, an add 6 + 6), so its latency is
+// two products' and the field additions between them, not 8 or 12
+// products'. On one H100 80GB HBM3 (700 W), in turns with the one-thread
+// body (benches/torch_aff_ab.py): 0.43 ms against 1.09 at W=20, c=13; a
+// double 1.55 us against 3.87, an add 2.52 against 6.76, of which two
+// products are ~0.56 us: the additions and mul9s between the levels,
+// serial on the volatile carry chains, are most of the rest. A product
+// over 16 lanes (shuffles, ballots) and additions in C were slower
+// (PERF.md).
 //
 // madd is one thread per lane on the straight-line madd-2007-bl formulas
 // (11 products, 4 of them squares; 7 more, 5 squares, on the rare doubling
@@ -616,19 +626,120 @@ __device__ __forceinline__ void store_proj(int32_t* x, int32_t* y, int32_t* z, l
   store_limbs(z + i * 16, p.z);
 }
 
-__global__ void horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                              const int32_t* __restrict__ z, int32_t* __restrict__ ox,
-                              int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Proj acc{load_limbs(x + (W - 1) * 16), load_limbs(y + (W - 1) * 16), load_limbs(z + (W - 1) * 16)};
-  for (int w = W - 2; w >= 0; w--) {
-    for (int d = 0; d < c; d++) acc = pdbl_rcb(acc);
-    Proj s{load_limbs(x + w * 16), load_limbs(y + w * 16), load_limbs(z + w * 16)};
-    acc = padd_rcb(acc, s);
+// -- the window Horner fold: one warp, a Montgomery product a lane ----------
+//
+// One warp walks the chain of (W-1)(c+1) point ops. Every lane holds the
+// accumulator (the same values in all 32: the code is uniform, so no lane
+// takes another branch), and the W window sums sit in shared memory,
+// loaded once. A point op is its two levels of independent products (a
+// double: Y^2, YZ, Z^2, XY, then t2 z3, t1 z3, t0 y3, t0 XY; an add: six,
+// then the six closing ones): lane h makes product h of a level (lanes past
+// the level's width repeat one of them) and writes it to shared memory;
+// after a __syncwarp every lane reads the level back and computes the sums
+// and mul9s that the next level's operands need. Two buffers, one a level:
+// a lane writes a level's buffer again only after the __syncwarp of the
+// level between, which every lane reaches after it has read the buffer.
+constexpr int HORNER_THREADS = 32;
+using HornerLevels = uint32_t[2][8][8];  // the two levels' products (static shared memory)
+// the W * 96 bytes of window sums (dynamic) and the levels in the 48 KB a
+// block may have without cudaFuncSetAttribute
+constexpr int HORNER_MAX_W = (48 * 1024 - sizeof(HornerLevels)) / (24 * sizeof(uint32_t));
+static_assert(HORNER_MAX_W == 506, "the window sums and the levels in 48 KB");
+
+__device__ __forceinline__ void put_fe(uint32_t* s, const Fe& v) {
+  uint4* d = reinterpret_cast<uint4*>(s);
+  d[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  d[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+__device__ __forceinline__ Fe get_fe(const uint32_t* s) {
+  const uint4* q = reinterpret_cast<const uint4*>(s);
+  const uint4 a = q[0], b = q[1];
+  Fe r;
+  r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+  r.w[4] = b.x, r.w[5] = b.y, r.w[6] = b.z, r.w[7] = b.w;
+  return r;
+}
+
+// the h-th of the values (selects: the same instructions in every lane)
+__device__ __forceinline__ Fe pick(int, const Fe& v) { return v; }
+
+template <typename... Rest>
+__device__ __forceinline__ Fe pick(int h, const Fe& v, const Rest&... rest) {
+  return fe_select(h == 0, v, pick(h - 1, rest...));
+}
+
+// one level of n products: lane h < n writes a b to slot h of `out`
+__device__ __forceinline__ void level(uint32_t (*out)[8], int n, const Fe& a, const Fe& b) {
+  const Fe r = fe_mul<FQ>(a, b);
+  if ((int)threadIdx.x < n) put_fe(out[threadIdx.x], r);
+  __syncwarp();
+}
+
+using Levels = uint32_t (*)[8][8];
+
+// RCB15 Algorithm 9 (a=0, b3=9), pdbl_rcb's values in two levels
+__device__ Proj horner_dbl(const Proj& p, Levels lv) {
+  const int h = threadIdx.x & 3;
+  level(lv[0], 4, pick(h, p.y, p.y, p.z, p.x), pick(h, p.y, p.z, p.z, p.y));  // Y^2, YZ, Z^2, XY
+  const Fe yy = get_fe(lv[0][0]), yz = get_fe(lv[0][1]), xy = get_fe(lv[0][3]);
+  const Fe t2 = mul9(get_fe(lv[0][2]));
+  Fe z3 = fe_add<FQ>(yy, yy);
+  z3 = fe_add<FQ>(z3, z3);
+  z3 = fe_add<FQ>(z3, z3);
+  const Fe y3 = fe_add<FQ>(yy, t2);
+  const Fe t0 = fe_sub<FQ>(yy, fe_add<FQ>(fe_add<FQ>(t2, t2), t2));
+  level(lv[1], 4, pick(h, t2, yz, t0, t0), pick(h, z3, z3, y3, xy));
+  const Fe x3 = get_fe(lv[1][3]);
+  return Proj{fe_add<FQ>(x3, x3), fe_add<FQ>(get_fe(lv[1][0]), get_fe(lv[1][2])), get_fe(lv[1][1])};
+}
+
+// RCB15 Algorithm 7 (a=0, b3=9), padd_rcb's values in two levels
+__device__ Proj horner_add(const Proj& p, const Proj& q, Levels lv) {
+  const int h = threadIdx.x % 6;
+  const Fe zero = fe_zero();
+  // X1 X2, Y1 Y2, Z1 Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
+  level(lv[0], 6, fe_add<FQ>(pick(h, p.x, p.y, p.z, p.x, p.y, p.x), pick(h, zero, zero, zero, p.y, p.z, p.z)),
+        fe_add<FQ>(pick(h, q.x, q.y, q.z, q.x, q.y, q.x), pick(h, zero, zero, zero, q.y, q.z, q.z)));
+  Fe t0 = get_fe(lv[0][0]), t1 = get_fe(lv[0][1]), t2 = get_fe(lv[0][2]);
+  const Fe t3 = fe_sub<FQ>(get_fe(lv[0][3]), fe_add<FQ>(t0, t1));
+  const Fe t4 = fe_sub<FQ>(get_fe(lv[0][4]), fe_add<FQ>(t1, t2));
+  Fe y3 = fe_sub<FQ>(get_fe(lv[0][5]), fe_add<FQ>(t0, t2));
+  t0 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);
+  t2 = mul9(t2);
+  const Fe z3 = fe_add<FQ>(t1, t2);
+  t1 = fe_sub<FQ>(t1, t2);
+  y3 = mul9(y3);
+  level(lv[1], 6, pick(h, t3, t4, t1, y3, z3, t0), pick(h, t1, y3, z3, t0, t4, t3));
+  return Proj{fe_sub<FQ>(get_fe(lv[1][0]), get_fe(lv[1][1])), fe_add<FQ>(get_fe(lv[1][2]), get_fe(lv[1][3])),
+              fe_add<FQ>(get_fe(lv[1][4]), get_fe(lv[1][5]))};
+}
+
+__device__ __forceinline__ Proj window_sum(const uint32_t* win, int w) {
+  return Proj{get_fe(win + 24 * w), get_fe(win + 24 * w + 8), get_fe(win + 24 * w + 16)};
+}
+
+__global__ void __launch_bounds__(HORNER_THREADS)
+    horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                  int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
+  extern __shared__ __align__(16) uint32_t win[];  // word j of coordinate k of window w at win[24 w + 8 k + j]
+  __shared__ __align__(16) HornerLevels lv;
+  for (int i = threadIdx.x; i < 24 * W; i += HORNER_THREADS) {
+    const int w = i / 24, k = i / 8 % 3, j = i % 8;
+    const int32_t* src = (k == 0 ? x : k == 1 ? y : z) + 16 * w + 2 * j;
+    win[i] = (uint32_t)src[0] | ((uint32_t)src[1] << 16);
   }
-  store_limbs(ox, acc.x);
-  store_limbs(oy, acc.y);
-  store_limbs(oz, acc.z);
+  __syncwarp();
+  Proj acc = window_sum(win, W - 1);
+  for (int w = W - 2; w >= 0; w--) {
+    for (int d = 0; d < c; d++) acc = horner_dbl(acc, lv);
+    acc = horner_add(acc, window_sum(win, w), lv);
+  }
+  if (threadIdx.x == 0) {
+    store_limbs(ox, acc.x);
+    store_limbs(oy, acc.y);
+    store_limbs(oz, acc.z);
+  }
 }
 
 // -- the G1 RCB ops, one lane per thread -------------------------------------
@@ -903,11 +1014,15 @@ extern "C" int hk_aff_finish(const void* x1, const void* y1, const void* px, con
   return (int)cudaGetLastError();
 }
 
+// the most window sums hk_horner takes
+extern "C" int hk_horner_max_w() { return HORNER_MAX_W; }
+
+// (W, 16) limb rows per coordinate, 1 <= W <= HORNER_MAX_W, c >= 0
 extern "C" int hk_horner(const void* x, const void* y, const void* z, void* ox, void* oy,
                          void* oz, int W, int c, void* stream) {
-  horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)x, (const int32_t*)y,
-                                                   (const int32_t*)z, (int32_t*)ox,
-                                                   (int32_t*)oy, (int32_t*)oz, W, c);
+  if (W < 1 || W > HORNER_MAX_W || c < 0) return (int)cudaErrorInvalidValue;
+  horner_kernel<<<1, HORNER_THREADS, 24 * W * sizeof(uint32_t), (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, W, c);
   return (int)cudaGetLastError();
 }
 

@@ -20,12 +20,14 @@
 // they are bound by integer multiply throughput, not by bytes, once enough
 // lanes are resident and their dependent multiply-add chains are hidden.
 //
-// pmadd_rcb_g2 and padd_rcb_g2 (the G2 MSM's level 1, collapse and suffix
-// scan, on up to ~735K lanes) run two threads a lane, thread k making the
-// c_k half of every Fq2 value. Their earlier design, one thread a lane with
-// the whole formula unrolled over Fq2 values (as pdbl_rcb_g2 still is),
-// took all 255 registers and spilled (172 and 12 bytes), so 8 warps fitted
-// on an SM: too few to hide the dependent multiply-add chains.
+// All three run two threads a lane, thread k making the c_k half of every
+// Fq2 value: pmadd_rcb_g2 and padd_rcb_g2 (the G2 MSM's level 1, collapse
+// and suffix scan, on up to ~735K lanes) and pdbl_rcb_g2 (the G2 Horner's
+// doublings, one lane a launch). Their earlier design, one thread a lane
+// with the whole formula unrolled over Fq2 values, took 176-255 registers
+// (the adds spilled 172 and 12 bytes), so 8-11 warps fitted on an SM: too
+// few to hide the dependent multiply-add chains; and at one lane it left
+// the second thread's half of the work on the first.
 // - An Fq2 product's half is a sum of two 8x8-word products in a 16-word
 //   accumulator and one Montgomery reduction (lazy reduction): thread 0
 //   makes c0 = a0 b0 + a1 (p - b1), thread 1 c1 = a0 b1 + a1 b0. RCB's
@@ -35,9 +37,11 @@
 //   its reduction below 2p: one conditional subtraction makes it
 //   canonical. Canonical values are unique, so the limbs equal the plain
 //   Karatsuba formulas' bit for bit. A mixed add is 26 such products and 10
-//   reductions a thread, an add 28 and 11: ~9.4K and ~10.2K multiplies a
-//   lane, ~1.2 times what Karatsuba needs (schoolbook's 4 wide products an
-//   Fq2 product, traded for threads that never wait on each other).
+//   reductions a thread, an add 28 and 11, a double 18 and 8 (its closing
+//   y3 = t2 z3 + t0 y3 one 4-term sum): ~9.4K, ~10.2K and ~6.8K multiplies
+//   a lane, ~1.2-1.26 times what Karatsuba needs (schoolbook's 4 wide
+//   products an Fq2 product, traded for threads that never wait on each
+//   other).
 // - The 32x32-bit products accumulate on the PTX carry chains of
 //   field.cuh (mac_wide: rows of 8 products, each as two chains of
 //   mad.lo.cc / madc.hi.cc; redc_wide), which every kernel's fe_mul shares.
@@ -48,7 +52,7 @@
 //   (__syncwarp). A thread reads either half of any operand just before it
 //   multiplies it (volatile loads), so no thread leaves early and nothing
 //   is exchanged through registers. 8 coordinates of 64 lanes are 32 KB a
-//   block.
+//   block (the double's 7, 28 KB).
 // - Kept: 128 threads a block under __launch_bounds__(128, 3), 112
 //   (pmadd) and 110 (padd) registers, no spills (ptxas, sm_90a, CUDA 12.9):
 //   3 blocks, 12 warps, an SM. On an H100 (700 W), in turns with the
@@ -63,10 +67,8 @@
 //   or in blocks of 64 or 32 threads (5-16% slower, padd spills), and the
 //   temporaries exchanged by __shfl_xor_sync instead of shared memory (156
 //   and 168 registers uncapped, spills at 128); PERF.md, section 6.
-//
-// pdbl_rcb_g2 keeps the one-thread design (THREADS = 128, 176
-// registers): its main-path launches are the G2 Horner's one-lane
-// doublings, where launch latency and not the body sets the time.
+//   pdbl_rcb_g2 on the same design replaced a one-thread body (176
+//   registers, 0.621 ms at 2^18 lanes): PERF.md, section 6.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,53 +79,12 @@ using namespace hk;
 
 namespace {
 
-constexpr int THREADS = 128;  // pdbl_rcb_g2: one thread a lane
-
-constexpr int PAIR_THREADS = 128;  // pmadd / padd: two threads a lane
+constexpr int PAIR_THREADS = 128;  // two threads a lane
 constexpr int PAIR_MIN_BLOCKS = 3;
 constexpr int PAIR_LANES = PAIR_THREADS / 2;
 constexpr int COORD_WORDS = PAIR_THREADS * 8;  // one coordinate of a block's lanes, packed words
 constexpr int SLOTS = 8;  // coordinates a block keeps in shared memory: 32 KB
-
-struct Proj2 {
-  Fe2 x, y, z;
-};
-
-__device__ __forceinline__ Fe2 mul_b3(const Fe2& a) { return f2_mul(a, f2_b3()); }
-
-// RCB15 Algorithm 9 (a=0)
-__device__ Proj2 pdbl_rcb(const Proj2& p) {
-  Fe2 t0 = f2_sqr(p.y);
-  Fe2 z3 = f2_add(t0, t0);
-  z3 = f2_add(z3, z3);
-  z3 = f2_add(z3, z3);
-  Fe2 t1 = f2_mul(p.y, p.z);
-  Fe2 t2 = mul_b3(f2_sqr(p.z));
-  Fe2 x3 = f2_mul(t2, z3);
-  Fe2 y3 = f2_add(t0, t2);
-  z3 = f2_mul(t1, z3);
-  t1 = f2_add(t2, t2);
-  t2 = f2_add(t1, t2);
-  t0 = f2_sub(t0, t2);
-  y3 = f2_mul(t0, y3);
-  y3 = f2_add(x3, y3);
-  t1 = f2_mul(p.x, p.y);
-  x3 = f2_mul(t0, t1);
-  x3 = f2_add(x3, x3);
-  return Proj2{x3, y3, z3};
-}
-
-__device__ __forceinline__ Proj2 load_proj2(const int32_t* x, const int32_t* y, const int32_t* z,
-                                            long long i) {
-  return Proj2{load_limbs2(x + i * 32), load_limbs2(y + i * 32), load_limbs2(z + i * 32)};
-}
-
-__device__ __forceinline__ void store_proj2(int32_t* x, int32_t* y, int32_t* z, long long i,
-                                            const Proj2& p) {
-  store_limbs2(x + i * 32, p.x);
-  store_limbs2(y + i * 32, p.y);
-  store_limbs2(z + i * 32, p.z);
-}
+constexpr int DBL_SLOTS = 7;  // the doubling's: 28 KB
 
 // -- two threads a lane: the per-thread half of the Fq2 arithmetic --
 //
@@ -279,6 +240,37 @@ __device__ __forceinline__ void padd_half(Slots sm, int t, Half3& r) {
   r = rcb_close(sm, t);
 }
 
+// RCB15 Algorithm 9 (a=0) on this thread's halves; slots 0-2 hold the staged
+// x, y, z. Y^2, YZ, Z^2 and XY read only the inputs; Z^2, YZ, XY and z3 =
+// 8 Y^2 go to slots 3-6 (b3 Z^2 and the closing products need the
+// partner's halves), then t2 = b3 Z^2, y3 = Y^2 + t2 and t0 = Y^2 - 3 t2
+// to slots 0-2 once both threads have read the inputs. The closing y3 =
+// t2 z3 + t0 y3 is one 4-term sum and one reduction.
+__device__ __forceinline__ void pdbl_half(Slots sm, int t, Half3& r) {
+  const Op x{0}, y{1}, z{2};
+  Fe t0 = f2_mul_half(sm, t, y, y);
+  put_half(sm[3], t, f2_mul_half(sm, t, z, z));
+  put_half(sm[4], t, f2_mul_half(sm, t, y, z));
+  put_half(sm[5], t, f2_mul_half(sm, t, x, y));
+  Fe z3 = fe_add<FQ>(t0, t0);
+  z3 = fe_add<FQ>(z3, z3);
+  put_half(sm[6], t, fe_add<FQ>(z3, z3));
+  __syncwarp();
+  const Fe t2 = mul_b3_half(sm, t, Op{3});
+  put_half(sm[0], t, t2);
+  put_half(sm[1], t, fe_add<FQ>(t0, t2));
+  put_half(sm[2], t, fe_sub<FQ>(t0, fe_add<FQ>(fe_add<FQ>(t2, t2), t2)));
+  __syncwarp();
+  const Op t2s{0}, y3{1}, t0s{2}, t1{4}, xy{5}, z3s{6};
+  uint32_t T[16] = {0};
+  mac_f2(T, sm, t, t2s, z3s);
+  mac_f2(T, sm, t, t0s, y3);
+  r.y = redc_wide<FQ>(T);  // t2 z3 + t0 y3
+  r.z = f2_mul_half(sm, t, t1, z3s);
+  const Fe x3 = f2_mul_half(sm, t, t0s, xy);
+  r.x = fe_add<FQ>(x3, x3);
+}
+
 // one coordinate of the block's lanes, (PAIR_LANES, 2, 16) limbs, into a
 // slot as packed words: 16-byte loads on consecutive addresses; missing
 // lanes of the last block read as 0
@@ -379,21 +371,27 @@ __global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
   write_out(sm, ox, oy, oz, r, lane0, n);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
     pdbl_rcb_g2_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                        const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                        int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_proj2(ox, oy, oz, i, pdbl_rcb(load_proj2(x, y, z, i)));
+  __shared__ __align__(16) uint32_t sm[DBL_SLOTS][COORD_WORDS];
+  const long long lane0 = (long long)blockIdx.x * PAIR_LANES;
+  stage_in(sm[0], x, lane0, n);
+  stage_in(sm[1], y, lane0, n);
+  stage_in(sm[2], z, lane0, n);
+  __syncthreads();
+  Half3 r;
+  pdbl_half(sm, threadIdx.x, r);
+  write_out(sm, ox, oy, oz, r, lane0, n);
 }
 
 unsigned blocks_for(long long n, int lanes) { return (unsigned)((n + lanes - 1) / lanes); }
 
 }  // namespace
 
-// n lanes of (2, 16) limb rows per coordinate; outputs must not alias
-// inputs; pmadd and padd need 16-byte aligned rows
+// n lanes of (2, 16) limb rows per coordinate, 16-byte aligned; outputs
+// must not alias inputs
 extern "C" int hk_pmadd_rcb_g2(const void* x, const void* y, const void* z, const void* ax,
                                const void* ay, void* ox, void* oy, void* oz, long long n,
                                void* stream) {
@@ -414,7 +412,7 @@ extern "C" int hk_padd_rcb_g2(const void* x1, const void* y1, const void* z1, co
 
 extern "C" int hk_pdbl_rcb_g2(const void* x, const void* y, const void* z, void* ox, void* oy,
                               void* oz, long long n, void* stream) {
-  pdbl_rcb_g2_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+  pdbl_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
       (int32_t*)oz, n);
   return (int)cudaGetLastError();

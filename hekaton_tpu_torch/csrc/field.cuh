@@ -346,11 +346,8 @@ __device__ __forceinline__ FeF<F> fe_sqr(const FeF<F>& a) {
   return redc_wide<F>(T);
 }
 
-// -- Fq2 = Fq[u]/(u^2+1) (pallas_curve.py::f2_add/f2_sub/f2_mul, :982-1005) --
-
-struct Fe2 {
-  Fe c0, c1;
-};
+// -- Fq2 = Fq[u]/(u^2+1): the twist constant of the G2 kernels (curve_g2.cu
+// makes an Fq2 value's two components on two threads, from Fq words) --
 
 // 3b' = 9/(9+u), the RCB mul-by-3b constant of the BN254 G2 twist
 // b' = 3/(9+u), in Montgomery form (pallas_curve.py::_b3_g2_limbs, :1008)
@@ -361,59 +358,10 @@ static __constant__ uint32_t B3_G2_WORDS[2][8] = {
      0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au},
 };
 
-__device__ __forceinline__ Fe2 f2_b3() {
-  Fe2 r;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    r.c0.w[i] = B3_G2_WORDS[0][i];
-    r.c1.w[i] = B3_G2_WORDS[1][i];
-  }
-  return r;
-}
-
-__device__ __forceinline__ Fe2 f2_add(const Fe2& a, const Fe2& b) {
-  return Fe2{fe_add<FQ>(a.c0, b.c0), fe_add<FQ>(a.c1, b.c1)};
-}
-
-__device__ __forceinline__ Fe2 f2_sub(const Fe2& a, const Fe2& b) {
-  return Fe2{fe_sub<FQ>(a.c0, b.c0), fe_sub<FQ>(a.c1, b.c1)};
-}
-
-// Karatsuba: 3 Fq products (jax_field.py::fq2_mul)
-__device__ __forceinline__ Fe2 f2_mul(const Fe2& a, const Fe2& b) {
-  Fe t0 = fe_mul<FQ>(a.c0, b.c0);
-  Fe t1 = fe_mul<FQ>(a.c1, b.c1);
-  Fe s = fe_mul<FQ>(fe_add<FQ>(a.c0, a.c1), fe_add<FQ>(b.c0, b.c1));
-  return Fe2{fe_sub<FQ>(t0, t1), fe_sub<FQ>(fe_sub<FQ>(s, t0), t1)};
-}
-
-// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 Fq products; the same
-// canonical values as f2_mul(a, a)
-__device__ __forceinline__ Fe2 f2_sqr(const Fe2& a) {
-  Fe m = fe_mul<FQ>(a.c0, a.c1);
-  return Fe2{fe_mul<FQ>(fe_add<FQ>(a.c0, a.c1), fe_sub<FQ>(a.c0, a.c1)), fe_add<FQ>(m, m)};
-}
-
-__device__ __forceinline__ bool f2_is_zero(const Fe2& a) { return fe_is_zero(a.c0) && fe_is_zero(a.c1); }
-
-__device__ __forceinline__ Fe2 f2_select(bool c, const Fe2& a, const Fe2& b) {
-  return Fe2{fe_select(c, a.c0, b.c0), fe_select(c, a.c1, b.c1)};
-}
-
-// (2, 16) limb row (c0 limbs then c1 limbs) -> Fq2, and back
-__device__ __forceinline__ Fe2 load_limbs2(const int32_t* src) {
-  return Fe2{load_limbs(src), load_limbs(src + 16)};
-}
-
-__device__ __forceinline__ void store_limbs2(int32_t* dst, const Fe2& a) {
-  store_limbs(dst, a.c0);
-  store_limbs(dst + 16, a.c1);
-}
-
 // -- BLS12-381 Fq: the constants over 12 words (R = 2^384) and its traits --
 // They come last so that the BN254 constants keep their constant-bank
-// offsets: declared before B3_G2_WORDS, they moved that array and cost
-// pdbl_rcb_g2_kernel two registers (ptxas, sm_90a, CUDA 12.9).
+// offsets: declared before B3_G2_WORDS, they moved that array and cost a
+// G2 kernel two registers (ptxas, sm_90a, CUDA 12.9).
 static __constant__ uint32_t P381_WORDS[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};

@@ -42,8 +42,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _int = ctypes.c_int
-# every kernel entry point: argument types; each returns cudaGetLastError()
+# every entry point: argument types; each kernel's returns cudaGetLastError()
 SIGNATURES = {
+    "hk_horner_max_w": [],
     "hk_mont_mul": [_int, _vp, _vp, _vp, _ll, _ll, _vp],
     "hk_fermat_inv": [_int, _vp, _vp, _ll, _vp],
     "hk_aff_root": [_vp] * 7 + [_ll, _ll, _int, _vp],

@@ -51,11 +51,13 @@ a root kernel / batch_inv / finish kernel split, a prefix chain a thread and
 the chains of a warp folded into one batch_inv root; a halves level 1 is a
 root kernel and one step kernel a round, each step finishing a round and
 building the next one's chains; every product is field.cuh's carry-chain
-one; the Horner fold is one thread, bound by the latency of its chain.
-`madd`, `dbl`, `add`, the G1 RCB ops and `pdbl_rcb_g2` are one thread per
-lane, straight-line formulas, bound by integer multiply throughput once the
-card is full; `pmadd_rcb_g2` and `padd_rcb_g2` run two threads a lane, one
-Fq2 component each, with their operands in shared memory; `l1_rcb_mega` is
+one; the Horner fold is one warp, bound by the latency of its chain, each
+point op two levels of independent products, a product a lane.
+`madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
+straight-line formulas, bound by integer multiply throughput once the card
+is full; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+threads a lane, one Fq2 component each, with its operands in shared memory;
+`l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
 (csrc/curve.cu, csrc/curve_g2.cu).
 `interleave_slab_t`, `aff_prep` and `aff_fin` are bound by bytes.
@@ -509,6 +511,12 @@ def interleave_slab_t(planes):
 interleave_slab_t.launches = 0
 
 
+def horner_max_w() -> int:
+    """The most window sums horner_fold's kernel takes (csrc/curve.cu's
+    HORNER_MAX_W: the sums in its block's shared memory)."""
+    return cuda_lib.lib().hk_horner_max_w()
+
+
 def horner_fold(x, y, z, c: int):
     """(W, 16) BN254-G1 projective window sums -> the projective point
     sum_w 2^(c*w) * S_w (three (16,) tensors)."""
@@ -519,13 +527,13 @@ def horner_fold(x, y, z, c: int):
         if t.dim() != 2 or t.shape != x.shape:
             raise ValueError(f"horner_fold: {name} must be (W, 16), got {tuple(t.shape)}")
     W = x.shape[0]
-    if W < 1:
-        raise ValueError("horner_fold: no windows")
     ox, oy, oz = (torch.empty(16, dtype=torch.int32, device=x.device) for _ in range(3))
     rc = cuda_lib.lib().hk_horner(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
         W, int(c), cuda_lib.stream_ptr(x.device),
     )
+    if rc != 0 and not (1 <= W <= horner_max_w() and c >= 0):
+        raise ValueError(f"horner_fold: {W} windows, c={c}; the kernel takes 1 to {horner_max_w()} windows, c >= 0")
     cuda_lib.check("hk_horner", rc)
     horner_fold.launches += 1
     return Proj(ox, oy, oz)

@@ -457,8 +457,8 @@ class Fq2Field:
         return torch.stack([c0, c1], dim=-2)
 
     def sqr(self, a):
-        """(a0 + a1)(a0 - a1) + 2 a0 a1 u: two Fq products (csrc/field.cuh::
-        f2_sqr), the same canonical values as mul(a, a)."""
+        """(a0 + a1)(a0 - a1) + 2 a0 a1 u: two Fq products, the same
+        canonical values as mul(a, a)."""
         a0, a1 = a[..., 0, :], a[..., 1, :]
         m = self.fp.mul(a0, a1)
         c0 = self.fp.mul(add(FQ, a0, a1), sub(FQ, a0, a1))

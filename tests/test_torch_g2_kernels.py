@@ -1,21 +1,22 @@
 """A plain Python model of the split G2 kernels' per-thread arithmetic
-(hekaton_tpu_torch/csrc/curve_g2.cu: pmadd_rcb_g2_kernel, padd_rcb_g2_kernel)
-against the port's plain Fq2 formulas and the JAX package's G2 projective
-formulas.
+(hekaton_tpu_torch/csrc/curve_g2.cu: pmadd_rcb_g2_kernel, padd_rcb_g2_kernel,
+pdbl_rcb_g2_kernel) against the port's plain Fq2 formulas and the JAX
+package's G2 projective formulas.
 
 The kernels run two threads a lane; thread k computes the c_k half of every
 Fq2 value. An Fq2 product's half is a sum of two 8x8-word products into a
 16-word accumulator and one Montgomery reduction (`mac_row`'s two carry
 chains under `mac_wide` and `redc_wide`, `mac_f2`), c0 = a0 b0 + a1 (p - b1) and c1 = a0 b1 + a1 b0, and RCB's
 closing sums of two Fq2 products are one 4-term accumulation and one
-reduction. The model below repeats those word steps in Python ints, in the
-kernels' round order, with each thread's view of the operands (both
-components of the first, its own and its partner's half of the second), and
-checks the bounds they rest on (no carry out of 16 words, a reduction below
-2p). The kernels themselves are held to the plain versions on the
-card by chip_smoke.py; here the model is held, exactly, to
-`Fq2Plain.mul`, to cuda_curve's plain pmadd/padd (CPU tensors) and to the
-JAX package's `ProjOps(jf.Fq2Ops, 3*B_G2)`, run eagerly (a jit compiles
+reduction (the double's closing y3 = t2 z3 + t0 y3 too). The model below
+repeats those word steps in Python ints, in the kernels' round order, with
+each thread's view of the operands (both components of the first, its own
+and its partner's half of the second), and checks the bounds they rest on
+(a lazy sum of k products below k p^2 <= 4 p^2, no carry out of 16 words, a
+reduction below 2p). The kernels themselves are held to the plain versions
+on the card by chip_smoke.py; here the model is held, exactly, to
+`Fq2Plain.mul`, to cuda_curve's plain pmadd/padd/pdbl (CPU tensors) and to
+the JAX package's `ProjOps(jf.Fq2Ops, 3*B_G2)`, run eagerly (a jit compiles
 ~40 s on XLA:CPU).
 """
 import numpy as np
@@ -73,9 +74,11 @@ def mac_wide(T: list, a: int, b: int) -> None:
     assert e == 0, "the accumulator left 16 words"
 
 
-def redc_wide(T: list) -> int:
+def redc_wide(T: list, terms: int = 2) -> int:
     """T R^-1 mod p: row i adds m p at word i, m = T_i (-p^-1) mod 2^32
-    (field.cuh::redc_wide)."""
+    (field.cuh::redc_wide); T is a lazy sum of `terms` products of values
+    below p."""
+    assert sum(w << (32 * i) for i, w in enumerate(T)) < terms * P * P <= 4 * P * P
     e = 0
     for i in range(8):
         e = mac_row(T, i, P_WORDS, T[i] * NINV & MASK, e)
@@ -115,7 +118,7 @@ def f2_dot(a: tuple, b: tuple, c: tuple, d: tuple, neg: bool = False) -> tuple:
         T = [0] * 16
         mac_f2(T, k, a, b)
         mac_f2(T, k, c, d, neg)
-        out.append(redc_wide(T))
+        out.append(redc_wide(T, 4))
     return tuple(out)
 
 
@@ -159,6 +162,22 @@ def padd_model(x1, y1, z1, x2, y2, z2):
     t1 = f2_sub(t1, t2)
     y3 = f2_mul(y3, B3)
     return rcb_close(t0, t1, t3, t4, y3, z3)
+
+
+def pdbl_model(x, y, z):
+    """pdbl_half's rounds: Y^2, Z^2, YZ, XY from the inputs; t2 = b3 Z^2,
+    y3 = Y^2 + t2, t0 = Y^2 - 3 t2 (z3 = 8 Y^2); the closing t2 z3 + t0 y3
+    as one 4-term sum, t1 z3, 2 t0 XY."""
+    t0 = f2_mul(y, y)
+    zz, t1, xy = f2_mul(z, z), f2_mul(y, z), f2_mul(x, y)
+    z3 = f2_add(t0, t0)
+    z3 = f2_add(z3, z3)
+    z3 = f2_add(z3, z3)
+    t2 = f2_mul(zz, B3)
+    y3 = f2_add(t0, t2)
+    t0 = f2_sub(t0, f2_add(f2_add(t2, t2), t2))
+    x3 = f2_mul(t0, xy)
+    return f2_add(x3, x3), f2_dot(t2, z3, t0, y3), f2_mul(t1, z3)
 
 
 # -- conversions: (n, 2, 16) limb tensors <-> per-lane (c0, c1) ints --
@@ -240,10 +259,15 @@ def test_fq2_product_model_matches_fq2plain():
     assert 4 * P < 1 << 256
 
 
-@pytest.mark.parametrize("op", ["pmadd", "padd"])
+@pytest.mark.parametrize("op", ["pmadd", "padd", "pdbl"])
 def test_rcb_g2_model_matches_plain_and_jax(op):
     P1, Q1, qx, qy = _lanes()
-    if op == "pmadd":
+    if op == "pdbl":  # every lane's P, the identity accumulator and the raw-value lanes among them
+        args = [_tensor(c) for c in P1]
+        model = [pdbl_model(*lane) for lane in zip(*P1)]
+        plain = cc.pdbl_rcb_g2_plain(*args)
+        jax_out = JAX_PROJ_G2.dbl(JaxProj(*(_jax(a) for a in args)))
+    elif op == "pmadd":
         args = [_tensor(c) for c in P1] + [_tensor(qx), _tensor(qy)]
         model = [pmadd_model(*lane) for lane in zip(*P1, qx, qy)]
         plain = cc.pmadd_rcb_g2_plain(*args)
@@ -261,5 +285,8 @@ def test_rcb_g2_model_matches_plain_and_jax(op):
         assert [model[5][c] for c in range(3)] == [P1[c][5] for c in range(3)]
     n_pts = 6
     got_pts = G2.unpack_jacobian(PROJ_G2.to_jacobian(Proj(*(a[:n_pts] for a in plain))))
+    if op == "pdbl":  # 2 P on the point lanes, the identity stays the identity
+        assert got_pts[4] is None and all(got_pts[i] is not None for i in (0, 1, 2, 3, 5))
+        return
     assert got_pts[3] is None  # P + (-P)
     assert got_pts[4] is not None and got_pts[2] is not None  # inf + Q, P + P

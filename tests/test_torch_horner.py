@@ -1,0 +1,306 @@
+"""A Python model of horner_fold's kernel (hekaton_tpu_torch/csrc/curve.cu:
+horner_kernel, horner_dbl, horner_add) against the port's plain version,
+the JAX package's complete projective formulas and a plain Python-int RCB
+fold.
+
+The kernel runs one warp over the chain of (W-1)(c+1) point ops. Every lane
+holds the accumulator; a point op is two levels of independent Montgomery
+products (a double 4 + 4, an add 6 + 6), lane h making product h of a level
+(lanes past the level's width repeat one of them, and only lanes below it
+write), the sums and mul9s between levels computed by every lane from the
+level it reads back. A product is field.cuh's `fe_mul` on one lane, whose
+word steps tests/test_torch_aff_kernels.py models; here a product is its
+canonical value a b R^-1 mod p.
+
+The model below runs the kernel's schedule, read from the kernel's source
+(the operands each `pick(h, ...)` of a level gives lane h), on values
+tagged with the level that made them, so that a product reading a value of
+its own level or a later one fails. It is held limb for limb to
+`cuda_curve.horner_fold_plain` and to the JAX package's
+`ProjOps(jf.FqOps, 9)` chain (run eagerly) at small W, to the plain
+Python-int RCB fold at the (W, c) of the 2^12, 2^16 and 2^20 MSMs, and on
+edge window sums.
+"""
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from hekaton_tpu.curves.proj import Proj as JaxProj
+from hekaton_tpu.curves.proj import ProjOps as JaxProjOps
+from hekaton_tpu.fields import jax_field as jf
+from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
+from hekaton_tpu_torch.curves import cuda_curve as cc
+from hekaton_tpu_torch.curves import host as ch
+from hekaton_tpu_torch.fields import torch_field as tf
+
+torch.set_num_threads(1)
+
+P = tf.FQ.modulus
+R = (1 << 256) % P
+RINV = pow(1 << 256, -1, P)
+CURVE_CU = os.path.join(os.path.dirname(__file__), "..", "hekaton_tpu_torch", "csrc", "curve.cu")
+LANES = 32  # HORNER_THREADS
+
+
+class Lv:
+    """A field value (Montgomery form, canonical) and the product level
+    that made it: 0 for the accumulator and the window sum of the op."""
+
+    def __init__(self, v: int, lvl: int):
+        self.v, self.lvl = v % P, lvl
+
+    def __add__(self, o):
+        return Lv(self.v + o.v, max(self.lvl, o.lvl))
+
+    def __sub__(self, o):
+        return Lv(self.v - o.v, max(self.lvl, o.lvl))
+
+    def __rmul__(self, k: int):  # a small constant: additions in the kernel
+        return Lv(k * self.v, self.lvl)
+
+
+def kernel_picks(fn: str) -> list:
+    """The argument lists of the `pick(h, ...)` calls in the body of the
+    device function `fn` of curve.cu, in source order."""
+    src = open(CURVE_CU).read()
+    body = src[src.index(f"__device__ Proj {fn}("):]
+    body = body[: body.index("\n}\n")]
+    return [[a.strip() for a in args.split(",")] for args in re.findall(r"pick\(h, ([^()]*)\)", body)]
+
+
+def kernel_levels():
+    """(double, add): per level, product h's operand names, as the kernel's
+    picks give them (an add's level-1 operand is the sum of two picks, the
+    second zero for the first three products)."""
+    name = {"p.x": "x", "p.y": "y", "p.z": "z"}
+    d = kernel_picks("horner_dbl")
+    dbl = [list(zip([name.get(a, a) for a in d[0]], [name.get(b, b) for b in d[1]])),
+           list(zip(d[2], d[3]))]
+    a = kernel_picks("horner_add")
+    rename = {"p.x": "x1", "p.y": "y1", "p.z": "z1", "q.x": "x2", "q.y": "y2", "q.z": "z2"}
+
+    def summed(u, v):
+        return [rename[s] if t == "zero" else f"{rename[s]}+{rename[t]}" for s, t in zip(u, v)]
+
+    add = [list(zip(summed(a[0], a[1]), summed(a[2], a[3]))), list(zip(a[4], a[5]))]
+    return dbl, add
+
+
+def level(ops: list, vals: dict, lvl: int, lane_of) -> list:
+    """One level of products on the warp: lane l makes product lane_of(l) of
+    `ops` from the values it picks, lanes below len(ops) write theirs. Every
+    operand must come from an earlier level."""
+    n = len(ops)
+    slots = [None] * n
+    for lane in range(LANES):
+        h = lane_of(lane)
+        a, b = (vals[k] for k in ops[h])
+        assert a.lvl < lvl and b.lvl < lvl, f"product {h} of level {lvl} reads a value of level {max(a.lvl, b.lvl)}"
+        r = Lv(a.v * b.v * RINV, lvl)
+        if lane < n:
+            assert slots[lane] is None and h == lane
+            slots[lane] = r
+    assert all(s is not None for s in slots), "a product of the level has no lane that writes it"
+    return slots
+
+
+def model_dbl(acc: tuple, levels) -> tuple:
+    """horner_dbl: Y^2, YZ, Z^2, XY; then t2 z3, YZ z3, t0 y3, t0 XY."""
+    x, y, z = (Lv(v, 0) for v in acc)
+    yy, yz, zz, xy = level(levels[0], {"x": x, "y": y, "z": z}, 1, lambda lane: lane & 3)
+    t2 = 9 * zz
+    z3 = 8 * yy
+    vals = {"t2": t2, "yz": yz, "xy": xy, "z3": z3, "y3": yy + t2, "t0": yy - 3 * t2}
+    q = level(levels[1], vals, 2, lambda lane: lane & 3)
+    return (2 * q[3]).v, (q[0] + q[2]).v, q[1].v
+
+
+def model_add(acc: tuple, win: tuple, levels) -> tuple:
+    """horner_add: the six products of the operands and their sums, then
+    the six closing products."""
+    v1 = dict(zip(("x1", "y1", "z1", "x2", "y2", "z2"), (Lv(v, 0) for v in (*acc, *win))))
+    v1.update({f"{s}+{t}": v1[s] + v1[t] for s in v1 for t in v1})
+    m = level(levels[0], v1, 1, lambda lane: lane % 6)
+    t0, t1, t2 = m[0], m[1], m[2]
+    t3, t4, y3 = m[3] - (t0 + t1), m[4] - (t1 + t2), m[5] - (t0 + t2)
+    t2 = 9 * t2
+    vals = {"t3": t3, "t4": t4, "t0": 3 * t0, "z3": t1 + t2, "t1": t1 - t2, "y3": 9 * y3}
+    q = level(levels[1], vals, 2, lambda lane: lane % 6)
+    return (q[0] - q[1]).v, (q[2] + q[3]).v, (q[4] + q[5]).v
+
+
+def model_fold(win: list, c: int) -> tuple:
+    """horner_kernel: from the top window down, c doublings and one add."""
+    dbl, add = kernel_levels()
+    acc = win[-1]
+    for w in range(len(win) - 2, -1, -1):
+        for _ in range(c):
+            acc = model_dbl(acc, dbl)
+        acc = model_add(acc, win[w], add)
+    return acc
+
+
+def _mul(a: int, b: int) -> int:
+    return a * b * RINV % P
+
+
+def rcb_dbl(p: tuple) -> tuple:
+    """csrc/curve.cu::pdbl_rcb (RCB15 algorithm 9, b3 = 9), in its order."""
+    x, y, z = p
+    t0 = _mul(y, y)
+    z3 = 8 * t0 % P
+    t1 = _mul(y, z)
+    t2 = 9 * _mul(z, z) % P
+    x3 = _mul(t2, z3)
+    y3 = (t0 + t2) % P
+    z3 = _mul(t1, z3)
+    t0 = (t0 - 3 * t2) % P
+    y3 = (x3 + _mul(t0, y3)) % P
+    return 2 * _mul(t0, _mul(x, y)) % P, y3, z3
+
+
+def rcb_add(p: tuple, q: tuple) -> tuple:
+    """csrc/curve.cu::padd_rcb (RCB15 algorithm 7)."""
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    t0, t1, t2 = _mul(x1, x2), _mul(y1, y2), _mul(z1, z2)
+    t3 = (_mul(x1 + y1, x2 + y2) - t0 - t1) % P
+    t4 = (_mul(y1 + z1, y2 + z2) - t1 - t2) % P
+    y3 = 9 * ((_mul(x1 + z1, x2 + z2) - t0 - t2) % P) % P
+    t0, t2 = 3 * t0 % P, 9 * t2 % P
+    z3, t1 = (t1 + t2) % P, (t1 - t2) % P
+    return (_mul(t3, t1) - _mul(t4, y3)) % P, (_mul(t1, z3) + _mul(y3, t0)) % P, (_mul(z3, t4) + _mul(t0, t3)) % P
+
+
+def rcb_fold(win: list, c: int) -> tuple:
+    acc = win[-1]
+    for w in range(len(win) - 2, -1, -1):
+        for _ in range(c):
+            acc = rcb_dbl(acc)
+        acc = rcb_add(acc, win[w])
+    return acc
+
+
+# -- window sums: ints (Montgomery form) and (W, 16) limb tensors --
+
+def windows(W: int, seed: int) -> list:
+    """W projective points k_i G with random z (Montgomery form ints)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(W):
+        x, y = ch.pt_mul(ch.g1_gen(), int(rng.randint(1, 2**62)))
+        z = int(rng.randint(1, 2**62)) ** 4 % P
+        out.append((x * z * R % P, y * z * R % P, z * R % P))
+    return out
+
+
+def edge_windows(kind: str, W: int) -> list:
+    """Identity (0:1:0) windows (every third, or all), every window the same
+    point, or P and -P alternating."""
+    win = windows(W, 3)
+    if kind == "identity every third":
+        return [(0, R, 0) if i % 3 == 0 else w for i, w in enumerate(win)]
+    if kind == "identity all":
+        return [(0, R, 0)] * W
+    if kind == "all equal":
+        return [win[0]] * W
+    x, y, z = win[0]
+    return [(x, y, z) if i % 2 == 0 else (x, P - y, z) for i in range(W)]
+
+
+def _limbs(vals: list) -> torch.Tensor:
+    return torch.tensor([[(v >> (16 * i)) & 0xFFFF for i in range(16)] for v in vals], dtype=torch.int32)
+
+
+def _int(t) -> int:
+    return sum(int(v) << (16 * i) for i, v in enumerate(np.asarray(t).astype(np.int64).reshape(-1)))
+
+
+def plain(win: list, c: int) -> tuple:
+    x, y, z = (_limbs([w[k] for w in win]) for k in range(3))
+    return tuple(_int(t) for t in cc.horner_fold_plain(x, y, z, c))
+
+
+JAX_PROJ_G1 = JaxProjOps(jf.FqOps, 9, "g1_proj_generic")
+
+
+def jax_chains(cases: list) -> list:
+    """The JAX package's complete formulas, run eagerly on one batch: lane i
+    runs case i's chain (its windows, its c). The lanes share one sequence
+    of ops, that of the case with the most windows and the largest c; a
+    lane keeps its accumulator where its own chain has no such op (its
+    windows are the last ones of that sequence, its doublings the last of
+    each run)."""
+    Wm, cm = max(len(w) for w, _ in cases), max(c for _, c in cases)
+    win = [[w[i - (Wm - len(w))] if i >= Wm - len(w) else w[-1] for i in range(Wm)] for w, _ in cases]
+
+    def col(i, k):
+        return jnp.asarray(_limbs([w[i][k] for w in win]).numpy().view(np.uint32))
+
+    acc = JaxProj(*(col(Wm - 1, k) for k in range(3)))
+
+    def keep(mask, new, old):
+        m = jnp.asarray(mask)[:, None]
+        return JaxProj(*(jnp.where(m, a, b) for a, b in zip(new, old)))
+
+    for w in range(Wm - 2, -1, -1):
+        live = [w >= Wm - len(cw) for cw, _ in cases]
+        for d in range(cm):
+            acc = keep([lv and d >= cm - c for lv, (_, c) in zip(live, cases)], JAX_PROJ_G1.dbl(acc), acc)
+        acc = keep(live, JAX_PROJ_G1.add(acc, JaxProj(*(col(w, k) for k in range(3)))), acc)
+    return [tuple(_int(np.asarray(t)[i]) for t in acc) for i in range(len(cases))]
+
+
+def test_horner_level_schedule():
+    """The kernel's picks give each product its operands: a double's Y^2,
+    YZ, Z^2, XY then t2 z3, YZ z3, t0 y3, t0 XY; an add's six products of
+    the operands and their sums, then the six closing products; every
+    product of a level is written by exactly one lane and reads only values
+    of earlier levels (model_fold asserts that on every op it runs)."""
+    dbl, add = kernel_levels()
+    assert dbl == [[("y", "y"), ("y", "z"), ("z", "z"), ("x", "y")],
+                   [("t2", "z3"), ("yz", "z3"), ("t0", "y3"), ("t0", "xy")]]
+    assert add == [[("x1", "x2"), ("y1", "y2"), ("z1", "z2"), ("x1+y1", "x2+y2"), ("y1+z1", "y2+z2"),
+                    ("x1+z1", "x2+z2")],
+                   [("t3", "t1"), ("t4", "y3"), ("t1", "z3"), ("y3", "t0"), ("z3", "t4"), ("t0", "t3")]]
+    src = open(CURVE_CU).read()
+    assert re.search(r"constexpr int HORNER_THREADS = 32;", src)
+    assert "const int h = threadIdx.x & 3;" in src and "const int h = threadIdx.x % 6;" in src
+    win = windows(3, 1)
+    assert model_fold(win, 2) == rcb_fold(win, 2)
+    with pytest.raises(AssertionError, match="reads a value of level"):  # a level reading itself is caught
+        level([("y", "t")], {"y": Lv(1, 0), "t": Lv(2, 1)}, 1, lambda lane: 0)
+
+
+def test_horner_model_matches_plain_and_jax():
+    cases = [(windows(4, 11), 3), (windows(6, 12), 4)]
+    got = [model_fold(w, c) for w, c in cases]
+    assert got == [plain(w, c) for w, c in cases]
+    assert got == jax_chains(cases)
+
+
+@pytest.mark.parametrize("log2n", [12, 16, 20])
+def test_horner_model_matches_rcb_fold(log2n):
+    """At the (W, c) msm_gpu gives the fold for 2^log2n points."""
+    c = TorchBackend.msm_params(1 << log2n)[0]
+    W = -(-254 // c)  # signed-digit windows, msm.pippenger.signed_digits_for_windows
+    win = windows(W, log2n)
+    win[W // 2] = (0, R, 0)  # an empty window
+    assert model_fold(win, c) == rcb_fold(win, c)
+
+
+@pytest.mark.parametrize("kind", ["identity every third", "identity all", "all equal", "P and -P", "W=2"])
+def test_horner_model_on_edge_windows(kind):
+    """Small folds against the plain version, at c=0 too (an add of equal
+    points doubles, P + (-P) cancels); the same windows at W=20, c=13
+    against the Python-int fold."""
+    if kind == "W=2":
+        small, big = windows(2, 5), windows(2, 6)
+    else:
+        small, big = edge_windows(kind, 6), edge_windows(kind, 20)
+    for c in (0, 4):
+        assert model_fold(small, c) == plain(small, c), f"c={c}"
+    assert model_fold(big, 13) == rcb_fold(big, 13)

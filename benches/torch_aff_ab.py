@@ -2,7 +2,7 @@
 two kernel libraries.
 
     python3 benches/torch_aff_ab.py --old build/old [--kernels pairs,halves,others,inv,g2,k_add]
-        [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8]
+        [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8] [--only pmadd_rcb,l1_rcb_mega]
 
 --old is a directory holding an older commit's csrc sources, all of them
 or some (a .cu includes the field.cuh of its own directory, so each .cu
@@ -24,8 +24,8 @@ this tree's wrappers.
 
 Each --variant is a csrc source of this tree changed (a curve.cu with
 other launch bounds, say): a library is built with it swapped in, and the
-two affine pairs and horner_fold are timed from it too ("variant <i>",
-after "new" in the turns).
+two affine pairs, horner_fold, pmadd_rcb and l1_rcb_mega are timed from it
+too ("variant <i>", after "new" in the turns).
 
 --kernels picks the sections, run in this order (all by default). Each
 times its kernels from both libraries in turns (old, new, new, old;
@@ -45,7 +45,11 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   at 2^18 lanes with chip_smoke's edge lanes; horner_fold at the (W, c)
   of the 2^20, 2^16, 2^15 and 2^12 MSMs and at W=20, c=0; l1_rcb_mega on the
   2^16 slab; aff_prep, aff_fin), both libraries equal to the plain version
-  limb for limb; then the Horner chain's latency a point op, from the c=13
+  limb for limb; and pmadd_rcb and l1_rcb_mega at the widths the main paths
+  launch them at (route (c)'s level-1 step, 734,740 lanes at 2^20 points
+  (chip_smoke.g1_level1_inputs); the 2^20 v9 slab in both layouts; route
+  (b)'s L=24 slab), the libraries equal to each other; --only keeps the
+  rows of the kernels it names; then the Horner chain's latency a point op, from the c=13
   and c=0 times, and one product's latency in the old one-thread body
   (from its products and additions a double and an add), times the new
   chain's dependent product levels: a diagnostic, not a bound;
@@ -185,6 +189,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--variant", nargs="*", default=[], help="changed csrc sources of this tree to time too")
     ap.add_argument("--k-add", default="2,4,8", help="lanes a thread of this tree's affine pair to time")
+    ap.add_argument("--only", help="comma-separated kernel names: the rows of the others section to run")
     args = ap.parse_args()
     sections = args.kernels.split(",")
     if not set(sections) <= set(SECTIONS):
@@ -224,9 +229,11 @@ def main() -> int:
         sass = sass_counts(cs, path)
         if label == "this tree":
             new_sass = sass
+        resident = cuda_lib.occupancy(ctypes.CDLL(path))
         for name, regs, spill in cs.ptxas_summary(report):
             total, loop = sass.get(name, (0, 0))
-            print(f"[ptxas] {label} {name}: {regs} registers, {spill} bytes spilled, SASS {total} instructions, "
+            print(f"[ptxas] {label} {name}: {regs} registers, {spill} bytes spilled, "
+                  f"{resident.get(name, 'not queried')} blocks an SM, SASS {total} instructions, "
                   f"{loop} in its longest loop")
 
     bound = cs.Bound()
@@ -366,34 +373,58 @@ def main() -> int:
                                            cs.rand_limbs(cs.N_PLAN, gen), 11, 32)
         ncols = meta[4]
         others.append(("l1_rcb_mega", f"{ncols} columns x L=32", lambda: tuple(cc.l1_rcb_mega(slab, 32)),
-                       lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)),
-                       (ncols * (32 * 64 + 192), cs.g1_work("pmadd_rcb", cs.slab_adds(slab, 32)))))
+                       lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)), cs.mega_work(slab, 32)))
+        # pmadd_rcb and l1_rcb_mega at the widths the main paths launch them at: route (c)'s level-1
+        # step (the 2^20 v9 slab's columns after 3 steps), that slab in both layouts, and route (b)'s
+        # L=24 slab; no plain version (chip_smoke.py holds them to it): the libraries equal each other
+        sc20 = torch.randint(0, 1 << 16, (n_pts, 16), generator=gen, device=DEVICE, dtype=torch.int32)
+        sc20[:, 15] %= 0x3064
+        slab20 = pip._plan_sorted_w(ax, ay, sc20, c, L)[0]
+        slab20_t = slab20.t().contiguous()
+        slab24 = pip._plan_sorted_w(ax, ay, sc20, c, 24)[0]
+        pargs = cs.g1_level1_inputs(pip, slab20, L)
+        m = pargs[0].shape[0]
+        sentinels = int((pargs[4] == 0).all(-1).sum())
+        others.append(("pmadd_rcb", f"{m} lanes (route (c)'s step)", lambda: tuple(cc.pmadd_rcb(*pargs)), None,
+                       (8 * 64 * m, cs.g1_work("pmadd_rcb", m - sentinels))))
+        for label, v, lL, tr, wslab in (("rows", slab20, L, False, slab20), ("transposed", slab20_t, L, True, slab20),
+                                        ("rows", slab24, 24, False, slab24)):
+            others.append(("l1_rcb_mega", f"{wslab.shape[0]} columns x L={lL} ({label}, 2^{n_pts.bit_length() - 1} "
+                                          f"points)", lambda v=v, lL=lL, tr=tr: tuple(cc.l1_rcb_mega(v, lL, tr)),
+                           None, cs.mega_work(wslab, lL)))
+        if args.only:
+            others = [o for o in others if o[0] in args.only.split(",")]
         horner_ms = {}
         for name, shape, fn, plain, work in others:
-            ref = plain()
-            libs = {"old": old, "new": new, **(variants if name == "horner_fold" else {})}
+            ref = plain() if plain else None
+            libs = {"old": old, "new": new, **(variants if name in ("horner_fold", "pmadd_rcb", "l1_rcb_mega")
+                                               else {})}
             for label, lib in libs.items():
                 with cuda_lib.using(lib):
-                    err = cs.max_abs_err(fn(), ref)
-                cs.require(err == 0, f"{name} {shape} from the {label} library differs from its plain version")
+                    got = fn()
+                ref = got if ref is None else ref  # without a plain version, the libraries equal the first
+                err = cs.max_abs_err(got, ref)
+                cs.require(err == 0, f"{name} {shape} from the {label} library differs from the "
+                                     + ("plain version" if plain else "old library"))
             ms = in_turns(name, shape, {label: using(lib, fn) for label, lib in libs.items()}, work)
             if name == "horner_fold":
                 horner_ms[shape] = {k: min(v) for k, v in ms.items()}
-        # the Horner chain's latency: (W-1) adds at c=0, 13 (W-1) doublings more at c=13; the old
-        # one-thread body runs 8 products and 13 field additions a double, 12 and 27 an add, in
-        # program order (the carry chains are volatile), which gives one product's latency there
-        full, adds = horner_ms["W=20, c=13"], horner_ms["W=20, c=0"]
-        per = {k: (adds[k] / 19, (full[k] - adds[k]) / (19 * 13)) for k in full}
-        a_old, d_old = per["old"]
-        prod_us = (27 * d_old - 13 * a_old) / (27 * 8 - 13 * 12) * 1e3
-        add_us = (d_old * 1e3 - 8 * prod_us) / 13
-        levels = 2 * 19 * 14
-        print("[horner] per point op (W=20): " + "; ".join(f"{k} double {d * 1e3:.3f} us, add {a * 1e3:.3f} us"
-                                                        for k, (a, d) in per.items())
-              + f"; the old body's product ~{prod_us:.3f} us, field "
-              f"addition ~{add_us:.3f} us; the new chain's {levels} dependent product levels x one product = "
-              f"{levels * prod_us / 1e3:.3f} ms (a latency diagnostic, not a bound) against {full['new']:.3f} ms; "
-              f"on {card}", flush=True)
+        if {"W=20, c=13", "W=20, c=0"} <= set(horner_ms):  # both Horner rows ran (not cut by --only)
+            # the Horner chain's latency: (W-1) adds at c=0, 13 (W-1) doublings more at c=13; the old
+            # one-thread body runs 8 products and 13 field additions a double, 12 and 27 an add, in
+            # program order (the carry chains are volatile), which gives one product's latency there
+            full, adds = horner_ms["W=20, c=13"], horner_ms["W=20, c=0"]
+            per = {k: (adds[k] / 19, (full[k] - adds[k]) / (19 * 13)) for k in full}
+            a_old, d_old = per["old"]
+            prod_us = (27 * d_old - 13 * a_old) / (27 * 8 - 13 * 12) * 1e3
+            add_us = (d_old * 1e3 - 8 * prod_us) / 13
+            levels = 2 * 19 * 14
+            print("[horner] per point op (W=20): " + "; ".join(f"{k} double {d * 1e3:.3f} us, add {a * 1e3:.3f} us"
+                                                            for k, (a, d) in per.items())
+                  + f"; the old body's product ~{prod_us:.3f} us, field "
+                  f"addition ~{add_us:.3f} us; the new chain's {levels} dependent product levels x one product = "
+                  f"{levels * prod_us / 1e3:.3f} ms (a latency diagnostic, not a bound) against {full['new']:.3f} ms; "
+                  f"on {card}", flush=True)
 
     if "inv" in sections:
         fids = {"fq": 0, "fr": 1, "fq_bls381": 2}

@@ -28,7 +28,8 @@ infinity sentinel; random scalars below r) along its one route (sort plan,
 projective steps; the Horner is `_horner_generic`), and inside level 1 and
 the Horner also the spans of `_mixed_step`'s `unpack_words` and of the three
 G2 kernel wrappers, each summed over the call ("of which" columns after the
-total, left out of "other"). Then the G2 Horner of one call alone, from each
+total, left out of "other"); on BN254 the same columns give the spans of
+`unpack_words` and of the `pmadd_rcb` wrapper (route (c)'s steps). Then the G2 Horner of one call alone, from each
 library (g2_horner_clocks): its host clock over its launches against its
 kernels' device time a launch (torch.profiler), and the share of the host
 span the device was busy.
@@ -65,7 +66,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
-NESTED = ("unpack_words", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2")  # spans inside the stages (G2)
+# spans inside the stages, by curve: G2's level 1 and Horner; BN254 route (c)'s steps
+NESTED = {"g2": ("unpack_words", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"), "bn254": ("unpack_words", "pmadd_rcb"),
+          "bls12_381": ()}
 STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", "_level1_pair", "l1_aff_halves_t",
           "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold",
           "_horner_generic")
@@ -203,8 +206,9 @@ def main() -> int:
     for name, fn in plain.items():
         setattr(pip, name, timed(name, fn))
     nested = {}
-    if args.curve == "g2":
-        for name in NESTED:
+    nested_names = NESTED[args.curve]
+    if nested_names:
+        for name in nested_names:
             mod = pip if name == "unpack_words" else cc
             nested[name] = (mod, getattr(mod, name))
             setattr(mod, name, timed(name, nested[name][1]))
@@ -231,16 +235,16 @@ def main() -> int:
             for name, s, e in spans:
                 per[name] = per.get(name, 0.0) + s.elapsed_time(e)
             per["total"] = start.elapsed_time(end)
-            per["other"] = per["total"] - sum(v for k, v in per.items() if k not in NESTED + ("total",))
+            per["other"] = per["total"] - sum(v for k, v in per.items() if k not in nested_names + ("total",))
             runs[label].append(per)
     for label, rl, route, m in routes:
         rows = runs[label]
-        keys = [k for k in rows[0] if k not in NESTED + ("total", "other")] + ["other", "total"]
-        keys += [k for k in NESTED if k in rows[0]]  # summed over the stages they run in
+        keys = [k for k in rows[0] if k not in nested_names + ("total", "other")] + ["other", "total"]
+        keys += [k for k in nested_names if k in rows[0]]  # summed over the stages they run in
         med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
         accum, level1, plan = pip.resolve_route(curve, rl, **route)
         print(f"[stages] {label} accum={accum} level1={level1} plan={plan} {m} points, c={c}, L={rl}: "
-              + ", ".join(f"{'of which ' if k in NESTED else ''}{k.strip('_')} {med[k]:.2f}" for k in keys)
+              + ", ".join(f"{'of which ' if k in nested_names else ''}{k.strip('_')} {med[k]:.2f}" for k in keys)
               + f" ms (median of {args.reps}; totals "
               + ", ".join(f"{r['total']:.1f}" for r in rows) + f") on {card}")
 

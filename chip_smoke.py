@@ -23,9 +23,15 @@ native host library). Phases, one line each, every failure raises:
      torch.profiler) and on 2^18 edge lanes as unaligned views;
      l1_aff_halves and l1_aff_halves_t on the G1 MSM's own v9 slab (734,740 columns x 32 at 2^20 points; one launch is one level 1),
      every column against the plain version, and on a 2^16-point plan's
-     slab (lines of their own); aff_add_fused and aff_add_mixed_packed on
+     slab (lines of their own); l1_rcb_mega on the same v9 slab (its row;
+     the transposed layout a line), on route (b)'s L=24 slab in both
+     layouts and on the 2^16-point slab (lines), every column against the
+     plain version; pmadd_rcb at route (c)'s width (the v9 slab's columns
+     after 3 level-1 steps; its row) and on 2^18 edge lanes, also as
+     unaligned views (a line); aff_add_fused and aff_add_mixed_packed on
      2^18 edge lanes (lines of their own; their rows come after the main
-     paths, below); no kernel may spill;
+     paths, below); no kernel may spill, and each kernel's registers,
+     spills and resident blocks an SM (CUDA's occupancy query) are printed;
   3. the main paths, each driven with every launch count set to 0 just
      before it and read just after it:
      - msm_g1: the G1 MSM at 2^20 points against a closed-form host result;
@@ -79,8 +85,9 @@ native host library). Phases, one line each, every failure raises:
      at the one launched most often, on edge window sums
      (horner_edge_sets) and at its widest W, one window more refused;
   4. coverage: every kernel of each path was launched in that path's run,
-     the point-op kernels' launches by width (lanes) and horner_fold's by
-     (W, c), summed over the main paths, are printed,
+     the point-op kernels' launches by width (lanes), the level-1 slab
+     kernels' by (columns, L) and horner_fold's by (W, c), summed over the
+     main paths, are printed, every width and the lanes summed,
      fermat_inv as often as its callers (tf.batch_inv, to_affine_device)
      were called on CUDA tensors,
      no path but msm_routes launched one of ROUTE_KERNELS, none but
@@ -194,26 +201,39 @@ def g1_products(products: float, squares: float) -> float:
 # affine sum from 1/den is lambda, lambda^2 and lambda (x1 - x3) (Montgomery's
 # trick adds 3 products an add, a doubling lane the square x1^2);
 # madd-2007-bl 7 and 4, its doubling escape dbl-2009-l 2 and 5, add-2007-bl
-# 11 and 5; the RCB mixed add 11 and 0, add 12 and 0, double 6 and 2.
-G1_OPS = {"aff_sum": (2, 1), "madd": (7, 4), "dbl": (2, 5), "add": (11, 5),
-          "pmadd_rcb": (11, 0), "padd_rcb": (12, 0), "pdbl_rcb": (6, 2)}
+# 11 and 5. The RCB ops are counted by lazy_products (RCB_G1_PRODUCTS).
+G1_OPS = {"aff_sum": (2, 1), "madd": (7, 4), "dbl": (2, 5), "add": (11, 5)}
+
+
+def lazy_products(wide: int, reductions: int, nw: int = 8, squares: int = 0) -> float:
+    """The 32-bit multiplies of `wide` nw x nw-word products (nw^2 word
+    products, each a low and a high multiply), `squares` wide squares
+    (nw (nw+1) / 2 word products) and `reductions` Montgomery reductions of
+    a 2nw-word value (nw^2 m*p_j, low and high, and nw m = t0*ninv), in
+    CIOS products' worth (muls_per_product): the least a formula needs with
+    one reduction a result, a sum of two products reduced once (lazy
+    reduction); on Fq2, Karatsuba's 3 wide products an Fq2 product (2 a
+    square)."""
+    return (wide * 2 * nw * nw + squares * nw * (nw + 1) + reductions * (2 * nw * nw + nw)) / muls_per_product(nw)
+
+
+# What the G1 RCB ops need a lane (lazy_products): a mixed add is 11
+# products and 8 results, 3 of them sums of two products (the closing x3,
+# y3, z3); an add 12 products and 9 results (3 sums); a double 6 products
+# and 2 squares and 7 results (y3 = t2 z3 + t0 y3 a sum). By CIOS
+# products (muls_per_product, muls_per_square) they were 11, 12 and 6 + 2
+# squares: 2,904, 3,168 and 2,000 multiplies against 2,496, 2,760 and 1,864.
+RCB_G1_PRODUCTS = {"pmadd_rcb": lazy_products(11, 8), "padd_rcb": lazy_products(12, 9),
+                   "pdbl_rcb": lazy_products(6, 7, squares=2)}
 
 
 def g1_work(op: str, lanes: float) -> float:
-    """The products of `lanes` lanes of the G1 op `op` (G1_OPS)."""
+    """The products of `lanes` lanes of the G1 op `op` (G1_OPS, or
+    RCB_G1_PRODUCTS for the RCB ops)."""
+    if op in RCB_G1_PRODUCTS:
+        return RCB_G1_PRODUCTS[op] * lanes
     products, squares = G1_OPS[op]
     return g1_products(products * lanes, squares * lanes)
-
-
-def lazy_products(wide: int, reductions: int, nw: int = 8) -> float:
-    """The 32-bit multiplies of `wide` nw x nw-word products (nw^2 word
-    products, each a low and a high multiply) and `reductions` Montgomery
-    reductions of a 2nw-word value (nw^2 m*p_j, low and high, and nw m =
-    t0*ninv), in CIOS products' worth (muls_per_product): the least an
-    Fq2 formula needs, with Karatsuba's 3 wide products an Fq2 product (2
-    a square) and one reduction a component of each result, a sum of two
-    products reduced once (lazy reduction)."""
-    return (wide * 2 * nw * nw + reductions * (2 * nw * nw + nw)) / muls_per_product(nw)
 
 
 # What the G2 RCB ops need a lane (lazy_products): a mixed add is 13 Fq2
@@ -694,6 +714,31 @@ def g2_level1_inputs(pip, g2x, g2y, sc, c: int, L: int, steps: int = 3) -> tuple
     return ncols, (*acc, ax, ay), (*acc, *nxt)
 
 
+def g1_level1_inputs(pip, slab, L: int, steps: int = 3) -> tuple:
+    """pmadd_rcb's inputs at route (c)'s width, the columns of the G1 MSM's
+    (ncols, L*16) level-1 slab: the accumulators after `steps` level-1
+    steps (route (c)'s `_mixed_step`, on the kernel) with the next step's
+    affine operands (the (0,0) sentinel in columns that have no more
+    points)."""
+    from hekaton_tpu_torch.curves.proj import PROJ_G1
+
+    ncols = slab.shape[0]
+    step = pip._mixed_step(PROJ_G1, (16,))
+    acc = PROJ_G1.inf((ncols,), slab.device)
+    for g in range(steps):
+        acc = step(acc, slab[:, g * 16 : (g + 1) * 16])
+    blk = slab[:, steps * 16 : (steps + 1) * 16]
+    return (*acc, pip.unpack_words(blk[:, :8]).contiguous(), pip.unpack_words(blk[:, 8:]).contiguous())
+
+
+def mega_work(slab, L: int) -> tuple:
+    """The bound's work of l1_rcb_mega on the (ncols, L*16) slab: the slab
+    read once and the three (ncols, 16) limb rows written once; a mixed add
+    for each add the level 1 needs (slab_adds: a sentinel row, and a
+    column's first point, need none)."""
+    return slab.shape[0] * (L * 64 + 192), g1_work("pmadd_rcb", slab_adds(slab, L))
+
+
 def root_width_sweep(tf, cf, calls: dict, gen, reps: int = 5) -> dict:
     """Device ms of tf._batch_inv at every root width of ROOT_WIDTHS on
     random lanes at each (spec, lanes) key of `calls`, the widths in turns
@@ -741,8 +786,8 @@ def inv_rows(tf, cf, bound, inv_calls: dict, totals: dict, gen) -> list:
         require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
         require(bool(widths), f"{name}: no main path launched it")
         ranked = sorted(widths, key=lambda k: (-widths[k], -k[1]))
-        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths): "
-            + ", ".join(f"{spec.name} {m} x{widths[(spec, m)]}" for spec, m in ranked[:12]))
+        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths, "
+            f"{width_lanes(name, widths)}): " + width_list(name, widths))
         most = ranked[0]
         for spec, m in dict.fromkeys([max(widths, key=lambda k: k[1]),
                                       max(widths, key=lambda k: (widths[k] * k[1], k[1]))]):
@@ -814,8 +859,8 @@ def aff_rows(tf, cc, bound, aff_calls: dict, totals: dict, ax, ay) -> list:
         require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
         require(bool(widths), f"{name}: no main path launched it")
         ranked = sorted(widths, key=lambda m: (-widths[m], -m))
-        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths): "
-            + ", ".join(f"{m} x{widths[m]}" for m in ranked[:12]))
+        log(f"[kernels] {name} launches by width on the main paths ({len(widths)} widths, "
+            f"{width_lanes(name, widths)}): " + width_list(name, widths))
         fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
         for m in dict.fromkeys([max(widths), max(widths, key=lambda m: (widths[m] * m, m)), ranked[0]]):
             x1, y1, x2, y2 = aff_edge_lanes(tf, ax, ay, m)
@@ -854,6 +899,35 @@ def sweep_summary(inv_calls: dict, sweep: dict) -> str:
         f"{s} {m} lanes " + ", ".join(f"{stop or 'no tree'} {sweep[(s, m)][stop]:.4f}" for stop in ROOT_WIDTHS)
         for s, m in dict.fromkeys(named)))
     return " | ".join(parts)
+
+
+def width_list(name: str, widths: dict) -> str:
+    """Every width of `widths` ({width: launches}) with its launches, the
+    most launched first: lanes, (columns, L) of a level-1 slab kernel,
+    (W, c) of horner_fold, or (field, lanes) of fermat_inv."""
+    def label(k):
+        if name == "horner_fold":
+            return "W={}, c={}".format(*k)
+        if isinstance(k, tuple):
+            return f"{k[0].name} {k[1]}" if hasattr(k[0], "name") else f"{k[0]} columns x L={k[1]}"
+        return str(k)
+
+    def lanes(k):
+        return k[1] if isinstance(k, tuple) and hasattr(k[0], "name") else (k[0] if isinstance(k, tuple) else k)
+
+    ranked = sorted(widths, key=lambda k: (-widths[k], -lanes(k)))
+    return ", ".join(f"{label(k)} x{widths[k]}" for k in ranked)
+
+
+def width_lanes(name: str, widths: dict) -> str:
+    """The lanes summed over the launches of `widths` (a level-1 slab
+    kernel's columns; a horner_fold launch is one fold)."""
+    if name == "horner_fold":
+        return f"{sum(widths.values())} folds"
+    unit = "columns" if any(isinstance(k, tuple) and not hasattr(k[0], "name") for k in widths) else "lanes"
+    total = sum(n * (k[1] if hasattr(k[0], "name") else k[0]) if isinstance(k, tuple) else n * k
+                for k, n in widths.items())
+    return f"{total:,} {unit} in all"
 
 
 def kernel_row(bound, name, source, replaces, ms, plain_ms, err, work, library_ms=None, field=None) -> dict:
@@ -1012,7 +1086,46 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
         record(name, "hekaton_tpu_torch/csrc/curve.cu", f"hekaton_tpu/curves/pallas_curve.py:{906 if tr else 930}",
                cuda_ms(lambda: fn(v, mL), 5), plain_ms, err, work)
         del ref
-    del slab, v, got, sums
+    del v, got, sums
+
+    # l1_rcb_mega on the same slab, as routes (a), (e) and (g) launch it (one
+    # launch is one level 1): the row in the rows layout, a line in the
+    # transposed one, each held against its plain version over every
+    # column; then at L=24 (route (b)) on its own plan's slab, a line
+    for label, lslab, lL in (("v9", slab, mL), ("L=24", pip._plan_sorted_w(ax, ay, sc, mc, 24)[0], 24)):
+        lcols = lslab.shape[0]
+        work = mega_work(lslab, lL)
+        for tr in (False, True):
+            v = lslab.t().contiguous() if tr else lslab
+            got = cc.l1_rcb_mega(v, lL, transposed=tr)
+            ref, plain_ms = timed_once(lambda: cc.l1_rcb_mega_plain(v, lL, transposed=tr))
+            err = max_abs_err(got, ref)
+            ms = cuda_ms(lambda: cc.l1_rcb_mega(v, lL, transposed=tr), 10)
+            del ref
+            if label == "v9" and not tr:
+                rows.append({**kernel_row(bound, "l1_rcb_mega", "hekaton_tpu_torch/csrc/curve.cu",
+                                          "hekaton_tpu/curves/pallas_curve.py:572", ms, plain_ms, err, work),
+                             "shape": f"{lcols} columns x L={lL} (the {ax.shape[0]}-point v9 slab)"})
+                continue
+            require(err == 0, f"l1_rcb_mega ({label}, {'transposed' if tr else 'rows'}): kernel differs from its "
+                              f"plain version (max abs err {err})")
+            log(f"[kernels] l1_rcb_mega on the {label} slab ({lcols} columns x L={lL}, "
+                f"{'transposed' if tr else 'rows'}): bit-identical over every column, kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]}: {slab_adds(lslab, lL)} adds)")
+        del v, got
+    # pmadd_rcb at route (c)'s width: the v9 slab's columns after 3 level-1
+    # steps and the 4th step's operands, every lane held against the plain
+    # version: the row
+    pargs = g1_level1_inputs(pip, slab, mL)
+    m = pargs[0].shape[0]
+    ref, plain_ms = timed_once(lambda: cc.pmadd_rcb_plain(*pargs))
+    err = max_abs_err(cc.pmadd_rcb(*pargs), ref)
+    sentinels = int((pargs[4] == 0).all(-1).sum())
+    rows.append({**kernel_row(bound, "pmadd_rcb", "hekaton_tpu_torch/csrc/curve.cu",
+                              "hekaton_tpu/curves/pallas_curve.py:1293", cuda_ms(lambda: cc.pmadd_rcb(*pargs), 10),
+                              plain_ms, err, (8 * 64 * m, g1_work("pmadd_rcb", m - sentinels))),
+                 "shape": f"{m} lanes (route (c)'s level-1 step 4; {sentinels} sentinel lanes)"})
+    del slab, pargs, ref
     m = N_PLAN
     c, L = 11, 32
     scal = torch.randint(0, 1 << 16, (m, 16), generator=gen, device=DEVICE, dtype=torch.int32)
@@ -1077,9 +1190,16 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
                                                ((*gp, bx, by), (*gp, *gq), tuple(gp)), (8, 9, 6), products):
             fn, plain = getattr(cc, op + sfx), getattr(cc, op + sfx + "_plain")
             err = max_abs_err(fn(*kargs), plain(*kargs))
+            work = (nio * coord_bytes * n, prods * n)
+            if op + sfx == "pmadd_rcb":  # its row is at route (c)'s width (above); here its edge lanes, also unaligned
+                err = max(err, max_abs_err(fn(*map(unaligned, kargs)), plain(*kargs)))
+                require(err == 0, f"pmadd_rcb at {n} edge lanes: kernel differs from its plain version (max abs "
+                                  f"err {err})")
+                log(f"[kernels] pmadd_rcb at {n} edge lanes (also as unaligned views): bit-identical, kernel "
+                    f"{cuda_ms(lambda: fn(*kargs), 10):.4f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
+                continue
             record(op + sfx, f"hekaton_tpu_torch/csrc/{src}", f"hekaton_tpu/curves/pallas_curve.py:{line}",
-                   cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err,
-                   (nio * coord_bytes * n, prods * n))
+                   cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err, work)
 
     # pmadd_rcb_g2 and padd_rcb_g2 at the G2 MSM's own level-1 width, every
     # lane against the plain version: lines of their own, not rows
@@ -1115,23 +1235,19 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
         + (f"{dev:.2f} us (torch.profiler)" if dev is not None
            else f"not measured (the profiler's trace holds {count} of 50 launches)"))
 
-    # l1_rcb_mega: the l1_aff_halves slab above (L=32), 11 products an add
-    # (slab_adds: a sentinel row needs none)
+    # l1_rcb_mega on the 2^16-point plan's slab above (L=32) in both layouts,
+    # also as an unaligned view: a line (its row is at the v9 slab, above)
     got = cc.l1_rcb_mega(slab, L)
-    err = max_abs_err(got, cc.l1_rcb_mega_plain(slab, L))
-    mega_work = (ncols * (L * 64 + 192), g1_work("pmadd_rcb", slab_adds(slab, L)))
-    record("l1_rcb_mega", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:572",
-           cuda_ms(lambda: cc.l1_rcb_mega(slab, L), 10), cuda_ms(lambda: cc.l1_rcb_mega_plain(slab, L), 1),
-           err, mega_work)
-    # the same kernel on the transposed slab (the tsort route's layout): a
-    # line of its own, not a row
     got_t = cc.l1_rcb_mega(slab_t, L, transposed=True)
-    err = max(max_abs_err(got_t, cc.l1_rcb_mega_plain(slab_t, L, transposed=True)), max_abs_err(got_t, got))
-    require(err == 0, f"l1_rcb_mega (transposed): kernel differs from its plain version (max abs err {err})")
-    ms_t = cuda_ms(lambda: cc.l1_rcb_mega(slab_t, L, transposed=True), 10)
-    plain_t = cuda_ms(lambda: cc.l1_rcb_mega_plain(slab_t, L, transposed=True), 1)
-    log(f"[kernels] l1_rcb_mega (transposed, {L * 16} x {ncols}): bit-identical, kernel {ms_t:.3f} ms, "
-        f"plain {plain_t:.3f} ms, bound {bound(*mega_work)[0]:.4f} ms ({bound(*mega_work)[1]})")
+    err = max(max_abs_err(got, cc.l1_rcb_mega_plain(slab, L)), max_abs_err(got_t, got),
+              max_abs_err(got_t, cc.l1_rcb_mega_plain(slab_t, L, transposed=True)),
+              max_abs_err(cc.l1_rcb_mega(unaligned(slab), L), got))
+    require(err == 0, f"l1_rcb_mega at {ncols} columns: kernel differs from its plain version (max abs err {err})")
+    work = mega_work(slab, L)
+    log(f"[kernels] l1_rcb_mega on a {N_PLAN}-point plan's slab ({ncols} columns x L={L}): bit-identical, kernel "
+        f"{cuda_ms(lambda: cc.l1_rcb_mega(slab, L), 10):.3f} ms (rows), "
+        f"{cuda_ms(lambda: cc.l1_rcb_mega(slab_t, L, transposed=True), 10):.3f} ms (transposed), bound "
+        f"{bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
     return rows
 
 
@@ -1444,8 +1560,10 @@ def main() -> int:
     path, report = cuda_lib.build()
     cuda_lib.lib()
     log(f"[device] kernels built in {time.perf_counter() - t:.1f} s -> {os.path.basename(path)}")
+    resident = cuda_lib.occupancy(cuda_lib.lib())
     for name, regs, spill in ptxas_summary(report):
-        log(f"[device] {name}: {regs} registers, {spill} bytes spilled")
+        log(f"[device] {name}: {regs} registers, {spill} bytes spilled, "
+            f"{resident.get(name, 'not queried')} blocks an SM (occupancy query)")
         require(spill == 0, f"{name} spills {spill} bytes")
     bound = Bound()
     log(f"[device] bound: {bound.sms} SMs at {bound.clock_hz / 1e6:.0f} MHz max, "
@@ -1560,6 +1678,21 @@ def main() -> int:
         return fold(x, y, z, c)
 
     pip.horner_fold = recorded_fold
+
+    # the level-1 slab kernels' launches by (columns, L): pippenger imports
+    # them by name and calls them with the slab first
+    def recorded_slab(fn, transposed: bool):
+        def run(slab, L, *rest, **kw):
+            tr = transposed or bool(rest and rest[0]) or kw.get("transposed", False)
+            ncols = slab.shape[1] if tr else slab.shape[0]
+            launches = ncols > 0 and (fn.__name__ == "l1_rcb_mega" or L > 1)  # the halves skip L = 1
+            if path_now[0] is not None and slab.is_cuda and launches:
+                record_width(fn.__name__, (ncols, L))
+            return fn(slab, L, *rest, **kw)
+        return run
+
+    for name, tr in (("l1_rcb_mega", False), ("l1_aff_halves", False), ("l1_aff_halves_t", True)):
+        setattr(pip, name, recorded_slab(getattr(pip, name), tr))
 
     def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
@@ -1777,10 +1910,8 @@ def main() -> int:
     log(f"[coverage] kernel launches over the main paths: {totals}")
     for name, widths in sorted(op_calls.items()):
         require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
-        ranked = sorted(widths, key=lambda m: -widths[m])
-        log(f"[coverage] {name} launches by width on the main paths ({len(widths)} widths): "
-            + ", ".join(f"{'W={}, c={}'.format(*m) if name == 'horner_fold' else m} x{widths[m]}"
-                        for m in ranked[:12]))
+        log(f"[coverage] {name} launches by width on the main paths ({len(widths)} widths, "
+            f"{width_lanes(name, widths)}): " + width_list(name, widths))
     require(set(op_calls) >= {"horner_fold", "pdbl_rcb_g2"}, f"widths recorded for {sorted(op_calls)} only")
     path_now[0] = None
     ax, ay = torch.from_numpy(ax_np).to(DEVICE), torch.from_numpy(ay_np).to(DEVICE)

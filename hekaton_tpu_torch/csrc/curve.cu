@@ -94,12 +94,34 @@
 //
 // The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
 // projective formulas of curves/proj.py, with no escapes) are the same
-// design: one thread per lane on (n, 16) limb rows. A mixed add is 11
-// products against 512 bytes in and out, an add 12 against 576, a double 8
-// (2 of them squares) against 384: 5.6-6.4 multiplies per byte, bound by
-// integer multiply throughput once the card is full. They reuse the padd_rcb
-// and pdbl_rcb device functions of the Horner fold; pmadd_rcb mirrors the G2
-// one in curve_g2.cu, with its one select for the affine (0,0) sentinel.
+// design: one thread per lane on (n, 16) limb rows. An add is 12 products
+// against 576 bytes in and out, a double 8 (2 of them squares) against 384,
+// bound by integer multiply throughput once the card is full. padd_rcb and
+// pdbl_rcb run on canonical values and full products.
+//
+// The mixed add (pmadd_rcb, and every add of l1_rcb_mega) runs on lazy
+// sums: its values between products may exceed p, as far as each product's
+// 16-word sum stays below p 2^256, and each closing coordinate (x3 = t3 t1
+// - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3) is one sum of two wide
+// products and one reduction (fe_dot): 11 wide products and 8 reductions,
+// 2,496 32-bit multiplies against 2,904 for 11 full products, and fewer
+// modular additions (t4, z3 and t1 - t2 stay lazy, below 2p). Its products
+// run by product scanning (col_dot): column by column into a three-register
+// accumulator whose 64-bit pair stays put, where field.cuh's row chains
+// (mac_row) add each 64-bit product (IMAD.WIDE) into another pair of the
+// 16-word sum and ptxas re-pairs the words for it with moves: ~1,070 a
+// mixed add (676 MOV, 394 IMAD.MOV), gone; 2,840 SASS instructions against
+// 3,552. Its rows move 16 bytes at a time. Held to 128 registers
+// (__launch_bounds__(128, 4); 122 used), it keeps 16 warps an SM where the
+// full-product body (148-150 registers) kept 12. On one H100 80GB HBM3
+// (700 W), in turns with that body (benches/torch_aff_ab.py): pmadd_rcb
+// 0.073 ms against 0.20 at 2^18 lanes, 0.16 against 0.50 at route (c)'s
+// 734,740, its bound 0.11 ms (bytes: 512 a lane); the 2^20 MSM's mega
+// level 1 (734,740 columns x 32) 4.3 ms against 6.9 in either layout, its
+// bound 3.03 (multiplies); on the row chains 0.079, 0.18 and 4.8-4.9 ms
+// (PERF.md). The mixed add needs no escape: the (0,0) sentinel operand
+// (ay = 0 only there) keeps P, by a branch around the op, so that P need
+// not stay live through it.
 //
 // l1_rcb_mega is MSM level 1 on the accum="proj" routes: per column of the
 // (ncols, L*16) packed slab, the L packed rows added in order into the
@@ -108,14 +130,15 @@
 // transposed, (L*16, ncols), so each step is a sublane band; its plan pads
 // the columns to a multiple of that block (pippenger.py:1085-1087). Here
 // one thread owns one column: the accumulator stays in registers for all L
-// steps, the column's row is one contiguous L*64-byte run, and a bounds
-// check masks the ragged edge, so the port's plan keeps col_pad = 1 (fewer
-// columns than the JAX plan, the same bucket sums) and takes the slab in its
-// own (ncols, L*16) layout. Per column it is L x 11 products against L x 64
-// bytes in and 192 out: ~45 multiplies per byte, so bound by integer
-// multiply throughput. The L adds of a column depend on each other; the
-// card hides that chain with the ~735K independent columns of a 2^20-point
-// MSM.
+// steps, the column's row is one contiguous L*64-byte run (16-byte loads),
+// and a bounds check masks the ragged edge, so the port's plan keeps
+// col_pad = 1 (fewer columns than the JAX plan, the same bucket sums) and
+// takes the slab in its own (ncols, L*16) layout. A column of n points needs
+// n - 1 mixed adds (its first point into the identity takes 2 products)
+// against L x 64 bytes in and 192 out: bound by integer multiply
+// throughput. The L adds of a column depend on each other; the card hides
+// that chain with the ~735K independent columns of a 2^20-point MSM (a
+// load of row r+1 overlapped with the add of row r did not pay).
 //
 // Slab layouts. The halves kernels and l1_rcb_mega take a template flag
 // TR: false reads the port's (ncols, l*16) slab, where word w of element i
@@ -168,6 +191,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int COPY_THREADS = 256;  // the interleave copy
+constexpr int RCB_MIN_BLOCKS = 4;  // pmadd_rcb and l1_rcb_mega: 128 registers a thread, 16 warps an SM
 
 struct Aff {
   Fe x, y;
@@ -225,7 +249,7 @@ __device__ __forceinline__ Aff aff_sum(const Aff& p, const Aff& q, const AffFlag
 
 // packed slab element whose 16 words lie `stride` apart: 8 x-words then 8
 // y-words
-__device__ __forceinline__ Aff load_packed(const int32_t* e, long long stride = 1) {
+__device__ __forceinline__ Aff load_packed(const int32_t* e, long long stride) {
   Aff a;
 #pragma unroll
   for (int i = 0; i < 8; i++) {
@@ -267,16 +291,12 @@ __device__ __forceinline__ void store_packed4(int32_t* e, const Aff& a) {
   }
 }
 
-// element i of column c of a slab of l elements a column: its first word and
-// the distance between its words (the TR flag of the slab layouts above)
+// element i of column c of a slab of l elements a column: its first word
+// (the TR flag of the slab layouts above; the transposed layout's words lie
+// ncols apart)
 template <bool TR>
 __device__ __forceinline__ long long slab_at(long long c, int i, int l, long long ncols) {
   return TR ? (long long)i * 16 * ncols + c : c * (16LL * l) + i * 16;
-}
-
-template <bool TR>
-__device__ __forceinline__ long long slab_stride(long long ncols) {
-  return TR ? ncols : 1;
 }
 
 // a slab element: in the transposed layout a warp's 16 loads are each 32
@@ -592,26 +612,130 @@ __device__ Proj pdbl_rcb(const Proj& p) {
   return Proj{x3, y3, z3};
 }
 
-// RCB15 Algorithm 8 (a=0, Z2=1; pallas_curve.py::_pmadd_rcb_tiles): the
-// affine (0,0) sentinel (ay == 0 only there) keeps P, by one select
-__device__ Proj pmadd_rcb(const Proj& p, const Fe& ax, const Fe& ay) {
-  Fe t0 = fe_mul<FQ>(p.x, ax);
-  Fe t1 = fe_mul<FQ>(p.y, ay);
-  Fe t3 = fe_mul<FQ>(fe_add<FQ>(ax, ay), fe_add<FQ>(p.x, p.y));
-  t3 = fe_sub<FQ>(t3, fe_add<FQ>(t0, t1));
-  Fe t4 = fe_add<FQ>(fe_mul<FQ>(ay, p.z), p.y);
-  Fe y3 = fe_add<FQ>(fe_mul<FQ>(ax, p.z), p.x);
-  Fe x3 = fe_add<FQ>(t0, t0);
-  t0 = fe_add<FQ>(x3, t0);
-  Fe t2 = mul9(p.z);
-  Fe z3 = fe_add<FQ>(t1, t2);
-  t1 = fe_sub<FQ>(t1, t2);
-  y3 = mul9(y3);
+// -- the G1 mixed add on lazy sums (pmadd_rcb, l1_rcb_mega) ------------------
+//
+// Its values are 8 words that need not be canonical: a lazy sum of two
+// values below p is below 2p < 2^256 (p < 2^256 / 5.29), and an operand
+// pair of a product may reach any bounds whose product keeps the 16-word
+// sum below p 2^256, where one reduction (col_dot) returns a value below 2p
+// and its conditional subtraction the canonical one. The bounds are written
+// beside each value, in units of p.
+
+// a + b, no reduction: the caller keeps it below 2^256
+__device__ __forceinline__ Fe lazy_add(const Fe& a, const Fe& b) {
+  Fe r;
+  r.w[0] = ptx::add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < 7; i++) r.w[i] = ptx::addc_cc(a.w[i], b.w[i]);
+  r.w[7] = ptx::addc(a.w[7], b.w[7]);
+  return r;
+}
+
+// a + p - b for b <= a + p < 2^256: the subtraction's borrow and the
+// addition's carry cancel, words mod 2^256
+__device__ __forceinline__ Fe lazy_sub(const Fe& a, const Fe& b) {
+  Fe r;
+  r.w[0] = ptx::sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < 7; i++) r.w[i] = ptx::subc_cc(a.w[i], b.w[i]);
+  r.w[7] = ptx::subc(a.w[7], b.w[7]);
+  r.w[0] = ptx::add_cc(r.w[0], Field<FQ>::p(0));
+#pragma unroll
+  for (int i = 1; i < 7; i++) r.w[i] = ptx::addc_cc(r.w[i], Field<FQ>::p(i));
+  r.w[7] = ptx::addc(r.w[7], Field<FQ>::p(7));
+  return r;
+}
+
+// p - b for canonical b: in (0, p]
+__device__ __forceinline__ Fe lazy_neg(const Fe& b) {
+  Fe r;
+  r.w[0] = ptx::sub_cc(Field<FQ>::p(0), b.w[0]);
+#pragma unroll
+  for (int i = 1; i < 7; i++) r.w[i] = ptx::subc_cc(Field<FQ>::p(i), b.w[i]);
+  r.w[7] = ptx::subc(Field<FQ>::p(7), b.w[7]);
+  return r;
+}
+
+// a column's sum in three words: lo, hi and the carries above them
+struct Col {
+  uint32_t lo, hi, c2;
+};
+
+// s += a b: one 64-bit product into the aligned pair (lo, hi), its carry
+// into c2
+__device__ __forceinline__ void col_mad(Col& s, uint32_t a, uint32_t b) {
+  s.lo = ptx::mad_lo_cc(a, b, s.lo);
+  s.hi = ptx::madc_hi_cc(a, b, s.hi);
+  s.c2 = ptx::addc(s.c2, 0u);
+}
+
+// (sum of a_t b_t over N pairs) R^-1 mod p, canonical, for a sum below p
+// 2^256, by product scanning: column k of the 16-word sum gathers its word
+// products and those of m_i p, and the low columns set m_k = (column k)
+// (-p^-1) mod 2^32 and add m_k p_0, which clears them (Montgomery's
+// reduction in its column form: the same m_k as redc_wide, so the same
+// value). The accumulator is three registers, not 16 words.
+template <int N>
+__device__ __forceinline__ Fe col_dot(const Fe (&a)[N], const Fe (&b)[N]) {
+  uint32_t m[8];
+  Fe r;
+  Col s{0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 15; k++) {
+#pragma unroll
+    for (int t = 0; t < N; t++) {
+#pragma unroll
+      for (int i = (k > 7 ? k - 7 : 0); i <= (k < 7 ? k : 7); i++) col_mad(s, a[t].w[i], b[t].w[k - i]);
+    }
+#pragma unroll
+    for (int i = (k > 7 ? k - 7 : 0); i < (k < 8 ? k : 8); i++) col_mad(s, m[i], Field<FQ>::p(k - i));
+    if (k < 8) {
+      m[k] = s.lo * Field<FQ>::ninv();
+      col_mad(s, m[k], Field<FQ>::p(0));
+    } else {
+      r.w[k - 8] = s.lo;
+    }
+    s = Col{s.hi, s.c2, 0u};
+  }
+  r.w[7] = s.lo;
+  return reduce_once<FQ>(r.w, s.hi);
+}
+
+__device__ __forceinline__ Fe col_mul(const Fe& a, const Fe& b) {
+  const Fe x[1] = {a}, y[1] = {b};
+  return col_dot<1>(x, y);
+}
+
+// (a b + c d) R^-1 mod p, canonical, for a b + c d < p 2^256: one sum of
+// the two products and one reduction
+__device__ __forceinline__ Fe fe_dot(const Fe& a, const Fe& b, const Fe& c, const Fe& d) {
+  const Fe x[2] = {a, c}, y[2] = {b, d};
+  return col_dot<2>(x, y);
+}
+
+// RCB15 Algorithm 8 (a=0, Z2=1, b3=9; pallas_curve.py::_pmadd_rcb_tiles)
+// for an operand other than the (0,0) sentinel (the callers keep P there):
+// 11 wide products, 8 reductions. Source order is the schedule (the carry
+// chains are volatile), chosen so that an input dies at its last product
+// (on field.cuh's row products, t0 and t1 first made the transposed mega
+// kernel spill 24 bytes under the 128-register cap).
+__device__ __forceinline__ Proj pmadd_rcb(const Proj& p, const Fe& ax, const Fe& ay) {
+  const Fe s = col_mul(lazy_add(ax, ay), lazy_add(p.x, p.y));                 // operands < 2: 4 p^2
+  const Fe t0 = col_mul(p.x, ax);                                             // < 1
+  Fe t1 = col_mul(p.y, ay);                                                   // < 1
+  const Fe t3 = fe_sub<FQ>(s, fe_add<FQ>(t0, t1));                            // < 1
+  const Fe y3 = mul9(fe_add<FQ>(col_mul(ax, p.z), p.x));                      // < 1
+  const Fe t4 = lazy_add(col_mul(ay, p.z), p.y);                              // < 2
+  const Fe t2 = mul9(p.z);                                                    // < 1
+  const Fe z3 = lazy_add(t1, t2);                                             // < 2
+  t1 = lazy_sub(t1, t2);                                                      // (0, 2)
+  const Fe t0x3 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);                         // < 1
+  // the closing sums, each below 5 p^2 < p 2^256
   Proj r;
-  r.x = fe_sub<FQ>(fe_mul<FQ>(t3, t1), fe_mul<FQ>(t4, y3));
-  r.y = fe_add<FQ>(fe_mul<FQ>(t1, z3), fe_mul<FQ>(y3, t0));
-  r.z = fe_add<FQ>(fe_mul<FQ>(z3, t4), fe_mul<FQ>(t0, t3));
-  return fe_is_zero(ay) ? p : r;
+  r.x = fe_dot(t3, t1, t4, lazy_neg(y3));  // t3 t1 - t4 y3 + p t4: 1*2 + 2*1 = 4 p^2
+  r.y = fe_dot(t1, z3, y3, t0x3);          // 2*2 + 1*1 = 5 p^2
+  r.z = fe_dot(z3, t4, t0x3, t3);          // 2*2 + 1*1 = 5 p^2
+  return r;
 }
 
 __device__ __forceinline__ Proj load_proj(const int32_t* x, const int32_t* y, const int32_t* z,
@@ -744,15 +868,20 @@ __global__ void __launch_bounds__(HORNER_THREADS)
 
 // -- the G1 RCB ops, one lane per thread -------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+// 16-byte rows (the wrapper aligns them); the sentinel lanes store P
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
     pmadd_rcb_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                      const int32_t* __restrict__ z, const int32_t* __restrict__ ax,
                      const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
                      int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_proj(ox, oy, oz, i,
-             pmadd_rcb(load_proj(x, y, z, i), load_limbs(ax + i * 16), load_limbs(ay + i * 16)));
+  Proj p{load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16)};
+  const Fe qy = load_limbs16(ay + i * 16);
+  if (!fe_is_zero(qy)) p = pmadd_rcb(p, load_limbs16(ax + i * 16), qy);
+  store_limbs16(ox + i * 16, p.x);
+  store_limbs16(oy + i * 16, p.y);
+  store_limbs16(oz + i * 16, p.z);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -777,19 +906,34 @@ __global__ void __launch_bounds__(THREADS)
 
 // -- MSM level 1 on projective accumulators: one thread per slab column ------
 
+// A column's rows in order into the identity (0:1:0), a sentinel row
+// keeping the sum: the first loop finds the first point Q, whose sum with
+// the identity is (ax ay : ay^2 : ay) (what RCB15 gives there) in 2
+// products; the second adds every later one by pmadd_rcb's 11. Two loops,
+// not one with a flag: with the flag's select ptxas spilled 32-40 bytes
+// under the 128-register cap (sm_90a, nvcc 12.9, row products)
 template <bool TR>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
     l1_rcb_mega_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ ox,
                        int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long ncols, int L) {
   long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncols) return;
-  long long s = slab_stride<TR>(ncols);
   Proj acc{fe_zero(), fe_one<FQ>(), fe_zero()};
-  for (int r = 0; r < L; r++) {
-    Aff q = load_packed(v + slab_at<TR>(c, r, L, ncols), s);
-    acc = pmadd_rcb(acc, q.x, q.y);
+  int r = 0;
+  for (; r < L; r++) {
+    const Aff q = load_elem<TR>(v, c, r, L, ncols);
+    if (fe_is_zero(q.y)) continue;
+    acc = Proj{fe_mul<FQ>(q.x, q.y), fe_sqr<FQ>(q.y), q.y};
+    break;
   }
-  store_proj(ox, oy, oz, c, acc);
+#pragma unroll 1
+  for (r++; r < L; r++) {
+    const Aff q = load_elem<TR>(v, c, r, L, ncols);
+    if (!fe_is_zero(q.y)) acc = pmadd_rcb(acc, q.x, q.y);
+  }
+  store_limbs16(ox + c * 16, acc.x);
+  store_limbs16(oy + c * 16, acc.y);
+  store_limbs16(oz + c * 16, acc.z);
 }
 
 // -- Jacobian mixed add with escapes (pallas_curve.py::_madd_tiles) ---------
@@ -919,7 +1063,40 @@ __global__ void add_kernel(const int32_t* __restrict__ x, const int32_t* __restr
 
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
+// every kernel at its launch's block size (horner_kernel with W = 20 window
+// sums), for the occupancy query
+const KernelSlot KERNELS[] = {
+    {"aff_root_kernel<0>", (const void*)aff_root_kernel<false>, THREADS, 0},
+    {"aff_root_kernel<1>", (const void*)aff_root_kernel<true>, THREADS, 0},
+    {"aff_fin_kernel<0>", (const void*)aff_fin_kernel<false>, THREADS, 0},
+    {"aff_fin_kernel<1>", (const void*)aff_fin_kernel<true>, THREADS, 0},
+    {"halves_root_kernel<0>", (const void*)halves_root_kernel<false>, THREADS, 0},
+    {"halves_root_kernel<1>", (const void*)halves_root_kernel<true>, THREADS, 0},
+    {"halves_step_kernel<0,0>", (const void*)halves_step_kernel<false, false>, THREADS, 0},
+    {"halves_step_kernel<0,1>", (const void*)halves_step_kernel<false, true>, THREADS, 0},
+    {"halves_step_kernel<1,0>", (const void*)halves_step_kernel<true, false>, THREADS, 0},
+    {"halves_step_kernel<1,1>", (const void*)halves_step_kernel<true, true>, THREADS, 0},
+    {"interleave_slab_t_kernel<1>", (const void*)interleave_slab_t_kernel<1>, COPY_THREADS, 0},
+    {"interleave_slab_t_kernel<4>", (const void*)interleave_slab_t_kernel<4>, COPY_THREADS, 0},
+    {"aff_prep_kernel", (const void*)aff_prep_kernel, THREADS, 0},
+    {"aff_finish_kernel", (const void*)aff_finish_kernel, THREADS, 0},
+    {"horner_kernel", (const void*)horner_kernel, HORNER_THREADS, 24 * 20 * sizeof(uint32_t)},
+    {"pmadd_rcb_kernel", (const void*)pmadd_rcb_kernel, THREADS, 0},
+    {"padd_rcb_kernel", (const void*)padd_rcb_kernel, THREADS, 0},
+    {"pdbl_rcb_kernel", (const void*)pdbl_rcb_kernel, THREADS, 0},
+    {"l1_rcb_mega_kernel<0>", (const void*)l1_rcb_mega_kernel<false>, THREADS, 0},
+    {"l1_rcb_mega_kernel<1>", (const void*)l1_rcb_mega_kernel<true>, THREADS, 0},
+    {"madd_kernel", (const void*)madd_kernel, THREADS, 0},
+    {"dbl_kernel", (const void*)dbl_kernel, THREADS, 0},
+    {"add_kernel", (const void*)add_kernel, THREADS, 0},
+};
+
 }  // namespace
+
+// kernel i's name and resident blocks an SM (field.cuh::occupancy_of)
+extern "C" int hk_curve_occupancy(int i, const char** name, int* blocks) {
+  return occupancy_of(KERNELS, i, name, blocks);
+}
 
 // the pairs' 16-byte loads and stores need 16-byte aligned rows
 extern "C" int hk_aff_root(const void* x1, const void* y1, const void* px, const void* py, void* pre,

@@ -388,7 +388,19 @@ __global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
 
 unsigned blocks_for(long long n, int lanes) { return (unsigned)((n + lanes - 1) / lanes); }
 
+// every kernel (its shared memory static), for the occupancy query
+const KernelSlot KERNELS[] = {
+    {"pmadd_rcb_g2_kernel", (const void*)pmadd_rcb_g2_kernel, PAIR_THREADS, 0},
+    {"padd_rcb_g2_kernel", (const void*)padd_rcb_g2_kernel, PAIR_THREADS, 0},
+    {"pdbl_rcb_g2_kernel", (const void*)pdbl_rcb_g2_kernel, PAIR_THREADS, 0},
+};
+
 }  // namespace
+
+// kernel i's name and resident blocks an SM (field.cuh::occupancy_of)
+extern "C" int hk_curve_g2_occupancy(int i, const char** name, int* blocks) {
+  return occupancy_of(KERNELS, i, name, blocks);
+}
 
 // n lanes of (2, 16) limb rows per coordinate, 16-byte aligned; outputs
 // must not alias inputs

@@ -267,7 +267,22 @@ __global__ void fermat_inv_kernel(const int32_t* __restrict__ a, int32_t* __rest
 
 unsigned blocks_for(long long n, int threads = THREADS) { return (unsigned)((n + threads - 1) / threads); }
 
+// every kernel at its launch's block size, for the occupancy query
+const KernelSlot KERNELS[] = {
+    {"mont_mul_kernel<0>", (const void*)mont_mul_kernel<FQ>, THREADS, 0},
+    {"mont_mul_kernel<1>", (const void*)mont_mul_kernel<FR>, THREADS, 0},
+    {"mont_mul_kernel<2>", (const void*)mont_mul_kernel<FQ_BLS>, THREADS, 0},
+    {"fermat_inv_kernel<0>", (const void*)fermat_inv_kernel<FQ>, INV_THREADS, 0},
+    {"fermat_inv_kernel<1>", (const void*)fermat_inv_kernel<FR>, INV_THREADS, 0},
+    {"fermat_inv_kernel<2>", (const void*)fermat_inv_kernel<FQ_BLS>, INV_THREADS, 0},
+};
+
 }  // namespace
+
+// kernel i's name and resident blocks an SM (field.cuh::occupancy_of)
+extern "C" int hk_field_occupancy(int i, const char** name, int* blocks) {
+  return occupancy_of(KERNELS, i, name, blocks);
+}
 
 // out[i] = a[i] * b[i % nb] * R^-1 mod p over n lanes of 2 NW limbs, 16-byte
 // aligned rows; an unknown field id launches nothing and returns cudaErrorInvalidValue

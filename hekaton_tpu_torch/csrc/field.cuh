@@ -20,6 +20,7 @@
 // Fq elements (c0, c1), at the boundary an (n, 2, 16) limb row of 32 limbs.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace hk {
@@ -377,5 +378,25 @@ struct Field<FQ_BLS> {
   __device__ __forceinline__ static uint32_t ninv() { return NINV381; }
   __device__ __forceinline__ static uint32_t one(int i) { return ONE381_WORDS[i]; }
 };
+
+// -- host code: each source's kernels, for CUDA's occupancy query --
+
+// a kernel, its launch's block size and dynamic shared memory
+struct KernelSlot {
+  const char* name;
+  const void* fn;
+  int threads;
+  size_t smem;
+};
+
+// kernel i of `table`: its name, and the blocks of it an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); returns that query's
+// error code, -1 past the last kernel
+template <size_t N>
+inline int occupancy_of(const KernelSlot (&table)[N], int i, const char** name, int* blocks) {
+  if (i < 0 || (size_t)i >= N) return -1;
+  *name = table[i].name;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, table[i].fn, table[i].threads, table[i].smem);
+}
 
 }  // namespace hk

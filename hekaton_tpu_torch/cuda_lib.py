@@ -171,6 +171,33 @@ def check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+# each source's occupancy entry point: (i, const char** name, int* blocks)
+OCCUPANCY = ("hk_field_occupancy", "hk_curve_occupancy", "hk_curve_g2_occupancy")
+
+
+def occupancy(handle: ctypes.CDLL) -> dict:
+    """{kernel: blocks of it an SM holds at its launch's block size}, CUDA's
+    occupancy query through each source's entry point that the library
+    `handle` has (an older library may have none)."""
+    out = {}
+    for entry in OCCUPANCY:
+        if not hasattr(handle, entry):
+            continue
+        fn = getattr(handle, entry)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        i = 0
+        while True:
+            name, blocks = ctypes.c_char_p(), ctypes.c_int()
+            rc = fn(i, ctypes.byref(name), ctypes.byref(blocks))
+            if rc < 0:
+                break
+            check(entry, rc)
+            out[name.value.decode()] = blocks.value
+            i += 1
+    return out
+
+
 def aligned(t):
     """The tensor t, or a copy of it where its data does not start on a
     16-byte boundary (a view into its storage): the kernels load and store

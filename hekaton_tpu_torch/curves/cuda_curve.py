@@ -55,7 +55,10 @@ one; the Horner fold is one warp, bound by the latency of its chain, each
 point op two levels of independent products, a product a lane.
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
 straight-line formulas, bound by integer multiply throughput once the card
-is full; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+is full; the G1 mixed add (`pmadd_rcb`, and each add of `l1_rcb_mega`) runs
+on lazy sums, each closing coordinate one sum of two products and one
+reduction, its products by product scanning (column by column into a
+three-register accumulator), on 16-byte rows, 4 blocks an SM; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
 threads a lane, one Fq2 component each, with its operands in shared memory;
 `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
@@ -613,6 +616,7 @@ def l1_rcb_mega(rows, L: int, transposed: bool = False) -> Proj:
         return l1_rcb_mega_plain(rows, L, transposed)
     ncols = rows.shape[1] if transposed else rows.shape[0]
     _check_slab(l1_rcb_mega, rows, (L * 16, ncols) if transposed else (ncols, L * 16))
+    rows = cuda_lib.aligned(rows)
     outs = tuple(torch.empty((ncols, 16), dtype=torch.int32, device=rows.device) for _ in range(3))
     if ncols:
         rc = cuda_lib.lib().hk_l1_rcb_mega(rows.data_ptr(), *(o.data_ptr() for o in outs), ncols, L,

@@ -2,7 +2,7 @@
 two kernel libraries.
 
     python3 benches/torch_aff_ab.py --old build/old [--kernels pairs,halves,others,inv,g2,k_add]
-        [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8] [--only pmadd_rcb,l1_rcb_mega]
+        [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8] [--only madd,padd_rcb]
 
 --old is a directory holding an older commit's csrc sources, all of them
 or some (a .cu includes the field.cuh of its own directory, so each .cu
@@ -24,7 +24,8 @@ this tree's wrappers.
 
 Each --variant is a csrc source of this tree changed (a curve.cu with
 other launch bounds, say): a library is built with it swapped in, and the
-two affine pairs, horner_fold, pmadd_rcb and l1_rcb_mega are timed from it
+two affine pairs, the halves and the others rows of VARIANT_TIMED
+(horner_fold, pmadd_rcb, l1_rcb_mega, madd, padd_rcb) are timed from it
 too ("variant <i>", after "new" in the turns).
 
 --kernels picks the sections, run in this order (all by default). Each
@@ -44,12 +45,14 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   (mont_mul at 2^20 lanes, 16 and 24 limbs; the point ops and the G2 trio
   at 2^18 lanes with chip_smoke's edge lanes; horner_fold at the (W, c)
   of the 2^20, 2^16, 2^15 and 2^12 MSMs and at W=20, c=0; l1_rcb_mega on the
-  2^16 slab; aff_prep, aff_fin), both libraries equal to the plain version
-  limb for limb; and pmadd_rcb and l1_rcb_mega at the widths the main paths
+  2^16 slab; aff_prep, aff_fin; madd also at chip_smoke.MADD_WIDE lanes, a
+  fixed-base width without edges, and padd_rcb at chip_smoke.PADD_WIDTHS,
+  the suffix scan's and the collapse's), both libraries equal to the plain
+  version limb for limb; and pmadd_rcb and l1_rcb_mega at the widths the main paths
   launch them at (route (c)'s level-1 step, 734,740 lanes at 2^20 points
   (chip_smoke.g1_level1_inputs); the 2^20 v9 slab in both layouts; route
   (b)'s L=24 slab), the libraries equal to each other; --only keeps the
-  rows of the kernels it names; then the Horner chain's latency a point op, from the c=13
+  rows of the kernels it names (and builds no other row's inputs); then the Horner chain's latency a point op, from the c=13
   and c=0 times, and one product's latency in the old one-thread body
   (from its products and additions a double and an add), times the new
   chain's dependent product levels: a diagnostic, not a bound;
@@ -91,6 +94,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
 N_WIDE = 734_740  # the widest affine add and inversion of the 2^20 G1 MSM (over every level-1 column)
 SECTIONS = ("pairs", "halves", "others", "inv", "g2", "k_add")
+VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb")  # the others rows --variant times
 INSTR_PER_SM_CLOCK = 128  # thread instructions an SM starts a clock: 4 schedulers, one 32-lane warp each
 
 
@@ -180,6 +184,36 @@ def sass_counts(cs, so: str) -> dict:
     close()
     cs.require(proc.wait() == 0, f"cuobjdump -sass {so} failed")
     return out
+
+
+def mega_rows(cs, cc, pip, ax, ay, gen, c: int, L: int, n_pts: int) -> list:
+    """The others section's l1_rcb_mega rows and pmadd_rcb at route (c)'s
+    width: the mega kernel on chip_smoke's 2^16-point slab (against the plain
+    version), then at the widths the main paths launch them at, route (c)'s
+    level-1 step (the 2^20 v9 slab's columns after 3 steps), that slab in
+    both layouts and route (b)'s L=24 slab, with no plain version
+    (chip_smoke.py holds them to it): the libraries equal each other."""
+    slab, _, meta = pip._plan_sorted_w(ax[:cs.N_PLAN].contiguous(), ay[:cs.N_PLAN].contiguous(),
+                                       cs.rand_limbs(cs.N_PLAN, gen), 11, 32)
+    ncols = meta[4]
+    rows = [("l1_rcb_mega", f"{ncols} columns x L=32", lambda: tuple(cc.l1_rcb_mega(slab, 32)),
+             lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)), cs.mega_work(slab, 32))]
+    sc20 = torch.randint(0, 1 << 16, (n_pts, 16), generator=gen, device=DEVICE, dtype=torch.int32)
+    sc20[:, 15] %= 0x3064
+    slab20 = pip._plan_sorted_w(ax, ay, sc20, c, L)[0]
+    slab20_t = slab20.t().contiguous()
+    slab24 = pip._plan_sorted_w(ax, ay, sc20, c, 24)[0]
+    pargs = cs.g1_level1_inputs(pip, slab20, L)
+    m = pargs[0].shape[0]
+    sentinels = int((pargs[4] == 0).all(-1).sum())
+    rows.append(("pmadd_rcb", f"{m} lanes (route (c)'s step)", lambda: tuple(cc.pmadd_rcb(*pargs)), None,
+                 (8 * 64 * m, cs.g1_work("pmadd_rcb", m - sentinels))))
+    for label, v, lL, tr, wslab in (("rows", slab20, L, False, slab20), ("transposed", slab20_t, L, True, slab20),
+                                    ("rows", slab24, 24, False, slab24)):
+        rows.append(("l1_rcb_mega", f"{wslab.shape[0]} columns x L={lL} ({label}, 2^{n_pts.bit_length() - 1} "
+                                    f"points)", lambda v=v, lL=lL, tr=tr: tuple(cc.l1_rcb_mega(v, lL, tr)),
+                     None, cs.mega_work(wslab, lL)))
+    return rows
 
 
 def main() -> int:
@@ -321,39 +355,54 @@ def main() -> int:
             del slab, slab_t
         del sc
 
+    only = set(args.only.split(",")) if args.only else None
+
+    def want(name):  # a row of the others section that --only keeps
+        return only is None or name in only
+
     g2x = g2y = None
-    if "others" in sections or "g2" in sections:
+    if ("others" in sections and any(want(op + "_g2") for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb"))
+            or "g2" in sections):
         _, _, g2x, g2y = cs.g2_set(h, G2, rs, n_pts)
 
     if "others" in sections:  # before and after the field product
         n = cs.N_LANES
         others = []
         for spec, nl in ((tf.FQ, 16), (tf.FQ_BLS, 24)):
+            if not want(f"mont_mul {spec.name}"):
+                continue
             a, b = cs.rand_limbs(cs.N_MUL, gen, spec), cs.rand_limbs(cs.N_MUL, gen, spec)
             others.append((f"mont_mul {spec.name}", f"{cs.N_MUL} lanes",
                            lambda spec=spec, a=a, b=b: cf.mont_mul(spec, a, b),
                            lambda spec=spec, a=a, b=b: cf.mont_mul_plain(spec, a, b),
                            (3 * 4 * nl * cs.N_MUL, cs.N_MUL, nl // 2)))
-        args_aff = cs.aff_edge_lanes(tf, ax, ay)
-        den, num = cc.aff_prep(*args_aff)
-        fin_args = (*args_aff, tf.batch_inv(tf.FQ, den), num)
-        adds, dbls = cs.aff_lanes(*args_aff)
-        others += [("aff_prep", f"{n} lanes", lambda: cc.aff_prep(*args_aff), lambda: cc.aff_prep_plain(*args_aff),
-                    (6 * 64 * n, cs.g1_products(0, dbls))),
-                   ("aff_fin", f"{n} lanes", lambda: cc.aff_fin(*fin_args), lambda: cc.aff_fin_plain(*fin_args),
-                    (8 * 64 * n, cs.g1_work("aff_sum", adds)))]
-        jp, (qx, qy) = cs.g1_edge_lanes(tf, ax, ay, gen)
-        margs = (*jp, qx, qy)
-        jp2, jq2 = cs.g1_jacobian_pairs(tf, ax, ay, gen)
-        others += [("madd", f"{n} lanes", lambda: cc.madd(*margs), lambda: cc.madd_plain(*margs),
-                    (8 * 64 * n, cs.g1_work("madd", n) + cs.g1_work("dbl", 64))),
-                   ("dbl", f"{n} lanes", lambda: cc.dbl(*jp2), lambda: cc.dbl_plain(*jp2),
-                    (6 * 64 * n, cs.g1_work("dbl", n))),
-                   ("add", f"{n} lanes", lambda: cc.add(*jp2, *jq2), lambda: cc.add_plain(*jp2, *jq2),
-                    (9 * 64 * n, cs.g1_work("add", n) + cs.g1_work("dbl", 64)))]
+        if want("aff_prep") or want("aff_fin"):
+            args_aff = cs.aff_edge_lanes(tf, ax, ay)
+            den, num = cc.aff_prep(*args_aff)
+            fin_args = (*args_aff, tf.batch_inv(tf.FQ, den), num)
+            adds, dbls = cs.aff_lanes(*args_aff)
+            others += [("aff_prep", f"{n} lanes", lambda: cc.aff_prep(*args_aff),
+                        lambda: cc.aff_prep_plain(*args_aff), (6 * 64 * n, cs.g1_products(0, dbls))),
+                       ("aff_fin", f"{n} lanes", lambda: cc.aff_fin(*fin_args), lambda: cc.aff_fin_plain(*fin_args),
+                        (8 * 64 * n, cs.g1_work("aff_sum", adds)))]
+        if want("madd"):  # chip_smoke's edge lanes, and a fixed-base width without edges
+            for m, edges in ((n, True), (cs.MADD_WIDE, False)):
+                jp, (qx, qy) = cs.g1_edge_lanes(tf, ax, ay, gen, m, edges)
+                margs = (*jp, qx, qy)
+                others.append(("madd", f"{m} lanes" + ("" if edges else " (no edges)"),
+                               lambda margs=margs: cc.madd(*margs), lambda margs=margs: cc.madd_plain(*margs),
+                               cs.madd_work(tf, *margs)))
+        if want("dbl") or want("add"):
+            jp2, jq2 = cs.g1_jacobian_pairs(tf, ax, ay, gen)
+            others += [("dbl", f"{n} lanes", lambda: cc.dbl(*jp2), lambda: cc.dbl_plain(*jp2),
+                        (6 * 64 * n, cs.g1_work("dbl", n))),
+                       ("add", f"{n} lanes", lambda: cc.add(*jp2, *jq2), lambda: cc.add_plain(*jp2, *jq2),
+                        (9 * 64 * n, cs.g1_work("add", n) + cs.g1_work("dbl", 64)))]
         g1_rcb = tuple(cs.g1_work(op, 1) for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb"))
         for sfx, pts, coord_bytes, products in (("", (ax, ay), 64, g1_rcb),
                                                 ("_g2", (g2x, g2y), 128, tuple(cs.RCB_G2_PRODUCTS.values()))):
+            if not any(want(op + sfx) for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb")):
+                continue
             gp, gq, (bx, by) = cs.proj_edge_lanes(tf, proj, *pts, gen)
             for op, kargs, nio, prods in zip(("pmadd_rcb", "padd_rcb", "pdbl_rcb"),
                                              ((*gp, bx, by), (*gp, *gq), tuple(gp)), (8, 9, 6), products):
@@ -361,44 +410,27 @@ def main() -> int:
                 fn, plain = getattr(cc, op + sfx), getattr(cc, op + sfx + "_plain")
                 others.append((op + sfx, f"{n} lanes", lambda fn=fn, kargs=kargs: fn(*kargs),
                                lambda plain=plain, kargs=kargs: plain(*kargs), (nio * coord_bytes * n, prods * n)))
+        if want("padd_rcb"):  # the suffix scan's and the collapse's widths
+            for m in cs.PADD_WIDTHS:
+                kargs = cs.proj_lanes(tf, ax, ay, gen, m)
+                others.append(("padd_rcb", f"{m} lanes", lambda kargs=kargs: cc.padd_rcb(*kargs),
+                               lambda kargs=kargs: cc.padd_rcb_plain(*kargs), (9 * 64 * m, cs.g1_work("padd_rcb", m))))
         # horner_fold at the (W, c) of the 2^20, 2^16, 2^15 and 2^12 MSMs (chip_smoke.horner_shapes), and at c=0
         # (adds only) for the latency fit below
-        for W, hc in (*cs.horner_shapes(), (20, 0)):
+        for W, hc in ((*cs.horner_shapes(), (20, 0)) if want("horner_fold") else ()):
             hp = cs.horner_windows(proj, ax, ay, W)
             others.append(("horner_fold", f"W={W}, c={hc}",
                            lambda hp=hp, hc=hc: tuple(cc.horner_fold(hp.x, hp.y, hp.z, hc)),
                            lambda hp=hp, hc=hc: tuple(cc.horner_fold_plain(hp.x, hp.y, hp.z, hc)),
                            cs.horner_work(W, hc)))
-        slab, _, meta = pip._plan_sorted_w(ax[:cs.N_PLAN].contiguous(), ay[:cs.N_PLAN].contiguous(),
-                                           cs.rand_limbs(cs.N_PLAN, gen), 11, 32)
-        ncols = meta[4]
-        others.append(("l1_rcb_mega", f"{ncols} columns x L=32", lambda: tuple(cc.l1_rcb_mega(slab, 32)),
-                       lambda: tuple(cc.l1_rcb_mega_plain(slab, 32)), cs.mega_work(slab, 32)))
-        # pmadd_rcb and l1_rcb_mega at the widths the main paths launch them at: route (c)'s level-1
-        # step (the 2^20 v9 slab's columns after 3 steps), that slab in both layouts, and route (b)'s
-        # L=24 slab; no plain version (chip_smoke.py holds them to it): the libraries equal each other
-        sc20 = torch.randint(0, 1 << 16, (n_pts, 16), generator=gen, device=DEVICE, dtype=torch.int32)
-        sc20[:, 15] %= 0x3064
-        slab20 = pip._plan_sorted_w(ax, ay, sc20, c, L)[0]
-        slab20_t = slab20.t().contiguous()
-        slab24 = pip._plan_sorted_w(ax, ay, sc20, c, 24)[0]
-        pargs = cs.g1_level1_inputs(pip, slab20, L)
-        m = pargs[0].shape[0]
-        sentinels = int((pargs[4] == 0).all(-1).sum())
-        others.append(("pmadd_rcb", f"{m} lanes (route (c)'s step)", lambda: tuple(cc.pmadd_rcb(*pargs)), None,
-                       (8 * 64 * m, cs.g1_work("pmadd_rcb", m - sentinels))))
-        for label, v, lL, tr, wslab in (("rows", slab20, L, False, slab20), ("transposed", slab20_t, L, True, slab20),
-                                        ("rows", slab24, 24, False, slab24)):
-            others.append(("l1_rcb_mega", f"{wslab.shape[0]} columns x L={lL} ({label}, 2^{n_pts.bit_length() - 1} "
-                                          f"points)", lambda v=v, lL=lL, tr=tr: tuple(cc.l1_rcb_mega(v, lL, tr)),
-                           None, cs.mega_work(wslab, lL)))
-        if args.only:
-            others = [o for o in others if o[0] in args.only.split(",")]
+        if want("l1_rcb_mega") or want("pmadd_rcb"):
+            others += mega_rows(cs, cc, pip, ax, ay, gen, c, L, n_pts)
+        if only is not None:
+            others = [o for o in others if o[0] in only]
         horner_ms = {}
         for name, shape, fn, plain, work in others:
             ref = plain() if plain else None
-            libs = {"old": old, "new": new, **(variants if name in ("horner_fold", "pmadd_rcb", "l1_rcb_mega")
-                                               else {})}
+            libs = {"old": old, "new": new, **(variants if name in VARIANT_TIMED else {})}
             for label, lib in libs.items():
                 with cuda_lib.using(lib):
                     got = fn()

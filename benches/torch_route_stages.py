@@ -1,7 +1,7 @@
 """Where the time of msm_gpu's routes goes, on one CUDA card.
 
     python3 benches/torch_route_stages.py [--log2n 20] [--reps 3] [--curve bn254|bls12_381|g2]
-        [--routes v9,(d),(e)] [--old build/old/<source>.cu ... [--old-root-width 1024]]
+        [--routes v9,(d),(e)] [--old build/old/<source>.cu ... [--old-root-width 1024]] [--fixed-base 18]
 
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
@@ -46,6 +46,11 @@ tree down to N lanes and inverts those (tf._batch_inv) while the old
 library runs, so that an older field.cu runs at the root width it was
 written for (1024 before the divstep inversion); this tree's batch_inv
 inverts every lane.
+
+With --fixed-base LOG2N (BN254 G1 only) it then times
+TorchBackend.fixed_base of 2^LOG2N G1 scalars from this tree's library and
+the old one in turns: the host clock of a warm call, and the device time of
+the next one from torch.profiler's trace, madd_kernel's part of it.
 
 Prints one line per route and layout, the card's name and power limit,
 and needs the card: it exits non-zero where torch.cuda.is_available() is
@@ -121,6 +126,37 @@ def g2_horner_clocks(cs, pip, cc, cuda_lib, ax, ay, sc, c, L, curve, old_lib, ca
               + f"; on {card}", flush=True)
 
 
+def fixed_base_turns(cs, h, backend, cuda_lib, rs, log2n: int, old_lib, reps: int, card) -> None:
+    """TorchBackend.fixed_base of 2^log2n G1 scalars (one base), warm, from
+    each library in turns (this tree, old, old, this tree, ...; a first
+    round warms up): its host clock (the call returns host points) and the
+    device time of a second call (chip_smoke.device_busy: the kernels' time
+    in torch.profiler's trace), madd_kernel's part of it; every library's
+    points equal."""
+    base = h.ch.pt_mul(h.ch.g1_gen(), int.from_bytes(rs.bytes(32), "little") % h.R)
+    scalars = [int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(1 << log2n)]
+    libs = {"this tree": cuda_lib.lib(), **({"old": old_lib} if old_lib is not None else {})}
+    out = {label: [] for label in libs}
+    want = None
+    for rep in range(reps + 1):
+        for label in list(libs) if rep % 2 else list(libs)[::-1]:
+            with cuda_lib.using(libs[label]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = backend.fixed_base(base, scalars)
+                wall = time.perf_counter() - t
+                dev, parts = cs.device_busy(lambda: backend.fixed_base(base, scalars), ("madd_kernel",))
+            want = got if want is None else want
+            cs.require(got == want, f"fixed_base from the {label} library differs")
+            if rep:
+                out[label].append((wall, dev, parts["madd_kernel"]))
+    for label, runs in out.items():
+        print(f"[fixed_base] G1 {1 << log2n} scalars, {label}: warm host clock "
+              + ", ".join(f"{w:.3f}" for w, _, _ in runs) + " s; device time "
+              + ", ".join("not measured" if d is None else f"{d:.2f}" for _, d, _ in runs) + " ms, of which madd_kernel "
+              + ", ".join(f"{m:.2f}" for _, _, m in runs) + f" ms (torch.profiler) on {card}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2n", type=int, default=20)
@@ -129,6 +165,8 @@ def main() -> int:
     ap.add_argument("--routes", help="comma-separated labels of the routes to run (default: all)")
     ap.add_argument("--old", nargs="+", help="csrc sources to build a second library with, every route run from both")
     ap.add_argument("--old-root-width", type=int, help="batch_inv's tree root width while the old library runs")
+    ap.add_argument("--fixed-base", type=int, metavar="LOG2N",
+                    help="also time TorchBackend.fixed_base of 2^LOG2N G1 scalars from each library, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_route_stages: no CUDA device", file=sys.stderr)
@@ -258,6 +296,9 @@ def main() -> int:
     if args.curve != "bn254":
         print(card)
         return 0
+    if args.fixed_base:
+        fixed_base_turns(cs, h, TorchBackend(DEVICE), cuda_lib, rs, args.fixed_base, old_lib if args.old else None,
+                         args.reps, card)
     slab, _, meta = pip._plan_sorted_w(ax, ay, sc, c, L)
     slab_t = slab.t().contiguous()
     pairs = (("l1_aff_halves", lambda: cc.l1_aff_halves(slab, L), lambda: cc.l1_aff_halves_t(slab_t, L)),

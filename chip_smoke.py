@@ -28,7 +28,11 @@ native host library). Phases, one line each, every failure raises:
      layouts and on the 2^16-point slab (lines), every column against the
      plain version; pmadd_rcb at route (c)'s width (the v9 slab's columns
      after 3 level-1 steps; its row) and on 2^18 edge lanes, also as
-     unaligned views (a line); aff_add_fused and aff_add_mixed_packed on
+     unaligned views (a line); madd (its row on 2^18 edge lanes, also as
+     unaligned views) at 255,357 lanes, a fixed-base width without edges,
+     and padd_rcb (its row at 2^18, also unaligned) at 81,940 and 734,740
+     lanes, the suffix scan's and the collapse's widths (lines of their
+     own); aff_add_fused and aff_add_mixed_packed on
      2^18 edge lanes (lines of their own; their rows come after the main
      paths, below); no kernel may spill, and each kernel's registers,
      spills and resident blocks an SM (CUDA's occupancy query) are printed;
@@ -57,7 +61,8 @@ native host library). Phases, one line each, every failure raises:
        HEKATON_DEVICE_TREE=1 (the device tree, on the card) and without it
        (the host tree), with equal roots, levels and leaves;
      - fixed_base: TorchBackend.fixed_base of 2^18 scalars on G1 and on G2
-       against the native host muls on 4,096 sampled lanes;
+       against the native host muls on 4,096 sampled lanes, with the
+       device time of a warm G1 call and madd's part of it (torch.profiler);
      - slice: BASELINE.json configuration 1 (Big-Merkle, 4 subcircuits,
        1 SHA2 iteration, 8 portals) through the port's coordinator and
        worker with TorchBackend("cuda"): setup (fixed-base on the card),
@@ -122,6 +127,8 @@ N_MUL = 1 << 20  # mont_mul lanes in phase 2
 N_LANES = 1 << 18  # lanes of the point-op kernels in phase 2 (TorchBackend.FB_CHUNK)
 N_PLAN = 1 << 16  # points of the plan whose level-1 slab phase 2 reduces
 N_FB = 1 << 18  # fixed-base scalars per curve
+MADD_WIDE = 255_357  # a madd width of the setup's fixed-base calls (launched 128 times over the main paths)
+PADD_WIDTHS = (81_940, 734_740)  # padd_rcb's widest suffix-scan (20 windows x 4,097 buckets) and collapse widths
 N_G2_DISTINCT = 4096  # distinct G2 points of the G2 MSM, tiled to N_MSM
 N_SAMPLE = 4096  # fixed-base lanes checked against the host
 N_COMPACT = ((1, 32), (1, 33), (1, 2048), (2, 33))  # (curve, points) of the compact msm checks
@@ -200,9 +207,9 @@ def g1_products(products: float, squares: float) -> float:
 # What a BN254 G1 op needs a lane, (products, squares), csrc/curve.cu: an
 # affine sum from 1/den is lambda, lambda^2 and lambda (x1 - x3) (Montgomery's
 # trick adds 3 products an add, a doubling lane the square x1^2);
-# madd-2007-bl 7 and 4, its doubling escape dbl-2009-l 2 and 5, add-2007-bl
-# 11 and 5. The RCB ops are counted by lazy_products (RCB_G1_PRODUCTS).
-G1_OPS = {"aff_sum": (2, 1), "madd": (7, 4), "dbl": (2, 5), "add": (11, 5)}
+# dbl-2009-l 2 and 5, add-2007-bl 11 and 5. madd and the RCB ops are counted
+# by lazy_products (LAZY_G1_PRODUCTS).
+G1_OPS = {"aff_sum": (2, 1), "dbl": (2, 5), "add": (11, 5)}
 
 
 def lazy_products(wide: int, reductions: int, nw: int = 8, squares: int = 0) -> float:
@@ -223,15 +230,22 @@ def lazy_products(wide: int, reductions: int, nw: int = 8, squares: int = 0) -> 
 # and 2 squares and 7 results (y3 = t2 z3 + t0 y3 a sum). By CIOS
 # products (muls_per_product, muls_per_square) they were 11, 12 and 6 + 2
 # squares: 2,904, 3,168 and 2,000 multiplies against 2,496, 2,760 and 1,864.
-RCB_G1_PRODUCTS = {"pmadd_rcb": lazy_products(11, 8), "padd_rcb": lazy_products(12, 9),
-                   "pdbl_rcb": lazy_products(6, 7, squares=2)}
+# madd-2007-bl (csrc/curve.cu::madd_diffs, ::madd_finish) on a lane with both
+# operands finite and Q != P: 8 products and 3 squares, 10 results (y3 = r2
+# (v - x3) - 2 y1 j a sum, z3 = 2 z1 h a product), 2,600 multiplies against
+# 2,680 for G1_OPS' old (7, 4) CIOS count; on a doubling lane h and rr (3
+# products, 1 square, 4 results, 1,000) and dbl-2009-l (2 products, 5
+# squares, 7 results, 1,568); on a lane with an infinite operand none.
+LAZY_G1_PRODUCTS = {"pmadd_rcb": lazy_products(11, 8), "padd_rcb": lazy_products(12, 9),
+                    "pdbl_rcb": lazy_products(6, 7, squares=2), "madd": lazy_products(8, 10, squares=3),
+                    "madd_dbl": lazy_products(3, 4, squares=1) + lazy_products(2, 7, squares=5)}
 
 
 def g1_work(op: str, lanes: float) -> float:
     """The products of `lanes` lanes of the G1 op `op` (G1_OPS, or
-    RCB_G1_PRODUCTS for the RCB ops)."""
-    if op in RCB_G1_PRODUCTS:
-        return RCB_G1_PRODUCTS[op] * lanes
+    LAZY_G1_PRODUCTS for madd, its doubling lanes and the RCB ops)."""
+    if op in LAZY_G1_PRODUCTS:
+        return LAZY_G1_PRODUCTS[op] * lanes
     products, squares = G1_OPS[op]
     return g1_products(products * lanes, squares * lanes)
 
@@ -305,28 +319,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_times(fn, launches: dict, reps: int = 1) -> dict:
-    """{kernel: (trace count, device time in us a launch)} of the CUDA
-    kernels named in `launches` ({part of a kernel's name: its launches a
-    call of fn}) over reps calls of fn after a warm one, from
-    torch.profiler's trace; the time is None (not measured) unless the
-    trace holds every launch, launches x reps of them."""
+def device_trace(fn, reps: int = 1) -> dict:
+    """{kernel: (launches, device time in us summed)} over torch.profiler's
+    trace of reps calls of fn (warmed by the caller)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    return {e.key: (e.count, getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+            for e in prof.key_averages()}
+
+
+def kernel_device_times(fn, launches: dict, reps: int = 1) -> dict:
+    """{kernel: (trace count, device time in us a launch)} of the CUDA
+    kernels named in `launches` ({part of a kernel's name: its launches a
+    call of fn}) over reps calls of fn after a warm one (device_trace); the
+    time is None (not measured) unless the trace holds every launch,
+    launches x reps of them."""
+    fn()
+    trace = device_trace(fn, reps)
     out = {}
     for kernel, n in launches.items():
-        evs = [e for e in events if kernel in e.key]
-        total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0) for e in evs)
-        count = sum(e.count for e in evs)
+        count = sum(c for k, (c, _) in trace.items() if kernel in k)
+        total = sum(us for k, (_, us) in trace.items() if kernel in k)
         out[kernel] = (count, total / count if count == n * reps and total else None)
     return out
+
+
+def device_busy(fn, names: tuple = ()) -> tuple:
+    """(the device time of one fn(), warmed by the caller, {name: the device
+    time of its kernels whose names hold `name`}) in ms (device_trace): the
+    card's busy time, where a host-bound call's wall time is mostly idle.
+    None where the trace holds no device time."""
+    trace = device_trace(fn)
+    total = sum(us for _, us in trace.values()) / 1e3
+    return (total or None), {n: sum(us for k, (_, us) in trace.items() if n in k) / 1e3 for n in names}
 
 
 def timed_once(fn) -> tuple:
@@ -526,24 +556,50 @@ def proj_edge_lanes(tf, proj, gx, gy, gen):
     return p, q, (bx, by)
 
 
-def g1_edge_lanes(tf, ax, ay, gen):
-    """Phase 2's madd inputs: N_LANES Jacobian accumulators (x z^2, y z^3, z)
-    with random z and affine operands, with tests/test_pallas.py:33's edges:
-    lanes 0-63 P = inf (1, 1, 0), 64-127 Q = (0,0), 128-191 Q = P
-    (doubling), 192-255 Q = -P, 256-319 P = inf and Q = (0,0)."""
-    n = N_LANES
+def g1_edge_lanes(tf, ax, ay, gen, n: int | None = None, edges: bool = True):
+    """Phase 2's madd inputs: n (N_LANES by default) Jacobian accumulators
+    (x z^2, y z^3, z) with random z and affine operands, P_i + P_(n+i), with
+    tests/test_pallas.py:33's edges: lanes 0-63 P = inf (1, 1, 0), 64-127 Q
+    = (0,0), 128-191 Q = P (doubling), 192-255 Q = -P, 256-319 P = inf and Q =
+    (0,0); with edges=False none (a fixed-base call's later windows)."""
+    n = N_LANES if n is None else n
     f = tf.FqPlain
     x, y = ax[:n].clone(), ay[:n].clone()
     qx, qy = ax[n : 2 * n].clone(), ay[n : 2 * n].clone()
-    qx[128:256], qy[128:192], qy[192:256] = x[128:256], y[128:192], tf.neg(tf.FQ, y[192:256])
-    qx[64:128], qy[64:128], qx[256:320], qy[256:320] = 0, 0, 0, 0
+    if edges:
+        qx[128:256], qy[128:192], qy[192:256] = x[128:256], y[128:192], tf.neg(tf.FQ, y[192:256])
+        qx[64:128], qy[64:128], qx[256:320], qy[256:320] = 0, 0, 0, 0
     z = rand_limbs(n, gen)
     z2 = f.sqr(z)
     p = [f.mul(x, z2), f.mul(y, f.mul(z2, z)), z]
-    one = f.one((64,), DEVICE)
-    for lo in (0, 256):
-        p[0][lo : lo + 64], p[1][lo : lo + 64], p[2][lo : lo + 64] = one, one, 0
+    if edges:
+        one = f.one((64,), DEVICE)
+        for lo in (0, 256):
+            p[0][lo : lo + 64], p[1][lo : lo + 64], p[2][lo : lo + 64] = one, one, 0
     return p, (qx, qy)
+
+
+def madd_work(tf, x, y, z, qx, qy) -> tuple:
+    """The bound's work (Bound's arguments) of madd on these lanes: 8 64-byte
+    rows a lane, and LAZY_G1_PRODUCTS' products of each lane with both
+    operands finite, a doubling lane (Q = P) the escape's instead."""
+    f = tf.FqPlain
+    finite = ~(z == 0).all(-1) & ~((qx == 0).all(-1) & (qy == 0).all(-1))
+    z2 = f.sqr(z)
+    dbl = finite & (f.mul(qx, z2) == x).all(-1) & (f.mul(f.mul(qy, z), z2) == y).all(-1)
+    return 8 * 64 * z.shape[0], g1_work("madd", int((finite & ~dbl).sum())) + g1_work("madd_dbl", int(dbl.sum()))
+
+
+def proj_lanes(tf, ax, ay, gen, m: int):
+    """m projective pairs P_i + P_(N-m+i) of the G1 set under random z (the
+    collapse's and the suffix's adds: distinct finite points)."""
+    f = tf.FqPlain
+    N = ax.shape[0]
+    out = []
+    for lo in (0, N - m):
+        z = rand_limbs(m, gen)
+        out += [f.mul(ax[lo : lo + m], z), f.mul(ay[lo : lo + m], z), z]
+    return tuple(out)
 
 
 def g1_jacobian_pairs(tf, ax, ay, gen):
@@ -1156,13 +1212,24 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
            library_ms=cuda_ms(lambda: planes.permute(2, 0, 1, 3).contiguous(), 10))
     del planes
 
-    # madd: 2^18 lanes with test_pallas.py:33's edge lanes
+    # madd: 2^18 lanes with test_pallas.py:33's edge lanes, also as unaligned
+    # views (the row); then at a fixed-base width, no edges (a line)
     jp, (qx, qy) = g1_edge_lanes(tf, ax, ay, gen)
     margs = (*jp, qx, qy)
-    err = max_abs_err(cc.madd(*margs), cc.madd_plain(*margs))
+    ref = cc.madd_plain(*margs)
+    err = max(max_abs_err(cc.madd(*margs), ref), max_abs_err(cc.madd(*map(unaligned, margs)), ref))
     record("madd", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1281",
            cuda_ms(lambda: cc.madd(*margs), 10), cuda_ms(lambda: cc.madd_plain(*margs), 1), err,
-           (8 * 64 * n, g1_work("madd", n) + g1_work("dbl", 64)))
+           madd_work(tf, *margs))
+    jp, (qx, qy) = g1_edge_lanes(tf, ax, ay, gen, MADD_WIDE, edges=False)
+    margs = (*jp, qx, qy)
+    ref, plain_ms = timed_once(lambda: cc.madd_plain(*margs))
+    err = max_abs_err(cc.madd(*margs), ref)
+    require(err == 0, f"madd at {MADD_WIDE} lanes: kernel differs from its plain version (max abs err {err})")
+    work = bound(*madd_work(tf, *margs))
+    log(f"[kernels] madd at {MADD_WIDE} lanes (a fixed-base width, no edges): bit-identical, kernel "
+        f"{cuda_ms(lambda: cc.madd(*margs), 10):.4f} ms, plain {plain_ms:.1f} ms, bound {work[0]:.4f} ms ({work[1]})")
+    del jp, qx, qy, margs, ref
 
     # dbl and add: 2^18 Jacobian lanes with infinity, doubling and inverse
     # lanes; add computes the doubling (2 products, 5 squares) on its 64
@@ -1198,8 +1265,21 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
                 log(f"[kernels] pmadd_rcb at {n} edge lanes (also as unaligned views): bit-identical, kernel "
                     f"{cuda_ms(lambda: fn(*kargs), 10):.4f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
                 continue
+            if op + sfx == "padd_rcb":
+                err = max(err, max_abs_err(fn(*map(unaligned, kargs)), plain(*kargs)))
             record(op + sfx, f"hekaton_tpu_torch/csrc/{src}", f"hekaton_tpu/curves/pallas_curve.py:{line}",
                    cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err, work)
+    # padd_rcb at the suffix scan's and the collapse's widths (lines)
+    for m in PADD_WIDTHS:
+        kargs = proj_lanes(tf, *g1_pts, gen, m)
+        ref, plain_ms = timed_once(lambda: cc.padd_rcb_plain(*kargs))
+        err = max_abs_err(cc.padd_rcb(*kargs), ref)
+        require(err == 0, f"padd_rcb at {m} lanes: kernel differs from its plain version (max abs err {err})")
+        work = bound(9 * 64 * m, g1_work("padd_rcb", m))
+        log(f"[kernels] padd_rcb at {m} lanes (distinct finite points): bit-identical, kernel "
+            f"{cuda_ms(lambda: cc.padd_rcb(*kargs), 10):.4f} ms, plain {plain_ms:.1f} ms, bound {work[0]:.4f} ms "
+            f"({work[1]})")
+        del kargs, ref
 
     # pmadd_rcb_g2 and padd_rcb_g2 at the G2 MSM's own level-1 width, every
     # lane against the plain version: lines of their own, not rows
@@ -1835,9 +1915,15 @@ def main() -> int:
             warm = time.perf_counter() - t
             want = h.accel.mul_batch([base] * N_SAMPLE, [fb_scalars[i] for i in sample])
             require([got[i] for i in sample] == want, f"fixed-base {'G2' if g2 else 'G1'} differs from the host")
+            busy = ""
+            if not g2:  # the card's share of a host-bound call, and madd's (32 launches a batch)
+                dev_ms, parts = device_busy(lambda: backend.fixed_base(base, fb_scalars), ("madd_kernel",))
+                busy = ("; device time not measured (no device time in the trace)" if dev_ms is None else
+                        f"; device time a warm call {dev_ms:.2f} ms (torch.profiler), madd_kernel's "
+                        f"{parts['madd_kernel']:.2f} ms of it")
             log(f"[fixed_base] {'G2' if g2 else 'G1'} {N_FB} scalars equal the native muls on {N_SAMPLE} "
                 f"lanes; first {first:.2f} s (table included), warm {warm:.2f} s, "
-                f"{N_FB / warm:,.0f} scalars/s on {card}")
+                f"{N_FB / warm:,.0f} scalars/s{busy} on {card}")
 
     main_path("fixed_base", ["mont_mul", "fermat_inv", "madd"], fixed_base_path)
 

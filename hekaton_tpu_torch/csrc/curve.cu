@@ -79,49 +79,59 @@
 // over 16 lanes (shuffles, ballots) and additions in C were slower
 // (PERF.md).
 //
-// madd is one thread per lane on the straight-line madd-2007-bl formulas
-// (11 products, 4 of them squares; 7 more, 5 squares, on the rare doubling
-// lanes, which the kernel computes only where they are taken) against 512
-// bytes of (n, 16) limb rows in and out: ~5.6 multiplies per byte, so bound
-// by integer multiply throughput once the card is full. Its edge overrides
-// follow _madd_tiles in its order, which fixes the limbs of infinity lanes
-// (curves/cuda_curve.py::madd_plain). dbl (dbl-2009-l, 7 products, 5 of
-// them squares) and add (add-2007-bl, 16, 5 squares; 7 more on doubling
-// lanes only) are the same one-thread-per-lane design; add's
-// overrides follow _add_tiles (curves/cuda_curve.py::add_plain). The compact
-// msm launches them at 1 to a few thousand lanes, where launch latency, not
+// madd is one thread per lane on madd-2007-bl against 512 bytes of (n, 16)
+// limb rows in and out, 16 bytes a load. _madd_tiles' edge overrides are
+// branches in its order, taken before the arithmetic they make moot: P at
+// infinity (every lane of a fixed-base call's first window) moves bytes
+// only, Q the (0,0) sentinel keeps P, and Q = P calls the doubling escape
+// (dbl-2009-l, madd_dbl_lane: out of line, it reloads P), so no lane keeps
+// the inputs live through the formula for a final select. The formula
+// runs on the mixed add's column products and lazy sums (below): 11 wide
+// products (3 squares) and 10 reductions, z3 = (z1 + h)^2 - z1z1 - hh as the
+// same value 2 z1 h, y3 = r2 (v - x3) - 2 y1 j one sum of two products; 116
+// registers, 4 blocks an SM. dbl (dbl-2009-l, 7 products, 5 of them
+// squares) and add (add-2007-bl, 16, 5 squares; 7 more on doubling lanes
+// only) are one thread per lane on field.cuh's row products; add's overrides
+// follow _add_tiles (curves/cuda_curve.py::add_plain). The compact msm
+// launches them at 1 to a few thousand lanes, where launch latency, not
 // the multiplies, sets their time.
 //
 // The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
 // projective formulas of curves/proj.py, with no escapes) are the same
 // design: one thread per lane on (n, 16) limb rows. An add is 12 products
 // against 576 bytes in and out, a double 8 (2 of them squares) against 384,
-// bound by integer multiply throughput once the card is full. padd_rcb and
-// pdbl_rcb run on canonical values and full products.
+// bound by bytes (the adds) or by integer multiply throughput once the card
+// is full. pdbl_rcb runs on canonical values and full products.
 //
-// The mixed add (pmadd_rcb, and every add of l1_rcb_mega) runs on lazy
-// sums: its values between products may exceed p, as far as each product's
-// 16-word sum stays below p 2^256, and each closing coordinate (x3 = t3 t1
-// - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3) is one sum of two wide
-// products and one reduction (fe_dot): 11 wide products and 8 reductions,
-// 2,496 32-bit multiplies against 2,904 for 11 full products, and fewer
-// modular additions (t4, z3 and t1 - t2 stay lazy, below 2p). Its products
+// The mixed add (pmadd_rcb, and every add of l1_rcb_mega), the full add
+// (padd_rcb) and madd run on lazy sums: their values between products may
+// exceed p, as far as each product's 16-word sum stays below p 2^256, and
+// each closing coordinate (x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3
+// t4 + t0 t3) is one sum of two wide products and one reduction (fe_dot):
+// the mixed add 11 wide products and 8 reductions, 2,496 32-bit multiplies
+// against 2,904 for 11 full products, the full add 12 and 9, and fewer
+// modular additions (t4, z3 and t1 - t2 stay lazy, below 2p). Their products
 // run by product scanning (col_dot): column by column into a three-register
 // accumulator whose 64-bit pair stays put, where field.cuh's row chains
 // (mac_row) add each 64-bit product (IMAD.WIDE) into another pair of the
 // 16-word sum and ptxas re-pairs the words for it with moves: ~1,070 a
 // mixed add (676 MOV, 394 IMAD.MOV), gone; 2,840 SASS instructions against
-// 3,552. Its rows move 16 bytes at a time. Held to 128 registers
-// (__launch_bounds__(128, 4); 122 used), it keeps 16 warps an SM where the
-// full-product body (148-150 registers) kept 12. On one H100 80GB HBM3
-// (700 W), in turns with that body (benches/torch_aff_ab.py): pmadd_rcb
+// 3,552. Their rows move 16 bytes at a time. Held to 128 registers
+// (__launch_bounds__(128, 4); 116-122 used), they keep 16 warps an SM where
+// the full-product mixed adds (130-150 registers) kept 12. On one H100 80GB HBM3
+// (700 W), in turns with those bodies (benches/torch_aff_ab.py): pmadd_rcb
 // 0.073 ms against 0.20 at 2^18 lanes, 0.16 against 0.50 at route (c)'s
 // 734,740, its bound 0.11 ms (bytes: 512 a lane); the 2^20 MSM's mega
 // level 1 (734,740 columns x 32) 4.3 ms against 6.9 in either layout, its
-// bound 3.03 (multiplies); on the row chains 0.079, 0.18 and 4.8-4.9 ms
-// (PERF.md). The mixed add needs no escape: the (0,0) sentinel operand
-// (ay = 0 only there) keeps P, by a branch around the op, so that P need
-// not stay live through it.
+// bound 3.03 (multiplies); padd_rcb 0.077 against 0.226 at 2^18 lanes,
+// 0.177 against 0.551 at 734,740 (bound 0.126, bytes); madd 0.071 against
+// 0.199 at 2^18 lanes, 0.070 against 0.194 at a fixed-base call's 255,357
+// (bound 0.040, multiplies). Slower: 3 blocks an SM (134 registers) or 5
+// (94-96, padd_rcb spilling 48 bytes); one resident wave of blocks walking
+// the lanes, with or without an L2 prefetch of each block's next lanes; a
+// column-form square in madd (PERF.md). The mixed add needs
+// no escape: the (0,0) sentinel operand (ay = 0 only there) keeps P, by a
+// branch around the op, so that P need not stay live through it.
 //
 // l1_rcb_mega is MSM level 1 on the accum="proj" routes: per column of the
 // (ncols, L*16) packed slab, the L packed rows added in order into the
@@ -566,30 +576,6 @@ struct Proj {
   Fe x, y, z;
 };
 
-// RCB15 Algorithm 7 (pallas_curve.py::_padd_rcb_tiles)
-__device__ Proj padd_rcb(const Proj& p, const Proj& q) {
-  Fe t0 = fe_mul<FQ>(p.x, q.x);
-  Fe t1 = fe_mul<FQ>(p.y, q.y);
-  Fe t2 = fe_mul<FQ>(p.z, q.z);
-  Fe t3 = fe_mul<FQ>(fe_add<FQ>(p.x, p.y), fe_add<FQ>(q.x, q.y));
-  t3 = fe_sub<FQ>(t3, fe_add<FQ>(t0, t1));
-  Fe t4 = fe_mul<FQ>(fe_add<FQ>(p.y, p.z), fe_add<FQ>(q.y, q.z));
-  t4 = fe_sub<FQ>(t4, fe_add<FQ>(t1, t2));
-  Fe y3 = fe_mul<FQ>(fe_add<FQ>(p.x, p.z), fe_add<FQ>(q.x, q.z));
-  y3 = fe_sub<FQ>(y3, fe_add<FQ>(t0, t2));
-  Fe x3 = fe_add<FQ>(t0, t0);
-  t0 = fe_add<FQ>(x3, t0);
-  t2 = mul9(t2);
-  Fe z3 = fe_add<FQ>(t1, t2);
-  t1 = fe_sub<FQ>(t1, t2);
-  y3 = mul9(y3);
-  Proj r;
-  r.x = fe_sub<FQ>(fe_mul<FQ>(t3, t1), fe_mul<FQ>(t4, y3));
-  r.y = fe_add<FQ>(fe_mul<FQ>(t1, z3), fe_mul<FQ>(y3, t0));
-  r.z = fe_add<FQ>(fe_mul<FQ>(z3, t4), fe_mul<FQ>(t0, t3));
-  return r;
-}
-
 // RCB15 Algorithm 9 (pallas_curve.py::_pdbl_rcb_tiles)
 __device__ Proj pdbl_rcb(const Proj& p) {
   Fe t0 = fe_sqr<FQ>(p.y);
@@ -738,6 +724,51 @@ __device__ __forceinline__ Proj pmadd_rcb(const Proj& p, const Fe& ax, const Fe&
   return r;
 }
 
+// RCB15 Algorithm 7 (a=0, b3=9; pallas_curve.py::_padd_rcb_tiles) on the
+// mixed add's terms: 12 wide products, 9 reductions. Each input pair dies
+// at its last product (x after w, y after u, z after t2), so at most two
+// coordinates of each point and four products are live at once.
+__device__ __forceinline__ Proj padd_rcb(const Proj& p, const Proj& q) {
+  const Fe s = col_mul(lazy_add(p.x, p.y), lazy_add(q.x, q.y));  // operands < 2: 4 p^2
+  Fe t0 = col_mul(p.x, q.x);                                     // < 1
+  const Fe w = col_mul(lazy_add(p.x, p.z), lazy_add(q.x, q.z));  // operands < 2: 4 p^2
+  Fe t1 = col_mul(p.y, q.y);                                     // < 1
+  const Fe t3 = fe_sub<FQ>(s, fe_add<FQ>(t0, t1));               // < 1
+  const Fe u = col_mul(lazy_add(p.y, p.z), lazy_add(q.y, q.z));  // operands < 2: 4 p^2
+  const Fe t2 = col_mul(p.z, q.z);                               // < 1
+  const Fe t4 = lazy_sub(u, fe_add<FQ>(t1, t2));                 // (0, 2)
+  const Fe y3 = mul9(fe_sub<FQ>(w, fe_add<FQ>(t0, t2)));         // < 1
+  const Fe t2x9 = mul9(t2);                                      // < 1
+  const Fe z3 = lazy_add(t1, t2x9);                              // < 2
+  t1 = lazy_sub(t1, t2x9);                                       // (0, 2)
+  t0 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);                       // < 1
+  // the closing sums, each below 5 p^2 < p 2^256
+  Proj r;
+  r.x = fe_dot(t3, t1, t4, lazy_neg(y3));  // t3 t1 - t4 y3 + p t4: 1*2 + 2*1 = 4 p^2
+  r.y = fe_dot(t1, z3, y3, t0);            // 2*2 + 1*1 = 5 p^2
+  r.z = fe_dot(z3, t4, t0, t3);            // 2*2 + 1*1 = 5 p^2
+  return r;
+}
+
+// madd-2007-bl (pallas_curve.py::_madd_tiles) for P and Q finite and Q !=
+// P, on h = u2 - x1 and rr = s2 - y1 (madd_diffs; canonical: the caller
+// tests them for zero): with madd_diffs 11 wide products (3 squares) and 10
+// reductions, z3 = (z1 + h)^2 - z1z1 - hh as the same value 2 z1 h, and y3 =
+// r2 (v - x3) - 2 y1 j as one sum of two products. An inverse pair's x3 and
+// y3 are these too.
+__device__ __forceinline__ void madd_finish(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& h, const Fe& rr,
+                                            Fe& x3, Fe& y3, Fe& z3) {
+  z3 = col_mul(lazy_add(z1, z1), h);                                       // < 1
+  const Fe hh = col_mul(h, h);                                             // < 1
+  const Fe hh2 = lazy_add(hh, hh);                                         // < 2
+  const Fe i4 = lazy_add(hh2, hh2);                                        // < 4
+  const Fe j = col_mul(h, i4);                                             // < 1
+  const Fe v = col_mul(x1, i4);                                            // < 1
+  const Fe r2 = lazy_add(rr, rr);                                          // < 2
+  x3 = fe_sub<FQ>(fe_sub<FQ>(col_mul(r2, r2), j), fe_add<FQ>(v, v));       // < 1
+  y3 = fe_dot(r2, fe_sub<FQ>(v, x3), lazy_add(y1, y1), lazy_neg(j));  // 2*1 + 2*1 = 4 p^2
+}
+
 __device__ __forceinline__ Proj load_proj(const int32_t* x, const int32_t* y, const int32_t* z,
                                           long long i) {
   return Proj{load_limbs(x + i * 16), load_limbs(y + i * 16), load_limbs(z + i * 16)};
@@ -884,15 +915,21 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
   store_limbs16(oz + i * 16, p.z);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// 16-byte rows (the wrapper aligns them)
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
     padd_rcb_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                     const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
                     const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
                     int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                     long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_proj(ox, oy, oz, i, padd_rcb(load_proj(x1, y1, z1, i), load_proj(x2, y2, z2, i)));
+  const Proj p{load_limbs16(x1 + i * 16), load_limbs16(y1 + i * 16), load_limbs16(z1 + i * 16)};
+  const Proj q{load_limbs16(x2 + i * 16), load_limbs16(y2 + i * 16), load_limbs16(z2 + i * 16)};
+  const Proj r = padd_rcb(p, q);
+  store_limbs16(ox + i * 16, r.x);
+  store_limbs16(oy + i * 16, r.y);
+  store_limbs16(oz + i * 16, r.z);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -954,49 +991,64 @@ __device__ void jac_dbl(const Fe& x, const Fe& y, const Fe& z, Fe& x3, Fe& y3, F
   z3 = fe_mul<FQ>(fe_add<FQ>(y, y), z);
 }
 
-__global__ void madd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                            const int32_t* __restrict__ z, const int32_t* __restrict__ ax,
-                            const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
-                            int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// madd-2007-bl's u2 - x1 and s2 - y1, canonical: 4 wide products (1 square),
+// 4 reductions
+__device__ __forceinline__ void madd_diffs(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& qx, const Fe& qy,
+                                           Fe& h, Fe& rr) {
+  const Fe z1z1 = col_mul(z1, z1);        // < 1
+  const Fe s = col_mul(qy, z1);           // < 1
+  h = fe_sub<FQ>(col_mul(qx, z1z1), x1);  // < 1
+  rr = fe_sub<FQ>(col_mul(s, z1z1), y1);  // < 1
+}
+
+// the doubling escape (Q = P): dbl-2009-l on P, reloaded from its rows, and
+// its store. Out of line, so that the common lane's register budget holds
+// none of it; a lane takes it only where Q = P.
+__device__ __noinline__ void madd_dbl_lane(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
+                                           int32_t* oy, int32_t* oz, long long i) {
+  Fe x3, y3, z3;
+  jac_dbl(load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16), x3, y3, z3);
+  store_limbs16(ox + i * 16, x3);
+  store_limbs16(oy + i * 16, y3);
+  store_limbs16(oz + i * 16, z3);
+}
+
+// _madd_tiles' overrides, in its order, as branches: P = inf gives (ax,
+// ay, 1), or (0, 0, 0) for the (0,0) sentinel Q, before any product (every
+// lane of a fixed-base call's first window); Q = inf with P finite gives P;
+// Q = P the doubling escape; an inverse pair the generic x3, y3 and z3 = 0.
+// 16-byte rows (the wrapper aligns them).
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    madd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                const int32_t* __restrict__ ax, const int32_t* __restrict__ ay, int32_t* __restrict__ ox,
+                int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe x1 = load_limbs(x + i * 16), y1 = load_limbs(y + i * 16), z1 = load_limbs(z + i * 16);
-  Fe qx = load_limbs(ax + i * 16), qy = load_limbs(ay + i * 16);
-  bool q_inf = fe_is_zero(qx) && fe_is_zero(qy);
-  bool p_inf = fe_is_zero(z1);
-
-  Fe z1z1 = fe_sqr<FQ>(z1);
-  Fe u2 = fe_mul<FQ>(qx, z1z1);
-  Fe s2 = fe_mul<FQ>(fe_mul<FQ>(qy, z1), z1z1);
-  Fe h = fe_sub<FQ>(u2, x1);
-  Fe rr = fe_sub<FQ>(s2, y1);
-  bool same_x = fe_is_zero(h);
-  bool same_y = fe_is_zero(rr);
-  Fe hh = fe_sqr<FQ>(h);
-  Fe i4 = fe_add<FQ>(fe_add<FQ>(hh, hh), fe_add<FQ>(hh, hh));
-  Fe j = fe_mul<FQ>(h, i4);
-  Fe r2 = fe_add<FQ>(rr, rr);
-  Fe v = fe_mul<FQ>(x1, i4);
-  Fe x3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(r2), j), fe_add<FQ>(v, v));
-  Fe yj = fe_mul<FQ>(y1, j);
-  Fe y3 = fe_sub<FQ>(fe_mul<FQ>(r2, fe_sub<FQ>(v, x3)), fe_add<FQ>(yj, yj));
-  Fe z3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(fe_add<FQ>(z1, h)), z1z1), hh);
-
-  if (same_x && same_y) jac_dbl(x1, y1, z1, x3, y3, z3);  // doubling escape
-  if (same_x && !same_y) z3 = fe_zero();                  // inverse pair: z3 only
-  if (p_inf) {                                             // P = inf: Q, z = 0 or 1
-    x3 = qx;
-    y3 = qy;
-    z3 = q_inf ? fe_zero() : fe_one<FQ>();
+  const Fe z1 = load_limbs16(z + i * 16);
+  const Fe qx = load_limbs16(ax + i * 16), qy = load_limbs16(ay + i * 16);
+  const bool q_inf = fe_is_zero(qx) && fe_is_zero(qy);
+  if (fe_is_zero(z1)) {
+    store_limbs16(ox + i * 16, qx);
+    store_limbs16(oy + i * 16, qy);
+    store_limbs16(oz + i * 16, q_inf ? fe_zero() : fe_one<FQ>());
+    return;
   }
-  if (q_inf && !p_inf) {  // Q = inf: P
-    x3 = x1;
-    y3 = y1;
-    z3 = z1;
+  const Fe x1 = load_limbs16(x + i * 16), y1 = load_limbs16(y + i * 16);
+  Fe x3 = x1, y3 = y1, z3 = z1;
+  if (!q_inf) {
+    Fe h, rr;
+    madd_diffs(x1, y1, z1, qx, qy, h, rr);
+    const bool same_x = fe_is_zero(h);
+    if (same_x && fe_is_zero(rr)) {
+      madd_dbl_lane(x, y, z, ox, oy, oz, i);
+      return;
+    }
+    madd_finish(x1, y1, z1, h, rr, x3, y3, z3);
+    if (same_x) z3 = fe_zero();
   }
-  store_limbs(ox + i * 16, x3);
-  store_limbs(oy + i * 16, y3);
-  store_limbs(oz + i * 16, z3);
+  store_limbs16(ox + i * 16, x3);
+  store_limbs16(oy + i * 16, y3);
+  store_limbs16(oz + i * 16, z3);
 }
 
 __global__ void dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,

@@ -54,11 +54,14 @@ building the next one's chains; every product is field.cuh's carry-chain
 one; the Horner fold is one warp, bound by the latency of its chain, each
 point op two levels of independent products, a product a lane.
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
-straight-line formulas, bound by integer multiply throughput once the card
-is full; the G1 mixed add (`pmadd_rcb`, and each add of `l1_rcb_mega`) runs
-on lazy sums, each closing coordinate one sum of two products and one
-reduction, its products by product scanning (column by column into a
-three-register accumulator), on 16-byte rows, 4 blocks an SM; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+straight-line formulas, bound by integer multiply throughput or by bytes
+once the card is full; the G1 mixed add (`pmadd_rcb`, and each add of
+`l1_rcb_mega`), the full add `padd_rcb` and `madd` run on lazy sums, each
+closing coordinate of the RCB adds (and madd's y3) one sum of two products
+and one reduction, their products by product scanning (column by column
+into a three-register accumulator), on 16-byte rows, 4 blocks an SM;
+`madd` takes its edge overrides as branches before the arithmetic they
+make moot, its doubling escape out of line; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
 threads a lane, one Fq2 component each, with its operands in shared memory;
 `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds

@@ -1,15 +1,15 @@
-"""A Python model of the BN254 G1 complete mixed add of the port's kernels
-(hekaton_tpu_torch/csrc/curve.cu: the device function pmadd_rcb under
-pmadd_rcb_kernel and l1_rcb_mega_kernel) against the port's plain
-versions, the JAX package's projective formulas and a plain Python-int
-RCB15 mixed add.
+"""A Python model of the BN254 G1 complete mixed add and complete add of
+the port's kernels (hekaton_tpu_torch/csrc/curve.cu: the device functions
+pmadd_rcb under pmadd_rcb_kernel and l1_rcb_mega_kernel, and padd_rcb under
+padd_rcb_kernel) against the port's plain versions, the JAX package's
+projective formulas and plain Python-int RCB15 adds.
 
 The kernels run one thread a lane (a slab column for the mega kernel) on
 lazy sums: values between the products need not be canonical, and each
 closing coordinate (x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0
 t3) is one sum of two products and one reduction. The model reads
-the op's steps from the kernel's source (the statements of pmadd_rcb, and
-the mega kernel's first point into the identity) and runs them on values
+each op's steps from the kernel's source (the statements of pmadd_rcb and
+padd_rcb, and the mega kernel's first point into the identity) and runs them on values
 that carry the interval their words may hold, so that every lazy sum is
 checked at its worst case: below 2^256 as 8 words, a product's 16-word sum
 below p 2^256 (where one reduction and one conditional subtraction give
@@ -19,9 +19,9 @@ kernel's column form (curve.cu::col_dot: each column of the 16-word sum in a
 three-word accumulator, the reduction's m_k p added column by column), the
 first point of the mega kernel on field.cuh's row chains (`mac_row` under
 `mac_wide`, `redc_wide`). The model is held limb
-for limb to `cuda_curve.pmadd_rcb_plain`, to the JAX package's
-`PROJ_G1.add_mixed` (run eagerly) and to a Python-int RCB15 add on the
-completeness lanes, and its mega chain to `l1_rcb_mega_plain` and the JAX
+for limb to `cuda_curve.pmadd_rcb_plain` and `padd_rcb_plain`, to the JAX
+package's `PROJ_G1.add_mixed` and `PROJ_G1.add` (run eagerly) and to
+Python-int RCB15 adds on the completeness lanes, and its mega chain to `l1_rcb_mega_plain` and the JAX
 `_level1_rows(PROJ_G1, ...)` in both slab layouts. The kernels themselves
 are held to the plain versions on the card by chip_smoke.py.
 """
@@ -41,6 +41,8 @@ from hekaton_tpu_torch.curves import host as ch
 from hekaton_tpu_torch.curves.affine import AFF_G1, Aff
 from hekaton_tpu_torch.curves.torch_curve import G1
 from hekaton_tpu_torch.fields import torch_field as tf
+
+import chip_smoke
 
 torch.set_num_threads(1)
 
@@ -243,12 +245,13 @@ def _python(stmt: str) -> str:
     return re.sub(r"\b(\w+)\.(\w)\b", r"\1_\2", stmt)
 
 
-def kernel_steps() -> list:
-    """pmadd_rcb's statements (curve.cu) as Python, each with the bound its
-    comment states: ('lt', k) for `// < k` (units of p), ('in', (a, b)) for
-    `// (a, b)`, None where it states none."""
+def kernel_steps(head: str = "__device__ __forceinline__ Proj pmadd_rcb(") -> list:
+    """The statements of the device function `head` (curve.cu; pmadd_rcb by
+    default) as Python, each with the bound its comment states: ('lt', k)
+    for `// < k` (units of p), ('in', (a, b)) for `// (a, b)`, None where it
+    states none."""
     steps, pending = [], ""
-    for line in _body("__device__ __forceinline__ Proj pmadd_rcb(").splitlines():
+    for line in _body(head).splitlines():
         code, _, comment = line.partition("//")
         pending += " " + code
         if not code.strip().endswith(";"):
@@ -264,14 +267,13 @@ def kernel_steps() -> list:
 
 
 STEPS = kernel_steps()
+PADD_STEPS = kernel_steps("__device__ __forceinline__ Proj padd_rcb(")
 
 
-def model_op(px, py, pz, ax, ay):
-    """pmadd_rcb on canonical inputs, its steps from the source; every bound
-    comment checked against the model's interval."""
-    env = dict(OPS, p_x=V.canonical(px), p_y=V.canonical(py), p_z=V.canonical(pz), ax=V.canonical(ax),
-               ay=V.canonical(ay))
-    for stmt, bound in STEPS:
+def run_steps(steps: list, env: dict) -> dict:
+    """Run a device function's steps in `env` (OPS and its inputs), every
+    bound comment checked against the model's interval; returns env."""
+    for stmt, bound in steps:
         exec(stmt, {}, env)
         name = stmt.split("=")[0].strip()
         if bound is not None:
@@ -280,6 +282,38 @@ def model_op(px, py, pz, ax, ay):
                 assert val.hi < bound[1] * P, f"{stmt}: bound < {bound[1]} p does not hold"
             else:
                 assert bound[1][0] * P < val.lo and val.hi < bound[1][1] * P, f"{stmt}: bound {bound[1]} p"
+    return env
+
+
+def worst_case_ops() -> dict:
+    """OPS whose products and closing sums also run word for word in the
+    column form on the largest words their operands may hold (each interval's
+    top), asserting that sum below p 2^256 and its reduction exact."""
+    def mul(a, b):
+        assert col_words([(a.hi, b.hi)]) == a.hi * b.hi * RINV % P
+        return col_mul(a, b)
+
+    def dot(a, b, c, d):
+        top = a.hi * b.hi + c.hi * d.hi
+        assert col_words([(a.hi, b.hi), (c.hi, d.hi)]) == top * RINV % P
+        return fe_dot(a, b, c, d)
+
+    return dict(OPS, col_mul=mul, fe_dot=dot)
+
+
+def model_op(px, py, pz, ax, ay):
+    """pmadd_rcb on canonical inputs, its steps from the source; every bound
+    comment checked against the model's interval."""
+    env = run_steps(STEPS, dict(OPS, p_x=V.canonical(px), p_y=V.canonical(py), p_z=V.canonical(pz),
+                                ax=V.canonical(ax), ay=V.canonical(ay)))
+    return env["r_x"].v, env["r_y"].v, env["r_z"].v
+
+
+def model_padd(p, q):
+    """padd_rcb (and padd_rcb_kernel, which has no escape) on canonical
+    projective inputs, its steps from the source."""
+    env = dict(OPS, **{f"{n}_{c}": V.canonical(v) for n, pt in (("p", p), ("q", q)) for c, v in zip("xyz", pt)})
+    env = run_steps(PADD_STEPS, env)
     return env["r_x"].v, env["r_y"].v, env["r_z"].v
 
 
@@ -326,6 +360,23 @@ def rcb15_mixed(p, q):
     y3 = (x2 * z1 + x1) % P
     t0 = 3 * t0 % P
     t2 = 9 * z1 % P
+    z3 = (t1 + t2) % P
+    t1 = (t1 - t2) % P
+    y3 = 9 * y3 % P
+    return ((t3 * t1 - t4 * y3) % P, (t1 * z3 + y3 * t0) % P, (z3 * t4 + t0 * t3) % P)
+
+
+def rcb15_add(p, q):
+    """RCB15 Algorithm 7 (a = 0, b3 = 9) in Python ints on plain (not
+    Montgomery) projective coordinates."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0, t1, t2 = x1 * x2 % P, y1 * y2 % P, z1 * z2 % P
+    t3 = ((x1 + y1) * (x2 + y2) - t0 - t1) % P
+    t4 = ((y1 + z1) * (y2 + z2) - t1 - t2) % P
+    y3 = ((x1 + z1) * (x2 + z2) - t0 - t2) % P
+    t0 = 3 * t0 % P
+    t2 = 9 * t2 % P
     z3 = (t1 + t2) % P
     t1 = (t1 - t2) % P
     y3 = 9 * y3 % P
@@ -430,6 +481,95 @@ def test_model_matches_plain_jax_and_python_rcb():
         want = rcb15_mixed(tuple(from_mont(c) for c in p), None if q[1] == 0 else tuple(from_mont(c) for c in q))
         assert tuple(from_mont(c) for c in model[i]) == want, f"lane {i} against the Python-int RCB15 add"
     # the point lanes are the host's sums: P = -Q and the identity plus the sentinel give the identity
+    for i, (p, q) in enumerate(zip(ps, qs)):
+        x, y, z = (from_mont(c) for c in model[i])
+        got = None if z == 0 else (x * pow(z, -1, P) % P, y * pow(z, -1, P) % P)
+        assert got == ch.pt_add(p, q), f"lane {i} is not P + Q"
+
+
+def _padd_lanes():
+    """Montgomery projective (x, y, z) of P and of Q per lane: random points
+    under random z, P = Q (each under its own z), P = -Q, P, Q or both the
+    identity ((0:1:0) or (0:z:0)); and lanes whose coordinates are 0, 1,
+    p-1, 2^253, p-2 and R (not points: the formulas are identities on any
+    canonical input, and these reach the lazy sums' largest words)."""
+    rng = np.random.RandomState(20261019)
+    g = ch.g1_gen()
+    ps = [ch.pt_mul(g, int(k)) for k in rng.randint(1, 2**62, size=10)]
+    qs = [ch.pt_mul(g, int(k)) for k in rng.randint(1, 2**62, size=10)]
+    qs[3], qs[4] = ps[3], ch.pt_neg(ps[4])  # P = Q, P = -Q
+    ps[5] = ps[7] = None
+    qs[6] = qs[7] = None
+    lanes = []
+    for pts, one in ((ps, 5), (qs, 6)):  # (0:1:0) on lanes 5 and 6, (0:z:0) on lane 7
+        zs = [int.from_bytes(rng.bytes(32), "little") % P for _ in pts]
+        zs[one] = 1
+        lanes.append([tuple(to_mont(c) for c in ((0, z, 0) if pt is None else (pt[0] * z % P, pt[1] * z % P, z)))
+                      for pt, z in zip(pts, zs)])
+    P1, Q1 = lanes
+    edge = [0, 1, P - 1, 1 << 253, P - 2, R]
+    for i in range(len(edge)):
+        P1.append(tuple(edge[(i + j) % len(edge)] for j in range(3)))
+        Q1.append(tuple(edge[(i + j + 3) % len(edge)] for j in range(3)))
+    return P1, Q1, ps, qs
+
+
+def _calls(text: str, fn: str) -> list:
+    """The argument lists of every call of `fn` in `text`."""
+    out = []
+    for m in re.finditer(rf"\b{fn}\(", text):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            i += 1
+        out.append([a.strip() for a in re.split(r",\s*(?![^()]*\))", text[m.end() : i - 1])])
+    return out
+
+
+def op_counts(steps: list) -> tuple:
+    """(wide products, squares among them, reductions) of a device
+    function's steps: col_mul one product (a square where its operands are
+    one value) and one reduction, fe_dot two and one."""
+    text = " ".join(s for s, _ in steps)
+    muls, dots = _calls(text, "col_mul"), _calls(text, "fe_dot")
+    return len(muls) + 2 * len(dots), sum(a == b for a, b in muls), len(muls) + len(dots)
+
+
+def test_padd_lazy_bounds_hold_at_their_worst_case():
+    """padd_rcb at the top of every interval: each product and closing sum
+    below p 2^256 word for word in the column form on the largest words its
+    operands may hold (worst_case_ops), the bound comments held (run_steps);
+    the lazy values are t4, z3 and t1, each below 2p; the op takes the 12
+    wide products and 9 reductions chip_smoke.py's bound counts."""
+    top = V(P - 1, 0, P - 1)
+    env = dict(worst_case_ops(), **{f"{n}_{c}": top for n in "pq" for c in "xyz"})
+    lazy = {}
+    for step in PADD_STEPS:
+        run_steps([step], env)
+        name = step[0].split("=")[0].strip()
+        if env[name].hi >= P:
+            lazy[name] = (env[name].lo, env[name].hi)
+    assert lazy == {"t4": (1, 2 * P - 1), "z3": (0, 2 * P - 2), "t1": (1, 2 * P - 1)}
+    assert sum(bool(re.fullmatch(r"r_\w = fe_dot\(.*\)", s)) for s, _ in PADD_STEPS) == 3
+    wide, squares, reductions = op_counts(PADD_STEPS)
+    assert (wide, squares, reductions) == (12, 0, 9)
+    assert chip_smoke.LAZY_G1_PRODUCTS["padd_rcb"] == chip_smoke.lazy_products(wide, reductions)
+
+
+def test_padd_model_matches_plain_jax_and_python_rcb():
+    P1, Q1, ps, qs = _padd_lanes()
+    args = [_tensor([p[c] for p in P1]) for c in range(3)] + [_tensor([q[c] for q in Q1]) for c in range(3)]
+    model = [model_padd(p, q) for p, q in zip(P1, Q1)]
+    plain = cc.padd_rcb_plain(*args)
+    for c in range(3):
+        assert [m[c] for m in model] == _ints(plain[c]), f"coordinate {c} against padd_rcb_plain"
+    jax_out = JPROJ_G1.add(JProj(*(_j(a) for a in args[:3])), JProj(*(_j(a) for a in args[3:])))
+    for got, exp in zip(plain, jax_out):
+        assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(exp))
+    for i, (p, q) in enumerate(zip(P1, Q1)):  # every lane, points or not
+        want = rcb15_add(tuple(from_mont(c) for c in p), tuple(from_mont(c) for c in q))
+        assert tuple(from_mont(c) for c in model[i]) == want, f"lane {i} against the Python-int RCB15 add"
+    # the point lanes are the host's sums: P = -Q and the identity plus the identity give the identity
     for i, (p, q) in enumerate(zip(ps, qs)):
         x, y, z = (from_mont(c) for c in model[i])
         got = None if z == 0 else (x * pow(z, -1, P) % P, y * pow(z, -1, P) % P)

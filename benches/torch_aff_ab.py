@@ -1,7 +1,7 @@
 """The port's kernels against an older csrc, on one CUDA card: the A/B of
 two kernel libraries.
 
-    python3 benches/torch_aff_ab.py --old build/old [--kernels pairs,halves,others,inv,g2,k_add]
+    python3 benches/torch_aff_ab.py --old build/old [--kernels pairs,halves,others,inv,g2,k_add,compact]
         [--variant build/var/curve.cu ...] [--reps 10] [--k-add 2,4,8] [--only madd,padd_rcb]
 
 --old is a directory holding an older commit's csrc sources, all of them
@@ -25,7 +25,8 @@ this tree's wrappers.
 Each --variant is a csrc source of this tree changed (a curve.cu with
 other launch bounds, say): a library is built with it swapped in, and the
 two affine pairs, the halves and the others rows of VARIANT_TIMED
-(horner_fold, pmadd_rcb, l1_rcb_mega, madd, padd_rcb) are timed from it
+(horner_fold, pmadd_rcb, l1_rcb_mega, madd, padd_rcb, dbl, add and the
+chain kernels) are timed from it
 too ("variant <i>", after "new" in the turns).
 
 --kernels picks the sections, run in this order (all by default). Each
@@ -51,7 +52,14 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   version limb for limb; and pmadd_rcb and l1_rcb_mega at the widths the main paths
   launch them at (route (c)'s level-1 step, 734,740 lanes at 2^20 points
   (chip_smoke.g1_level1_inputs); the 2^20 v9 slab in both layouts; route
-  (b)'s L=24 slab), the libraries equal to each other; --only keeps the
+  (b)'s L=24 slab), the libraries equal to each other; the compact msm's
+  chain kernels (jac_ladder, jac_sum, jac_horner) at CHAIN_SHAPES, the
+  main paths' shapes, on chip_smoke.chain_inputs' edge inputs, equal to the
+  plain version, where an older library that lacks them runs the loop of
+  single ops they replace (torch_curve.CurveOps' ladder, sum_in_order and
+  horner on its dbl, madd and add: chain_loop), as this tree's library
+  does too ("loop (new)");
+  --only keeps the
   rows of the kernels it names (and builds no other row's inputs); then the Horner chain's latency a point op, from the c=13
   and c=0 times, and one product's latency in the old one-thread body
   (from its products and additions a double and an add), times the new
@@ -70,7 +78,16 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   msm_gpu and one route (h) (steps, affine) are recorded, and each
   lanes-a-thread count of --k-add is timed at each width, the counts in
   turns (forward, then backward; the lesser of the two); the sum over the
-  launches is printed per count and per kernel.
+  launches is printed per count and per kernel;
+- compact: msm/pippenger.py::msm on BN254 G1 at COMPACT_POINTS (the
+  ladder, c=3, c=8; chip_smoke's msm_compact inputs), each against
+  msm_host, on the host clock (torch.cuda.synchronize around each call),
+  the median of --reps calls, in turns: "old" is the older library with
+  G1's chains run as CurveOps' loops of single ops (SingleOpG1: the
+  launch sequence before the chain kernels), "new" this tree; then the
+  Horner combine at CHAIN_SHAPES' (W, c) two ways, in turns on this tree:
+  jac_horner, and msm_gpu's route (curves/proj.py from_jacobian,
+  horner_fold, to_jacobian), the same point.
 The point sets are chip_smoke.py's, of N_MSM = 2^20 points (its 2^18-lane
 shapes take distinct points for P and Q). Each line carries the bound
 (chip_smoke.Bound on the work chip_smoke.py counts for the row) and the
@@ -86,6 +103,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -93,8 +111,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "cuda"
 N_WIDE = 734_740  # the widest affine add and inversion of the 2^20 G1 MSM (over every level-1 column)
-SECTIONS = ("pairs", "halves", "others", "inv", "g2", "k_add")
-VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb")  # the others rows --variant times
+SECTIONS = ("pairs", "halves", "others", "inv", "g2", "k_add", "compact")
+# the chain kernels' shapes on the main paths (chip_smoke.py's [coverage]): the ladder at (lanes, nbits),
+# the chunk sum at (K, lanes), the Horner at (W, c)
+CHAIN_SHAPES = {"jac_ladder": ((32, 254), (28, 254)), "jac_sum": ((64, 128), (7, 85), (32, 1), (28, 1), (4, 32)),
+                "jac_horner": ((85, 3), (32, 8))}
+COMPACT_POINTS = (32, 33, 2048)
+VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb", "dbl", "add", "jac_ladder", "jac_sum",
+                 "jac_horner")  # the others rows --variant times
 INSTR_PER_SM_CLOCK = 128  # thread instructions an SM starts a clock: 4 schedulers, one 32-lane warp each
 
 
@@ -239,7 +263,24 @@ def main() -> int:
     from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
     from hekaton_tpu_torch.curves import cuda_curve as cc
     from hekaton_tpu_torch.curves import proj
-    from hekaton_tpu_torch.curves.torch_curve import G1, G2
+    from hekaton_tpu_torch.curves.torch_curve import G1, G2, CurveOps, G1Ops, Jac
+
+    class SingleOpG1(G1Ops):
+        """BN254 G1 with its chains as CurveOps' loops of single-op launches
+        (the compact msm's launch sequence before the chain kernels)."""
+
+        ladder, sum_in_order, horner = CurveOps.ladder, CurveOps.sum_in_order, CurveOps.horner
+
+    g1_loops = SingleOpG1(G1.f, G1.name, G1.scalar)
+
+    def chain_loop(name: str, cargs: tuple) -> tuple:
+        """The chain kernel `name` on its wrapper's arguments as g1_loops'
+        loop of single ops."""
+        if name == "jac_ladder":
+            return tuple(g1_loops.ladder(*cargs))
+        if name == "jac_sum":
+            return tuple(g1_loops.sum_in_order(Jac(*cargs)))
+        return tuple(g1_loops.horner(Jac(*cargs[:3]), cargs[3]))
     from hekaton_tpu_torch.fields import cuda_field as cf
     from hekaton_tpu_torch.fields import torch_field as tf
     from hekaton_tpu_torch.msm import pippenger as pip
@@ -275,7 +316,11 @@ def main() -> int:
     rs = np.random.RandomState(cs.SEED)
     n_pts = cs.N_MSM
     k0, delta = (int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(2))
-    ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(cs.chain_points(n_pts, k0, delta, h)))
+    host_pts = cs.chain_points(n_pts, k0, delta, h)
+    host_pts[5], host_pts[7] = None, host_pts[6]  # chip_smoke's msm_g1 set: an infinity row, a repeated point
+    ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(host_pts))
+    scalars = cs.rand_scalars(rs, 4096, h.R)
+    scalars[0], scalars[1], scalars[2], scalars[7] = 0, 1, h.R - 1, scalars[6]
     c, L = TorchBackend.msm_params(n_pts)
     k_adds = [int(k) for k in args.k_add.split(",")]
     k_default = cc.K_ADD
@@ -395,9 +440,15 @@ def main() -> int:
         if want("dbl") or want("add"):
             jp2, jq2 = cs.g1_jacobian_pairs(tf, ax, ay, gen)
             others += [("dbl", f"{n} lanes", lambda: cc.dbl(*jp2), lambda: cc.dbl_plain(*jp2),
-                        (6 * 64 * n, cs.g1_work("dbl", n))),
+                        cs.dbl_work(*jp2)),
                        ("add", f"{n} lanes", lambda: cc.add(*jp2, *jq2), lambda: cc.add_plain(*jp2, *jq2),
-                        (9 * 64 * n, cs.g1_work("add", n) + cs.g1_work("dbl", 64)))]
+                        cs.add_work(tf, *jp2, *jq2))]
+        for name, shapes in CHAIN_SHAPES.items():  # the loop of single ops they replace, from either library
+            for shape in (shapes if want(name) else ()):
+                cargs, work, label = cs.chain_inputs(h, tf, G1, name, shape, host_pts, scalars, gen)
+                others.append((name, label, lambda name=name, cargs=cargs: tuple(getattr(cc, name)(*cargs)),
+                               lambda name=name, cargs=cargs: tuple(getattr(cc, name + "_plain")(*cargs)), work,
+                               lambda name=name, cargs=cargs: chain_loop(name, cargs)))
         g1_rcb = tuple(cs.g1_work(op, 1) for op in ("pmadd_rcb", "padd_rcb", "pdbl_rcb"))
         for sfx, pts, coord_bytes, products in (("", (ax, ay), 64, g1_rcb),
                                                 ("_g2", (g2x, g2y), 128, tuple(cs.RCB_G2_PRODUCTS.values()))):
@@ -428,17 +479,19 @@ def main() -> int:
         if only is not None:
             others = [o for o in others if o[0] in only]
         horner_ms = {}
-        for name, shape, fn, plain, work in others:
+        for name, shape, fn, plain, work, *loop in others:
             ref = plain() if plain else None
             libs = {"old": old, "new": new, **(variants if name in VARIANT_TIMED else {})}
-            for label, lib in libs.items():
-                with cuda_lib.using(lib):
-                    got = fn()
+            runs = {label: using(lib, fn) for label, lib in libs.items()}
+            if loop:  # a chain kernel: the older library runs the loop of single ops it replaces
+                runs.update({"old": using(old, loop[0]), "loop (new)": using(new, loop[0])})
+            for label, run in runs.items():
+                got = run()
                 ref = got if ref is None else ref  # without a plain version, the libraries equal the first
                 err = cs.max_abs_err(got, ref)
                 cs.require(err == 0, f"{name} {shape} from the {label} library differs from the "
                                      + ("plain version" if plain else "old library"))
-            ms = in_turns(name, shape, {label: using(lib, fn) for label, lib in libs.items()}, work)
+            ms = in_turns(name, shape, runs, work)
             if name == "horner_fold":
                 horner_ms[shape] = {k: min(v) for k, v in ms.items()}
         if {"W=20, c=13", "W=20, c=0"} <= set(horner_ms):  # both Horner rows ran (not cut by --only)
@@ -543,6 +596,52 @@ def main() -> int:
         print("[k_add] the two routes' affine-pair launches summed: "
               + ", ".join(f"K_ADD={k} {t:.3f} ms" for k, t in totals.items()) + "; by kernel: "
               + ", ".join(f"{name} K_ADD={k} {t:.3f} ms" for (name, k), t in sorted(by_name.items())) + f" on {card}")
+    if "compact" in sections:  # the compact msm, the chains as loops of single ops (old) or one launch each (new)
+        def old_msm(*a, **kw):
+            with cuda_lib.using(old):
+                return pip.msm(g1_loops, *a, **kw)
+
+        def host_ms(fn):
+            times = []
+            for _ in range(args.reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            return sorted(times)[len(times) // 2]
+
+        for n in COMPACT_POINTS:
+            pts = list(host_pts[:n])
+            px, py = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(pts))
+            psc = pip.pack_scalars(scalars[:n], G1).to(DEVICE)
+            cn = TorchBackend.compact_window(n)
+            want = h.ch.msm_host(pts, scalars[:n])
+            fns = {"old": lambda: old_msm(px, py, psc, c=cn), "new": lambda: pip.msm(G1, px, py, psc, c=cn)}
+            for label, fn in fns.items():
+                out = fn()
+                cs.require(G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == want,
+                           f"compact msm of {n} points from the {label} code differs from msm_host")
+            ms = {k: [] for k in fns}
+            for label in list(fns) + list(fns)[::-1]:
+                ms[label].append(host_ms(fns[label]))
+            print(f"[compact] G1 {n} points ({'ladder' if n <= pip.MSM_LADDER_THRESHOLD else f'c={cn}'}), host "
+                  f"clock, medians of {args.reps}: " + "; ".join(f"{k} {v[0]:.2f}, {v[1]:.2f} ms" for k, v in ms.items())
+                  + f"; old / new {min(ms['old']) / min(ms['new']):.1f}; both equal msm_host; on {card}", flush=True)
+        # the Horner combine two ways on the same window sums: jac_horner, and
+        # msm_gpu's horner_fold between the Jacobian and projective forms
+        for shape in CHAIN_SHAPES["jac_horner"]:
+            (x, y, z, c), _, label = cs.chain_inputs(h, tf, G1, "jac_horner", shape, host_pts, scalars, gen)
+            routes = {"jac_horner": lambda: cc.jac_horner(x, y, z, c),
+                      "horner_fold route": lambda: proj.PROJ_G1.to_jacobian(
+                          cc.horner_fold(*(a.contiguous() for a in proj.PROJ_G1.from_jacobian(Jac(x, y, z))), c))}
+            got = [G1.unpack_jacobian(Jac(*(a[None] for a in fn())))[0] for fn in routes.values()]
+            cs.require(got[0] == got[1], f"Horner {label}: the two routes differ as points")
+            ms = {k: [] for k in routes}
+            for k in list(routes) + list(routes)[::-1]:
+                ms[k].append(cs.cuda_ms(routes[k], args.reps))
+            print(f"[horner] {label}: " + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} ms" for k, v in ms.items())
+                  + f" (CUDA events, in turns); the same point; on {card}", flush=True)
     print(card)
     return 0
 

@@ -7,7 +7,7 @@ at first use, one nvcc per source, all at once) and a host C++ compiler (the
 native host library). Phases, one line each, every failure raises:
 
   1. device: the card's name and power limit; build the kernels;
-  2. kernels: each of the twenty CUDA kernel entry points against its plain
+  2. kernels: each CUDA kernel entry point against its plain
      PyTorch version on the card, at the main paths' shapes, bit for bit,
      with both times and the kernel's bound (and l1_rcb_mega on the
      transposed slab as well), mont_mul and fermat_inv also at BLS12-381's
@@ -32,7 +32,8 @@ native host library). Phases, one line each, every failure raises:
      unaligned views) at 255,357 lanes, a fixed-base width without edges,
      and padd_rcb (its row at 2^18, also unaligned) at 81,940 and 734,740
      lanes, the suffix scan's and the collapse's widths (lines of their
-     own); aff_add_fused and aff_add_mixed_packed on
+     own); dbl and add (their rows) on 2^18 edge lanes, also as unaligned
+     views; aff_add_fused and aff_add_mixed_packed on
      2^18 edge lanes (lines of their own; their rows come after the main
      paths, below); no kernel may spill, and each kernel's registers,
      spills and resident blocks an SM (CUDA's occupancy query) are printed;
@@ -47,7 +48,9 @@ native host library). Phases, one line each, every failure raises:
      - msm_compact: the compact msm (TorchBackend's route up to 2,048
        points) on G1 at 32 (the ladder), 33 and 2,048 points and on G2 at 33
        points, with zero scalars, r-1, a repeated and an infinity point,
-       against curves/host.py::msm_host;
+       against curves/host.py::msm_host; on G1 its chains run in
+       CHAIN_KERNELS, one jac_ladder launch a ladder and one jac_horner
+       launch a bucket MSM (every main path is held to that);
      - msm_g2: the G2 MSM at 2^20 points (4,096 distinct points k_j * G2
        tiled 256 times, an infinity row) against (sum_i s_i k_(i mod 4096))
        * G2 by one host mul;
@@ -84,6 +87,10 @@ native host library). Phases, one line each, every failure raises:
      affine pair's rows the same way (aff_rows: held against the plain
      version at the widest width, the one with the most lanes and the one
      launched most often, with edge lanes, timed at the last); before them
+     the chain kernels' rows (chain_rows: each limb for limb against its
+     plain version at every shape the main paths launched it at, with edge
+     inputs whose chains take the doubling and inverse escapes, timed at the
+     shape launched most often); before them
      horner_fold's row (horner_rows): limb for limb against
      horner_fold_plain at every (W, c) the main paths launched it at and at
      those of 2^20-, 2^16-, 2^15- and 2^12-point MSMs (horner_shapes), timed
@@ -97,7 +104,8 @@ native host library). Phases, one line each, every failure raises:
      were called on CUDA tensors,
      no path but msm_routes launched one of ROUTE_KERNELS, none but
      unfused_affine one of UNFUSED_KERNELS, none but msm_bls one of
-     BLS_KERNELS (the 24-limb instances), and msm_bls nothing else.
+     BLS_KERNELS (the 24-limb instances), and msm_bls nothing else; no path
+     launched dbl (NO_PATH_KERNELS) or add on one lane.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -148,6 +156,10 @@ ROUTE_KERNELS = ("pmadd_rcb", "padd_rcb", "pdbl_rcb", "l1_rcb_mega", "aff_add_mi
                  "l1_aff_halves_t")  # only msm_routes launches them
 UNFUSED_KERNELS = ("aff_prep", "aff_fin")  # no MSM route runs them: only unfused_affine
 BLS_KERNELS = ("mont_mul fq_bls381", "fermat_inv fq_bls381")  # the 24-limb instances: only msm_bls
+# the compact msm's chains of Jacobian ops on BN254 G1, one launch each: the
+# ladders, the in-order chunk sums of its tree reduction, the Horner combine
+CHAIN_KERNELS = ("jac_ladder", "jac_sum", "jac_horner")
+NO_PATH_KERNELS = ("dbl",)  # held in [kernels] only: the chains double inside their kernels
 N_BLS_DISTINCT = 4096  # distinct BLS12-381 G1 points of msm_bls, tiled to N_MSM
 N_BLS_ROUTES = 1 << 16  # points of the BLS12-381 routes other than the default
 # msm_bls's other routes: (label, msm_gpu route arguments), c and L of msm_g1
@@ -206,10 +218,10 @@ def g1_products(products: float, squares: float) -> float:
 
 # What a BN254 G1 op needs a lane, (products, squares), csrc/curve.cu: an
 # affine sum from 1/den is lambda, lambda^2 and lambda (x1 - x3) (Montgomery's
-# trick adds 3 products an add, a doubling lane the square x1^2);
-# dbl-2009-l 2 and 5, add-2007-bl 11 and 5. madd and the RCB ops are counted
-# by lazy_products (LAZY_G1_PRODUCTS).
-G1_OPS = {"aff_sum": (2, 1), "dbl": (2, 5), "add": (11, 5)}
+# trick adds 3 products an add, a doubling lane the square x1^2). The
+# Jacobian ops and the RCB ops are counted by lazy_products
+# (LAZY_G1_PRODUCTS).
+G1_OPS = {"aff_sum": (2, 1)}
 
 
 def lazy_products(wide: int, reductions: int, nw: int = 8, squares: int = 0) -> float:
@@ -230,15 +242,27 @@ def lazy_products(wide: int, reductions: int, nw: int = 8, squares: int = 0) -> 
 # and 2 squares and 7 results (y3 = t2 z3 + t0 y3 a sum). By CIOS
 # products (muls_per_product, muls_per_square) they were 11, 12 and 6 + 2
 # squares: 2,904, 3,168 and 2,000 multiplies against 2,496, 2,760 and 1,864.
-# madd-2007-bl (csrc/curve.cu::madd_diffs, ::madd_finish) on a lane with both
-# operands finite and Q != P: 8 products and 3 squares, 10 results (y3 = r2
-# (v - x3) - 2 y1 j a sum, z3 = 2 z1 h a product), 2,600 multiplies against
-# 2,680 for G1_OPS' old (7, 4) CIOS count; on a doubling lane h and rr (3
-# products, 1 square, 4 results, 1,000) and dbl-2009-l (2 products, 5
-# squares, 7 results, 1,568); on a lane with an infinite operand none.
+# The Jacobian ops are counted at the least work their function needs on
+# lazy sums, whatever formula the kernel runs. dbl-2009-l: 4 products, 3
+# squares, 6 results, 1,544 multiplies: a = x^2 (e = 3 a by two additions),
+# b = y^2, d = 2((x + b)^2 - a - c) as 4 x b, x3 = e^2 - 2 d, y3 = e (d - x3)
+# - 8 c one sum with -8 c = (2 b) 4 (p - b), z3 = 2 y z; the formula as
+# written (2, 5, 7) is 1,568, csrc/curve.cu::jac_dbl's (e = x (3 x) a
+# product: 5, 2, 6) 1,600. add-2007-bl on a lane with both operands finite
+# and Q != P: 11 products, 5 squares, 15 results (y3 = r2 (v - x3) - 2 s1 j
+# one sum), 3,808; the kernel's (::add_diffs, ::madd_finish: z3 = 2 z1 z2 h,
+# 12, 4, 15) 3,864. madd-2007-bl likewise: 7, 4, 10 with z3 = (z1 + h)^2 -
+# z1z1 - hh, 2,544; the kernel's (::madd_diffs, ::madd_finish: z3 = 2 z1 h,
+# 8, 3, 10) 2,600. On the kernels' column products a square is a full
+# product, so their choices cost no multiply there and save additions. A
+# doubling lane (Q = P) needs h and rr (madd 3, 1, 4; add 6, 2, 8: no z1 z2)
+# and the doubling; a lane with an infinite operand, and a doubling of the
+# identity, none (step_work, dbl_work).
+_DBL = lazy_products(4, 6, squares=3)
 LAZY_G1_PRODUCTS = {"pmadd_rcb": lazy_products(11, 8), "padd_rcb": lazy_products(12, 9),
-                    "pdbl_rcb": lazy_products(6, 7, squares=2), "madd": lazy_products(8, 10, squares=3),
-                    "madd_dbl": lazy_products(3, 4, squares=1) + lazy_products(2, 7, squares=5)}
+                    "pdbl_rcb": lazy_products(6, 7, squares=2), "madd": lazy_products(7, 10, squares=4),
+                    "madd_dbl": lazy_products(3, 4, squares=1) + _DBL, "dbl": _DBL,
+                    "add": lazy_products(11, 15, squares=5), "add_dbl": lazy_products(6, 8, squares=2) + _DBL}
 
 
 def g1_work(op: str, lanes: float) -> float:
@@ -588,6 +612,167 @@ def madd_work(tf, x, y, z, qx, qy) -> tuple:
     z2 = f.sqr(z)
     dbl = finite & (f.mul(qx, z2) == x).all(-1) & (f.mul(f.mul(qy, z), z2) == y).all(-1)
     return 8 * 64 * z.shape[0], g1_work("madd", int((finite & ~dbl).sum())) + g1_work("madd_dbl", int(dbl.sum()))
+
+
+def add_work(tf, x1, y1, z1, x2, y2, z2) -> tuple:
+    """The bound's work (Bound's arguments) of add on these lanes: 9 64-byte
+    rows a lane, and LAZY_G1_PRODUCTS' products of each lane with both
+    operands finite, a doubling lane (Q = P) the escape's instead."""
+    f = tf.FqPlain
+    finite = ~(z1 == 0).all(-1) & ~(z2 == 0).all(-1)
+    z1z1, z2z2 = f.sqr(z1), f.sqr(z2)
+    same = (finite & (f.mul(x1, z2z2) == f.mul(x2, z1z1)).all(-1)
+            & (f.mul(f.mul(y1, z2), z2z2) == f.mul(f.mul(y2, z1), z1z1)).all(-1))
+    return 9 * 64 * z1.shape[0], g1_work("add", int((finite & ~same).sum())) + g1_work("add_dbl", int(same.sum()))
+
+
+def dbl_work(x, y, z) -> tuple:
+    """The bound's work (Bound's arguments) of dbl on these lanes: 6 64-byte
+    rows a lane, and LAZY_G1_PRODUCTS' products of each finite lane (the
+    double of the identity needs none)."""
+    return 6 * 64 * z.shape[0], g1_work("dbl", int((z != 0).any(-1).sum()))
+
+
+def step_work(acc, q, mixed: bool) -> float:
+    """The products of one chain step acc + q (host affine points, None the
+    identity) as the Jacobian kernels take them: none with an infinite
+    operand, the doubling escape's where acc = q."""
+    if acc is None or q is None:
+        return 0.0
+    op = "madd" if mixed else "add"
+    return g1_work(op + "_dbl" if acc == q else op, 1)
+
+
+def jac_ladder_work(h, pts: list, scalars: list, nbits: int) -> tuple:
+    """jac_ladder's work on these lanes (host points, their scalars): 2 rows
+    and the scalar's in, 3 rows out a lane; a doubling a step once the
+    accumulator has left the identity (the kernel runs one on every step)
+    and each set bit's mixed add, from a walk of each lane on the host."""
+    ops = 0.0
+    for p, s in zip(pts, scalars):
+        acc = None
+        for j in range(nbits - 1, -1, -1):
+            ops += 0.0 if acc is None else g1_work("dbl", 1)
+            acc = h.ch.pt_dbl(acc)
+            if s >> j & 1:
+                ops += step_work(acc, p, mixed=True)
+                acc = h.ch.pt_add(acc, p)
+    return 6 * 64 * len(pts), ops
+
+
+def jac_sum_work(h, cols: list) -> tuple:
+    """jac_sum's work on a stack of K rows of lanes (host points): 3 rows in
+    an element, 3 out a lane; the adds of each lane's walk."""
+    ops = sum(step_work(acc, q, mixed=False)
+              for i in range(len(cols[0]))
+              for acc, q in zip(_prefix_sums(h, [col[i] for col in cols]), [col[i] for col in cols]))
+    return 3 * 64 * (len(cols) + 1) * len(cols[0]), ops
+
+
+def _prefix_sums(h, pts: list) -> list:
+    """The accumulator before each add of an in-order sum from the identity."""
+    out, acc = [], None
+    for q in pts:
+        out.append(acc)
+        acc = h.ch.pt_add(acc, q)
+    return out
+
+
+def jac_horner_work(h, ws: list, c: int) -> tuple:
+    """jac_horner's work on W window sums (host points): 3 rows in a window,
+    3 out; the walk's doublings of an accumulator other than the identity
+    and its adds."""
+    ops, acc = 0.0, ws[-1]
+    for q in ws[-2::-1]:
+        ops += 0.0 if acc is None else c * g1_work("dbl", 1)
+        for _ in range(c):
+            acc = h.ch.pt_dbl(acc)
+        ops += step_work(acc, q, mixed=False)
+        acc = h.ch.pt_add(acc, q)
+    return 3 * 64 * (len(ws) + 1), ops
+
+
+def jac_of(tf, G1, pts: list, gen) -> tuple:
+    """Host affine points (None the identity) -> Montgomery Jacobian limbs on
+    the card, (x z^2, y z^3, z) under random z, (1, 1, 0) for None."""
+    f = tf.FqPlain
+    ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(pts))
+    z = rand_limbs(len(pts), gen)
+    z2 = f.sqr(z)
+    x, y = f.mul(ax, z2), f.mul(ay, f.mul(z2, z))
+    inf = torch.tensor([p is None for p in pts], device=DEVICE)
+    one = f.one((len(pts),), DEVICE)
+    return f.select(inf, one, x), f.select(inf, one, y), f.select(inf, torch.zeros_like(z), z)
+
+
+def chain_inputs(h, tf, G1, name: str, shape: tuple, host_pts: list, scalars: list, gen) -> tuple:
+    """(args, work, label) of the chain kernel `name` at `shape` with edge
+    inputs. jac_ladder at (lanes, nbits): the msm_g1 set's first points and
+    scalars (0, 1, r-1, an infinity and a repeated point), lanes 3 and 4
+    taking r and r+2 (the last step's mixed add an inverse pair and a
+    doubling); jac_sum at (K, lanes): distinct points, lane 0 starting at the
+    identity, lane 1 adding P to P, lane 2 P then -P (with one lane, P added
+    to P at row 2 and the identity reached at row 4); jac_horner at (W, c):
+    window sums where the first add doubles, the second gives the identity
+    and window 0 is the identity."""
+    R = h.R
+    if name == "jac_ladder":
+        n, nbits = shape
+        pts, sc = list(host_pts[:n]), list(scalars[:n])
+        for i, v in ((3, R), (4, R + 2)):
+            if i < n:
+                sc[i] = v
+        ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(pts))
+        limbs = torch.from_numpy(np.array([[(v >> (16 * k)) & 0xFFFF for k in range(16)] for v in sc],
+                                          dtype=np.int32)).to(DEVICE)
+        return (ax, ay, limbs, nbits), jac_ladder_work(h, pts, sc, nbits), f"{n} lanes, nbits={nbits}"
+    if name == "jac_sum":
+        K, n = shape
+        cols = [list(host_pts[1000 + j * n : 1000 + (j + 1) * n]) for j in range(K)]
+        cols[0][0] = None
+        if n > 2 and K > 1:
+            cols[1][1] = cols[0][1]
+            cols[1][2] = h.ch.pt_neg(cols[0][2])
+        elif K > 4:
+            cols[2][0] = cols[1][0]
+            cols[4][0] = h.ch.pt_neg(_prefix_sums(h, [col[0] for col in cols[:5]])[4])
+        stack = [jac_of(tf, G1, col, gen) for col in cols]
+        args = tuple(torch.stack([st[k] for st in stack]) for k in range(3))
+        return args, jac_sum_work(h, cols), f"K={K}, {n} lanes"
+    W, c = shape
+    ws = list(host_pts[2000 : 2000 + W])
+    if W >= 4:
+        ws[W - 2] = h.ch.pt_mul(ws[W - 1], 1 << c)
+        ws[W - 3] = h.ch.pt_neg(h.ch.pt_mul(ws[W - 1], 1 << (2 * c + 1)))
+        ws[0] = None
+    return (*jac_of(tf, G1, ws, gen), c), jac_horner_work(h, ws, c), f"W={W}, c={c}"
+
+
+def chain_rows(h, tf, cc, G1, bound, widths: dict, host_pts: list, scalars: list, gen) -> list:
+    """The chain kernels' rows at the shapes the main paths launched them at
+    (`widths`: {name: {shape: launches}}): each held limb for limb against
+    its plain version at every shape on chain_inputs' edge inputs, the row
+    at the shape launched most often, where both are timed."""
+    rows = []
+    for name in CHAIN_KERNELS:
+        shapes = widths.get(name, {})
+        require(bool(shapes), f"{name}: no main path launched it")
+        ranked = sorted(shapes, key=lambda k: (-shapes[k], -k[0]))
+        for shape in ranked:
+            args, work, label = chain_inputs(h, tf, G1, name, shape, host_pts, scalars, gen)
+            fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
+            ref, plain_ms = timed_once(lambda: plain(*args))
+            err = max_abs_err(fn(*args), ref)
+            ms = cuda_ms(lambda: fn(*args), 5)
+            if shape == ranked[0]:
+                rows.append({**kernel_row(bound, name, "hekaton_tpu_torch/csrc/curve.cu",
+                                          f"hekaton_tpu/curves/pallas_curve.py:{1289 if name == 'jac_sum' else 1285}",
+                                          ms, plain_ms, err, work), "shape": label})
+                continue
+            require(err == 0, f"{name} {label}: kernel differs from its plain version (max abs err {err})")
+            log(f"[kernels] {name} {label} (x{shapes[shape]}): bit-identical, kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bound(*work)[0]:.6f} ms ({bound(*work)[1]})")
+    return rows
 
 
 def proj_lanes(tf, ax, ay, gen, m: int):
@@ -960,16 +1145,23 @@ def sweep_summary(inv_calls: dict, sweep: dict) -> str:
 def width_list(name: str, widths: dict) -> str:
     """Every width of `widths` ({width: launches}) with its launches, the
     most launched first: lanes, (columns, L) of a level-1 slab kernel,
-    (W, c) of horner_fold, or (field, lanes) of fermat_inv."""
+    (W, c) of horner_fold and jac_horner, (lanes, nbits) of jac_ladder, (K,
+    lanes) of jac_sum, or (field, lanes) of fermat_inv."""
     def label(k):
-        if name == "horner_fold":
+        if name in ("horner_fold", "jac_horner"):
             return "W={}, c={}".format(*k)
+        if name == "jac_ladder":
+            return "{} lanes, nbits={}".format(*k)
+        if name == "jac_sum":
+            return "K={}, {} lanes".format(*k)
         if isinstance(k, tuple):
             return f"{k[0].name} {k[1]}" if hasattr(k[0], "name") else f"{k[0]} columns x L={k[1]}"
         return str(k)
 
     def lanes(k):
-        return k[1] if isinstance(k, tuple) and hasattr(k[0], "name") else (k[0] if isinstance(k, tuple) else k)
+        if name == "jac_sum" or isinstance(k, tuple) and hasattr(k[0], "name"):
+            return k[1]
+        return k[0] if isinstance(k, tuple) else k
 
     ranked = sorted(widths, key=lambda k: (-widths[k], -lanes(k)))
     return ", ".join(f"{label(k)} x{widths[k]}" for k in ranked)
@@ -978,8 +1170,10 @@ def width_list(name: str, widths: dict) -> str:
 def width_lanes(name: str, widths: dict) -> str:
     """The lanes summed over the launches of `widths` (a level-1 slab
     kernel's columns; a horner_fold launch is one fold)."""
-    if name == "horner_fold":
+    if name in ("horner_fold", "jac_horner"):
         return f"{sum(widths.values())} folds"
+    if name in ("jac_ladder", "jac_sum"):
+        return f"{sum(n * (k[0] if name == 'jac_ladder' else k[1]) for k, n in widths.items()):,} lanes in all"
     unit = "columns" if any(isinstance(k, tuple) and not hasattr(k[0], "name") for k in widths) else "lanes"
     total = sum(n * (k[1] if hasattr(k[0], "name") else k[0]) if isinstance(k, tuple) else n * k
                 for k, n in widths.items())
@@ -1232,18 +1426,19 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
     del jp, qx, qy, margs, ref
 
     # dbl and add: 2^18 Jacobian lanes with infinity, doubling and inverse
-    # lanes; add computes the doubling (2 products, 5 squares) on its 64
-    # escape lanes only
+    # lanes, also as unaligned views; no product is counted on an infinity
+    # lane (dbl_work, add_work), add's doubling only on its 64 escape lanes
     jp, jq = g1_jacobian_pairs(tf, ax, ay, gen)
-    err = max_abs_err(cc.dbl(*jp), cc.dbl_plain(*jp))
+    ref = cc.dbl_plain(*jp)
+    err = max(max_abs_err(cc.dbl(*jp), ref), max_abs_err(cc.dbl(*map(unaligned, jp)), ref))
     record("dbl", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1285",
-           cuda_ms(lambda: cc.dbl(*jp), 10), cuda_ms(lambda: cc.dbl_plain(*jp), 1), err,
-           (6 * 64 * n, g1_work("dbl", n)))
+           cuda_ms(lambda: cc.dbl(*jp), 10), cuda_ms(lambda: cc.dbl_plain(*jp), 1), err, dbl_work(*jp))
     aargs = (*jp, *jq)
-    err = max_abs_err(cc.add(*aargs), cc.add_plain(*aargs))
+    ref = cc.add_plain(*aargs)
+    err = max(max_abs_err(cc.add(*aargs), ref), max_abs_err(cc.add(*map(unaligned, aargs)), ref))
     record("add", "hekaton_tpu_torch/csrc/curve.cu", "hekaton_tpu/curves/pallas_curve.py:1289",
            cuda_ms(lambda: cc.add(*aargs), 10), cuda_ms(lambda: cc.add_plain(*aargs), 1), err,
-           (9 * 64 * n, g1_work("add", n) + g1_work("dbl", 64)))
+           add_work(tf, *aargs))
 
     # the three RCB ops on G2, then on G1: 2^18 lanes with test_pallas.py:58's
     # completeness lanes
@@ -1686,7 +1881,8 @@ def main() -> int:
                      "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb, "pdbl_rcb": cc.pdbl_rcb,
                      "l1_rcb_mega": cc.l1_rcb_mega, "aff_add_mixed_packed": cc.aff_add_mixed_packed,
                      "interleave_slab_t": cc.interleave_slab_t, "l1_aff_halves_t": cc.l1_aff_halves_t,
-                     "aff_prep": cc.aff_prep, "aff_fin": cc.aff_fin}
+                     "aff_prep": cc.aff_prep, "aff_fin": cc.aff_fin,
+                     **{name: getattr(cc, name) for name in CHAIN_KERNELS}}
 
     def field_count(fn, fields):
         return lambda: sum(fn.launches_by_field.get(f, 0) for f in fields)
@@ -1697,8 +1893,8 @@ def main() -> int:
                "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
                **{k: field_count(cf.fermat_inv, fields) for k, fields in INV_ROWS.items()},
                **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
-    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS) | {"horner_fold"},
-            "the kernel table and the launch counts name other kernels")
+    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS) | {"horner_fold"}
+            | set(CHAIN_KERNELS), "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
     # the inversion kernel's calls on CUDA tensors by main path, (field,
     # lanes) and caller: tf.batch_inv's (one launch each; the [batch_inv]
@@ -1759,6 +1955,33 @@ def main() -> int:
 
     pip.horner_fold = recorded_fold
 
+    # the chain kernels' launches by shape: jac_ladder by (lanes, nbits),
+    # jac_sum by (K, lanes), jac_horner by (W, c), from the kernel arguments
+    # after the output pointers (lanes and nbits, lanes and K, W and c) that
+    # every chain wrapper passes to cuda_curve._launch_chain. The compact
+    # msm's BN254 G1 runs by kind: a ladder (N <= MSM_LADDER_THRESHOLD)
+    # launches jac_ladder once, a bucket MSM jac_horner once (TorchBackend
+    # looks pippenger's msm up at call time)
+    launch_chain = cc._launch_chain
+    chain_shape = {"jac_ladder": lambda t: t, "jac_sum": lambda t: (t[1], t[0]), "jac_horner": lambda t: t}
+
+    def recorded_chain(fn, entry, args, out_shape, lanes, *tail):
+        if path_now[0] is not None and lanes:
+            record_width(fn.__name__, chain_shape[fn.__name__](tail))
+        return launch_chain(fn, entry, args, out_shape, lanes, *tail)
+
+    cc._launch_chain = recorded_chain
+    compact_runs = {}
+    compact = pip.msm
+
+    def recorded_msm(curve, ax, *rest, **kw):
+        if path_now[0] is not None and ax.is_cuda and pip._is_bn254_g1(curve):
+            runs = compact_runs.setdefault(path_now[0], {"jac_ladder": 0, "jac_horner": 0})
+            runs["jac_ladder" if ax.shape[0] <= pip.MSM_LADDER_THRESHOLD else "jac_horner"] += 1
+        return compact(curve, ax, *rest, **kw)
+
+    pip.msm = recorded_msm
+
     # the level-1 slab kernels' launches by (columns, L): pippenger imports
     # them by name and calls them with the slab first
     def recorded_slab(fn, transposed: bool):
@@ -1774,9 +1997,12 @@ def main() -> int:
     for name, tr in (("l1_rcb_mega", False), ("l1_aff_halves", False), ("l1_aff_halves_t", True)):
         setattr(pip, name, recorded_slab(getattr(pip, name), tr))
 
-    def main_path(name: str, expect: list, run, absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS):
+    def main_path(name: str, expect: list, run,
+                  absent=ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS + NO_PATH_KERNELS):
         """Run one main path with every launch count at 0 before it; fail if
-        one of its kernels was not launched, or one of `absent` was."""
+        one of its kernels was not launched, or one of `absent` was, or the
+        chain kernels were not launched once a compact BN254 G1 ladder
+        (jac_ladder) and once a compact bucket MSM (jac_horner)."""
         path_now[0] = name
         cf.reset_counts(cf.mont_mul)
         cf.reset_counts(cf.fermat_inv)
@@ -1798,6 +2024,10 @@ def main() -> int:
         require(not missing, f"{name}: kernels never launched on this path: {missing}")
         stray = [k for k in absent if counts[k] > 0]
         require(not stray, f"{name}: kernels of another route launched on this path: {stray}")
+        runs = compact_runs.get(name, {"jac_ladder": 0, "jac_horner": 0})
+        require(all(counts[k] == v for k, v in runs.items()),
+                f"{name}: compact BN254 G1 MSMs {runs}, chain launches "
+                f"{ {k: counts[k] for k in runs} } (one a ladder, one a bucket MSM)")
 
     def msm_path(label, x, y, exp, curve, L=L, **route):
         torch.cuda.synchronize()
@@ -1836,7 +2066,7 @@ def main() -> int:
 
     main_path("msm_routes", ["l1_rcb_mega", "padd_rcb", "pmadd_rcb", "mont_mul", "fermat_inv", "aff_add_fused",
                              "horner_fold", "aff_add_mixed_packed", "interleave_slab_t", "l1_aff_halves_t"],
-              routes_path, absent=UNFUSED_KERNELS + BLS_KERNELS)
+              routes_path, absent=UNFUSED_KERNELS + BLS_KERNELS + NO_PATH_KERNELS)
 
     # the unfused affine add: aff_prep, batch_inv of the denominators, aff_fin
     uargs = aff_edge_lanes(tf, ax, ay)
@@ -1854,7 +2084,7 @@ def main() -> int:
 
     # batch_inv on the card runs no mont_mul tree: every lane on fermat_inv
     main_path("unfused_affine", ["aff_prep", "aff_fin", "fermat_inv"], unfused_path,
-              absent=ROUTE_KERNELS + BLS_KERNELS + ("mont_mul",))
+              absent=ROUTE_KERNELS + BLS_KERNELS + NO_PATH_KERNELS + ("mont_mul",))
     del uargs
 
     # the compact msm at TorchBackend's window widths; the first rows of the
@@ -1881,7 +2111,7 @@ def main() -> int:
             log(f"[msm_compact] {label} {n} points ({'ladder' if n <= pip.MSM_LADDER_THRESHOLD else f'c={c}'}) "
                 f"equals msm_host; {', '.join(f'{t * 1e3:.1f}' for t in times)} ms (first, warm) on {card}")
 
-    main_path("msm_compact", ["dbl", "add", "madd"], compact_path)
+    main_path("msm_compact", ["add", "madd", *CHAIN_KERNELS], compact_path)
     del ax, ay
     main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"],
               lambda: msm_path("G2", g2x, g2y, expected_g2, G2))
@@ -1978,7 +2208,8 @@ def main() -> int:
                 f"a device route did not run: {backend.ran}")
         slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
 
-    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS], slice_path)
+    main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS + NO_PATH_KERNELS],
+              slice_path)
 
     host = HostBackend()
     keys, circ, n = slice_out["keys"], slice_out["circ"], slice_out["n"]
@@ -1991,17 +2222,20 @@ def main() -> int:
     log(f"[slice] all {n} stage-1 proofs equal HostBackend's bit for bit (HostBackend stage1 "
         f"{hsecs['stage1']:.2f} s)")
 
-    main_path("cli", ["dbl", "add", "madd"], lambda: cli_phase(card))
+    main_path("cli", ["add", "madd", *CHAIN_KERNELS], lambda: cli_phase(card))
 
     log(f"[coverage] kernel launches over the main paths: {totals}")
     for name, widths in sorted(op_calls.items()):
         require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
         log(f"[coverage] {name} launches by width on the main paths ({len(widths)} widths, "
             f"{width_lanes(name, widths)}): " + width_list(name, widths))
-    require(set(op_calls) >= {"horner_fold", "pdbl_rcb_g2"}, f"widths recorded for {sorted(op_calls)} only")
+    require(set(op_calls) >= {"horner_fold", "pdbl_rcb_g2", *CHAIN_KERNELS}, f"widths recorded for {sorted(op_calls)} only")
+    require("dbl" not in op_calls and 1 not in op_calls.get("add", {}),
+            "a main path launched dbl, or add on one lane: the compact msm's chains run in the chain kernels")
     path_now[0] = None
     ax, ay = torch.from_numpy(ax_np).to(DEVICE), torch.from_numpy(ay_np).to(DEVICE)
     rows += horner_rows(tf, cc, proj, bound, op_calls["horner_fold"], ax, ay)
+    rows += chain_rows(h, tf, cc, G1, bound, op_calls, host_pts, scalars, gen)
     rows += inv_rows(tf, cf, bound, inv_calls, totals, gen)
     rows += aff_rows(tf, cc, bound, aff_calls, totals, ax, ay)
     for row in rows:

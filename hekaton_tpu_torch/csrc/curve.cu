@@ -14,7 +14,10 @@
 // curves/pallas_curve.py::l1_rcb_mega (_l1_mega_kernel :470). madd replaces curves/pallas_curve.py::madd (_madd_kernel :1178, formulas
 // _madd_tiles :164 with the _dbl_tiles escape :146). dbl and add replace
 // curves/pallas_curve.py::dbl and ::add (_dbl_kernel :1188 on _dbl_tiles
-// :146, _add_kernel :1196 on _add_tiles :210).
+// :146, _add_kernel :1196 on _add_tiles :210). jac_ladder, jac_sum and
+// jac_horner run the JAX compact msm's loops of those kernels in one launch
+// each (hekaton_tpu/msm/pippenger.py: _msm_ladder :209, _tree_reduce's
+// chunks :159, msm's Horner :258).
 //
 // Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
 // (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
@@ -89,12 +92,23 @@
 // runs on the mixed add's column products and lazy sums (below): 11 wide
 // products (3 squares) and 10 reductions, z3 = (z1 + h)^2 - z1z1 - hh as the
 // same value 2 z1 h, y3 = r2 (v - x3) - 2 y1 j one sum of two products; 116
-// registers, 4 blocks an SM. dbl (dbl-2009-l, 7 products, 5 of them
-// squares) and add (add-2007-bl, 16, 5 squares; 7 more on doubling lanes
-// only) are one thread per lane on field.cuh's row products; add's overrides
-// follow _add_tiles (curves/cuda_curve.py::add_plain). The compact msm
-// launches them at 1 to a few thousand lanes, where launch latency, not
-// the multiplies, sets their time.
+// registers, 4 blocks an SM. dbl (dbl-2009-l) and add (add-2007-bl) are the
+// same design: one thread per lane on column products and lazy sums, 16-byte
+// rows, (128, 4); dbl 7 wide products (2 squares) and 6 reductions, add 16
+// (4 squares) and 15 on a lane with both operands finite, its overrides
+// (_add_tiles', curves/cuda_curve.py::add_plain) branches before the
+// arithmetic they make moot and its doubling escape madd's out-of-line one.
+// The compact msm ran them one host launch a point op, at 1 to a few
+// thousand lanes, where the launch, not the multiplies, set the time. Its
+// chains now run in one launch each (jac_ladder: every lane's nbits
+// doublings and mixed adds; jac_sum: a chunk's K adds a lane; jac_horner:
+// the (W-1)(c+1) ops of the Horner combine on one thread), the accumulator
+// in registers: bound by the chain's latency, one op after another on one
+// thread a lane. On one H100 80GB HBM3 (700 W), in turns with the row-product
+// bodies and their loops of launches (benches/torch_aff_ab.py): dbl 0.051 ms
+// against 0.175 at 2^18 lanes (bound 0.030, bytes), add 0.102 against 0.237
+// (bound 0.061, multiplies); a 32-lane ladder 2.03 ms against 45-52, the
+// Horner at W=85, c=3 1.43 against 15.4-15.7 (PERF.md).
 //
 // The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
 // projective formulas of curves/proj.py, with no escapes) are the same
@@ -755,7 +769,8 @@ __device__ __forceinline__ Proj padd_rcb(const Proj& p, const Proj& q) {
 // tests them for zero): with madd_diffs 11 wide products (3 squares) and 10
 // reductions, z3 = (z1 + h)^2 - z1z1 - hh as the same value 2 z1 h, and y3 =
 // r2 (v - x3) - 2 y1 j as one sum of two products. An inverse pair's x3 and
-// y3 are these too.
+// y3 are these too. add-2007-bl ends the same way on u1, s1 and z1 z2
+// (add_diffs).
 __device__ __forceinline__ void madd_finish(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& h, const Fe& rr,
                                             Fe& x3, Fe& y3, Fe& z3) {
   z3 = col_mul(lazy_add(z1, z1), h);                                       // < 1
@@ -973,22 +988,28 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
   store_limbs16(oz + c * 16, acc.z);
 }
 
-// -- Jacobian mixed add with escapes (pallas_curve.py::_madd_tiles) ---------
+// -- the Jacobian ops with escapes (pallas_curve.py::_dbl_tiles, _madd_tiles, _add_tiles) --
 
-// dbl-2009-l (a=0), pallas_curve.py::_dbl_tiles
-__device__ void jac_dbl(const Fe& x, const Fe& y, const Fe& z, Fe& x3, Fe& y3, Fe& z3) {
-  Fe a = fe_sqr<FQ>(x);
-  Fe b = fe_sqr<FQ>(y);
-  Fe c = fe_sqr<FQ>(b);
-  Fe d0 = fe_sqr<FQ>(fe_add<FQ>(x, b));
-  Fe d1 = fe_sub<FQ>(fe_sub<FQ>(d0, a), c);
-  Fe d = fe_add<FQ>(d1, d1);
-  Fe e = fe_add<FQ>(fe_add<FQ>(a, a), a);
-  x3 = fe_sub<FQ>(fe_sqr<FQ>(e), fe_add<FQ>(d, d));
-  Fe c4 = fe_add<FQ>(fe_add<FQ>(c, c), fe_add<FQ>(c, c));
-  Fe c8 = fe_add<FQ>(c4, c4);
-  y3 = fe_sub<FQ>(fe_mul<FQ>(e, fe_sub<FQ>(d, x3)), c8);
-  z3 = fe_mul<FQ>(fe_add<FQ>(y, y), z);
+// 4 a, no reduction: the caller keeps it below 2^256
+__device__ __forceinline__ Fe lazy_x4(const Fe& a) {
+  const Fe a2 = lazy_add(a, a);
+  return lazy_add(a2, a2);
+}
+
+// dbl-2009-l (a=0), pallas_curve.py::_dbl_tiles, on the lazy sums and column
+// products of the mixed add: d = 2((x + b)^2 - a - c) as the same value 4 x
+// b, e = 3 x^2 as x (3 x) (a and c are not formed), and y3 = e (d - x3) - 8 c
+// as one sum of two products, -8 c = (2 b) 4 (p - b): 7 wide products (2
+// squares) and 6 reductions, where _dbl_tiles takes 7 products (5 squares)
+// and 7 reductions. Every output is canonical, so each limb is _dbl_tiles'.
+// The outputs may alias the inputs of the same coordinate.
+__device__ __forceinline__ void jac_dbl(const Fe& x, const Fe& y, const Fe& z, Fe& x3, Fe& y3, Fe& z3) {
+  const Fe b = col_mul(y, y);                                                    // < 1
+  const Fe e = col_mul(x, lazy_add(lazy_add(x, x), x));                          // < 1
+  const Fe d = col_mul(lazy_x4(x), b);                                           // < 1
+  z3 = col_mul(lazy_add(y, y), z);                                               // < 1
+  x3 = fe_sub<FQ>(col_mul(e, e), fe_add<FQ>(d, d));                              // < 1
+  y3 = fe_dot(e, fe_sub<FQ>(d, x3), fe_add<FQ>(b, b), lazy_x4(lazy_neg(b)));  // 1*1 + 1*4 = 5 p^2
 }
 
 // madd-2007-bl's u2 - x1 and s2 - y1, canonical: 4 wide products (1 square),
@@ -1003,7 +1024,7 @@ __device__ __forceinline__ void madd_diffs(const Fe& x1, const Fe& y1, const Fe&
 
 // the doubling escape (Q = P): dbl-2009-l on P, reloaded from its rows, and
 // its store. Out of line, so that the common lane's register budget holds
-// none of it; a lane takes it only where Q = P.
+// none of it; a lane takes it only where Q = P (madd_kernel, add_kernel).
 __device__ __noinline__ void madd_dbl_lane(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
                                            int32_t* oy, int32_t* oz, long long i) {
   Fe x3, y3, z3;
@@ -1051,66 +1072,189 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
   store_limbs16(oz + i * 16, z3);
 }
 
-__global__ void dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                           const int32_t* __restrict__ z, int32_t* __restrict__ ox,
-                           int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// 16-byte rows (the wrapper aligns them)
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fe x3, y3, z3;
-  jac_dbl(load_limbs(x + i * 16), load_limbs(y + i * 16), load_limbs(z + i * 16), x3, y3, z3);
-  store_limbs(ox + i * 16, x3);
-  store_limbs(oy + i * 16, y3);
-  store_limbs(oz + i * 16, z3);
+  jac_dbl(load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16), x3, y3, z3);
+  store_limbs16(ox + i * 16, x3);
+  store_limbs16(oy + i * 16, y3);
+  store_limbs16(oz + i * 16, z3);
 }
 
-// -- Jacobian add with escapes (pallas_curve.py::_add_tiles) -----------------
+// add-2007-bl's u1 = x1 z2^2, s1 = y1 z2^3, h = u2 - u1, rr = s2 - s1 and
+// z1 z2, canonical (the caller tests h and rr for zero): 9 wide products (2
+// squares), 9 reductions. madd_finish then runs add-2007-bl's rest as
+// madd-2007-bl's on u1, s1 and z1 z2 in place of x1, y1 and z1 (x3 = r2^2 - j
+// - 2 v with v = u1 i4, y3 = r2 (v - x3) - 2 s1 j, z3 = ((z1 + z2)^2 - z1z1 -
+// z2z2) h as the same value 2 z1 z2 h): 16 wide products (4 squares) and 15
+// reductions in all, where _add_tiles takes 16 (5 squares) and 16.
+__device__ __forceinline__ void add_diffs(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& x2, const Fe& y2,
+                                          const Fe& z2, Fe& u1, Fe& s1, Fe& z1z2, Fe& h, Fe& rr) {
+  const Fe z2z2 = col_mul(z2, z2);                       // < 1
+  u1 = col_mul(x1, z2z2);                                // < 1
+  s1 = col_mul(col_mul(y1, z2), z2z2);                   // < 1
+  const Fe z1z1 = col_mul(z1, z1);                       // < 1
+  h = fe_sub<FQ>(col_mul(x2, z1z1), u1);                 // < 1
+  rr = fe_sub<FQ>(col_mul(col_mul(y2, z1), z1z1), s1);   // < 1
+  z1z2 = col_mul(z1, z2);                                // < 1
+}
 
-__global__ void add_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                           const int32_t* __restrict__ z, const int32_t* __restrict__ x2,
-                           const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
-                           int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                           int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// _add_tiles' overrides, in its order, as branches taken before the
+// arithmetic they make moot: P = inf gives Q's limbs (two infinities too),
+// Q = inf gives P, Q = P the doubling escape (out of line, reloading P), an
+// inverse pair the generic x3, y3 and z3 = 0. 16-byte rows (the wrapper
+// aligns them).
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    add_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+               const int32_t* __restrict__ x2, const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
+               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe x1 = load_limbs(x + i * 16), y1 = load_limbs(y + i * 16), z1 = load_limbs(z + i * 16);
-  Fe qx = load_limbs(x2 + i * 16), qy = load_limbs(y2 + i * 16), qz = load_limbs(z2 + i * 16);
-  bool p_inf = fe_is_zero(z1);
-  bool q_inf = fe_is_zero(qz);
-
-  Fe z1z1 = fe_sqr<FQ>(z1);
-  Fe z2z2 = fe_sqr<FQ>(qz);
-  Fe u1 = fe_mul<FQ>(x1, z2z2);
-  Fe u2 = fe_mul<FQ>(qx, z1z1);
-  Fe s1 = fe_mul<FQ>(fe_mul<FQ>(y1, qz), z2z2);
-  Fe s2 = fe_mul<FQ>(fe_mul<FQ>(qy, z1), z1z1);
-  Fe h = fe_sub<FQ>(u2, u1);
-  Fe rr = fe_sub<FQ>(s2, s1);
-  bool same_x = fe_is_zero(h);
-  bool same_y = fe_is_zero(rr);
-  Fe ii = fe_sqr<FQ>(fe_add<FQ>(h, h));
-  Fe j = fe_mul<FQ>(h, ii);
-  Fe r2 = fe_add<FQ>(rr, rr);
-  Fe v = fe_mul<FQ>(u1, ii);
-  Fe x3 = fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(r2), j), fe_add<FQ>(v, v));
-  Fe s1j = fe_mul<FQ>(s1, j);
-  Fe y3 = fe_sub<FQ>(fe_mul<FQ>(r2, fe_sub<FQ>(v, x3)), fe_add<FQ>(s1j, s1j));
-  Fe z3 = fe_mul<FQ>(fe_sub<FQ>(fe_sub<FQ>(fe_sqr<FQ>(fe_add<FQ>(z1, qz)), z1z1), z2z2), h);
-
-  if (same_x && same_y) jac_dbl(x1, y1, z1, x3, y3, z3);  // doubling escape
-  if (same_x && !same_y) z3 = fe_zero();                  // inverse pair: z3 only
-  if (p_inf) {                                             // P = inf: Q
-    x3 = qx;
-    y3 = qy;
-    z3 = qz;
+  const Fe z1 = load_limbs16(z + i * 16), qz = load_limbs16(z2 + i * 16);
+  const bool p_inf = fe_is_zero(z1);
+  if (p_inf || fe_is_zero(qz)) {  // one operand at infinity: the other one's limbs
+    const int32_t* sx = p_inf ? x2 : x;
+    const int32_t* sy = p_inf ? y2 : y;
+    store_limbs16(ox + i * 16, load_limbs16(sx + i * 16));
+    store_limbs16(oy + i * 16, load_limbs16(sy + i * 16));
+    store_limbs16(oz + i * 16, p_inf ? qz : z1);
+    return;
   }
-  if (q_inf && !p_inf) {  // Q = inf: P
-    x3 = x1;
-    y3 = y1;
-    z3 = z1;
+  Fe u1, s1, z1z2, h, rr;
+  add_diffs(load_limbs16(x + i * 16), load_limbs16(y + i * 16), z1, load_limbs16(x2 + i * 16),
+            load_limbs16(y2 + i * 16), qz, u1, s1, z1z2, h, rr);
+  const bool same_x = fe_is_zero(h);
+  if (same_x && fe_is_zero(rr)) {
+    madd_dbl_lane(x, y, z, ox, oy, oz, i);
+    return;
   }
-  store_limbs(ox + i * 16, x3);
-  store_limbs(oy + i * 16, y3);
-  store_limbs(oz + i * 16, z3);
+  Fe x3, y3, z3;
+  madd_finish(u1, s1, z1z2, h, rr, x3, y3, z3);
+  if (same_x) z3 = fe_zero();
+  store_limbs16(ox + i * 16, x3);
+  store_limbs16(oy + i * 16, y3);
+  store_limbs16(oz + i * 16, z3);
+}
+
+// -- the compact msm's chains of Jacobian ops, one launch each ---------------
+//
+// One thread a lane walks the whole chain with its accumulator in registers:
+// the ladder's nbits doublings and mixed adds, a chunk's K adds, the Horner's
+// (W-1)(c+1) ops. Each step is the op above (jac_dbl; madd_diffs and
+// madd_finish; add_diffs and madd_finish) with its kernel's overrides in the
+// same order, so every limb is that of the same loop of dbl, madd and add
+// launches; the doubling escapes double the accumulator in place.
+
+struct Jac {
+  Fe x, y, z;
+};
+
+// _madd_tiles on registers: P + (qx, qy)
+__device__ __forceinline__ Jac jac_madd(const Jac& p, const Fe& qx, const Fe& qy) {
+  const bool q_inf = fe_is_zero(qx) && fe_is_zero(qy);
+  if (fe_is_zero(p.z)) return Jac{qx, qy, q_inf ? fe_zero() : fe_one<FQ>()};
+  if (q_inf) return p;
+  Fe h, rr;
+  madd_diffs(p.x, p.y, p.z, qx, qy, h, rr);
+  Jac r;
+  if (fe_is_zero(h) && fe_is_zero(rr)) {
+    jac_dbl(p.x, p.y, p.z, r.x, r.y, r.z);
+    return r;
+  }
+  madd_finish(p.x, p.y, p.z, h, rr, r.x, r.y, r.z);
+  if (fe_is_zero(h)) r.z = fe_zero();
+  return r;
+}
+
+// _add_tiles on registers: P + Q
+__device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
+  if (fe_is_zero(p.z)) return q;
+  if (fe_is_zero(q.z)) return p;
+  Fe u1, s1, z1z2, h, rr;
+  add_diffs(p.x, p.y, p.z, q.x, q.y, q.z, u1, s1, z1z2, h, rr);
+  Jac r;
+  if (fe_is_zero(h) && fe_is_zero(rr)) {
+    jac_dbl(p.x, p.y, p.z, r.x, r.y, r.z);
+    return r;
+  }
+  madd_finish(u1, s1, z1z2, h, rr, r.x, r.y, r.z);
+  if (fe_is_zero(h)) r.z = fe_zero();
+  return r;
+}
+
+__device__ __forceinline__ Jac load_jac(const int32_t* x, const int32_t* y, const int32_t* z, long long i) {
+  return Jac{load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16)};
+}
+
+__device__ __forceinline__ void store_jac(int32_t* x, int32_t* y, int32_t* z, long long i, const Jac& p) {
+  store_limbs16(x + i * 16, p.x);
+  store_limbs16(y + i * 16, p.y);
+  store_limbs16(z + i * 16, p.z);
+}
+
+// _msm_ladder's lanes (hekaton_tpu/msm/pippenger.py:209-229): lane i from
+// the identity (1, 1, 0) takes nbits steps, bit j = nbits-1 down to 0 of its
+// (16,) plain 16-bit scalar limbs: a doubling, then where the bit is set the
+// mixed add of (ax_i, ay_i). A limb is loaded once, for its 16 bits.
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    jac_ladder_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
+                      const int32_t* __restrict__ scalars, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                      int32_t* __restrict__ oz, long long n, int nbits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fe qx = load_limbs16(ax + i * 16), qy = load_limbs16(ay + i * 16);
+  Jac acc{fe_one<FQ>(), fe_one<FQ>(), fe_zero()};
+  uint32_t limb = 0;
+#pragma unroll 1
+  for (int j = nbits - 1; j >= 0; j--) {
+    if (j == nbits - 1 || j % 16 == 15) limb = (uint32_t)scalars[i * 16 + j / 16];
+    jac_dbl(acc.x, acc.y, acc.z, acc.x, acc.y, acc.z);
+    if ((limb >> (j % 16)) & 1) acc = jac_madd(acc, qx, qy);
+  }
+  store_jac(ox, oy, oz, i, acc);
+}
+
+// _tree_reduce's chunk sum (hekaton_tpu/msm/pippenger.py:159-185): lane i
+// of the (K, n, 16) stack from the identity (1, 1, 0), acc = add(acc, p_j)
+// for j = 0 .. K-1 in that order.
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    jac_sum_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                   int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n,
+                   int K) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Jac acc{fe_one<FQ>(), fe_one<FQ>(), fe_zero()};
+#pragma unroll 1
+  for (int j = 0; j < K; j++) acc = jac_add(acc, load_jac(x, y, z, (long long)j * n + i));
+  store_jac(ox, oy, oz, i, acc);
+}
+
+// the compact msm's Horner combine (hekaton_tpu/msm/pippenger.py:258-268) on
+// one thread: from window sum W-1 down, c doublings and the add of the next
+// window sum a window, as one loop of (W-1)(c+1) ops whose add step loads its
+// window sum (a loop of doublings inside the window's loop let ptxas hoist
+// that load above them: 24 more live words, 32 bytes spilled). Bound by its
+// chain's latency; horner_fold's one-warp design would shorten each op to
+// two product levels.
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+    jac_horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                      int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  Jac acc = load_jac(x, y, z, W - 1);
+  const long long ops = (long long)(W - 1) * (c + 1);
+#pragma unroll 1
+  for (long long s = 0; s < ops; s++) {
+    if (s % (c + 1) < c) {
+      jac_dbl(acc.x, acc.y, acc.z, acc.x, acc.y, acc.z);
+    } else {
+      acc = jac_add(acc, load_jac(x, y, z, W - 2 - s / (c + 1)));
+    }
+  }
+  store_jac(ox, oy, oz, 0, acc);
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -1141,6 +1285,9 @@ const KernelSlot KERNELS[] = {
     {"madd_kernel", (const void*)madd_kernel, THREADS, 0},
     {"dbl_kernel", (const void*)dbl_kernel, THREADS, 0},
     {"add_kernel", (const void*)add_kernel, THREADS, 0},
+    {"jac_ladder_kernel", (const void*)jac_ladder_kernel, THREADS, 0},
+    {"jac_sum_kernel", (const void*)jac_sum_kernel, THREADS, 0},
+    {"jac_horner_kernel", (const void*)jac_horner_kernel, 1, 0},
 };
 
 }  // namespace
@@ -1278,6 +1425,37 @@ extern "C" int hk_add(const void* x1, const void* y1, const void* z1, const void
   add_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// n lanes of affine (16,) limb rows and (16,) plain 16-bit scalar limbs, 16-byte
+// aligned, 1 <= nbits <= 256 -> n Jacobian rows
+extern "C" int hk_jac_ladder(const void* ax, const void* ay, const void* scalars, void* ox, void* oy, void* oz,
+                             long long n, int nbits, void* stream) {
+  if (nbits < 1 || nbits > 256) return (int)cudaErrorInvalidValue;
+  jac_ladder_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)scalars, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz,
+      n, nbits);
+  return (int)cudaGetLastError();
+}
+
+// a (K, n, 16) stack of Jacobian limb rows per coordinate, 16-byte aligned,
+// K >= 0 -> the n lanes' in-order sums
+extern "C" int hk_jac_sum(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, long long n,
+                          int K, void* stream) {
+  if (K < 0) return (int)cudaErrorInvalidValue;
+  jac_sum_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n, K);
+  return (int)cudaGetLastError();
+}
+
+// (W, 16) Jacobian window sums per coordinate, 16-byte aligned, W >= 1,
+// c >= 0 -> one Jacobian row
+extern "C" int hk_jac_horner(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, int W,
+                             int c, void* stream) {
+  if (W < 1 || c < 0) return (int)cudaErrorInvalidValue;
+  jac_horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)x, (const int32_t*)y, (const int32_t*)z,
+                                                        (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, W, c);
   return (int)cudaGetLastError();
 }
 

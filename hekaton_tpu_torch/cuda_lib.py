@@ -60,6 +60,9 @@ SIGNATURES = {
     "hk_madd": [_vp] * 8 + [_ll, _vp],
     "hk_dbl": [_vp] * 6 + [_ll, _vp],
     "hk_add": [_vp] * 9 + [_ll, _vp],
+    "hk_jac_ladder": [_vp] * 6 + [_ll, _int, _vp],
+    "hk_jac_sum": [_vp] * 6 + [_ll, _int, _vp],
+    "hk_jac_horner": [_vp] * 6 + [_int, _int, _vp],
     "hk_pmadd_rcb": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb": [_vp] * 6 + [_ll, _vp],

@@ -31,6 +31,12 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
 - `dbl` and `add` replace `dbl` and `add` (pallas_curve.py:1285/1289;
   kernels `_dbl_kernel` :1188 on `_dbl_tiles` :146 and `_add_kernel` :1196
   on `_add_tiles` :210).
+- `jac_ladder`, `jac_sum` and `jac_horner` run the JAX compact msm's loops
+  of those kernels (hekaton_tpu/msm/pippenger.py: `_msm_ladder`'s fori_loop
+  of dbl and madd :209, `_tree_reduce`'s in-order chunk adds :159, `msm`'s
+  Horner combine of dbl and add :258) in one launch each; their plain
+  versions are those loops (torch_curve.CurveOps' `ladder`, `sum_in_order`
+  and `horner`) on the single ops' plain versions.
 - `pmadd_rcb`, `padd_rcb`, `pdbl_rcb` replace the wrappers of the same names
   (pallas_curve.py:1293/1297/1301; kernels `_pmadd_rcb_kernel` :1206 on
   `_pmadd_rcb_tiles` :264, `_padd_rcb_kernel` :1216, `_pdbl_rcb_kernel`
@@ -56,12 +62,15 @@ point op two levels of independent products, a product a lane.
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
 straight-line formulas, bound by integer multiply throughput or by bytes
 once the card is full; the G1 mixed add (`pmadd_rcb`, and each add of
-`l1_rcb_mega`), the full add `padd_rcb` and `madd` run on lazy sums, each
+`l1_rcb_mega`), the full add `padd_rcb`, `madd`, `dbl` and `add` run on
+lazy sums, each
 closing coordinate of the RCB adds (and madd's y3) one sum of two products
 and one reduction, their products by product scanning (column by column
 into a three-register accumulator), on 16-byte rows, 4 blocks an SM;
-`madd` takes its edge overrides as branches before the arithmetic they
-make moot, its doubling escape out of line; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+`madd` and `add` take their edge overrides as branches before the
+arithmetic they make moot, their doubling escape out of line; the chain
+kernels walk a whole chain of those ops a thread, the accumulator in
+registers, bound by the chain's latency; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
 threads a lane, one Fq2 component each, with its operands in shared memory;
 `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
@@ -73,7 +82,7 @@ CUDA tensors to its kernels; nothing falls back. The kernels that move rows
 16 bytes at a time get rows on 16-byte boundaries: a wrapper copies a view
 that does not start on one (`cuda_lib.aligned`). `launches` on each wrapper
 counts its kernel launches (one per add, per halves level 1, per fold, per
-level-1 slab, per interleave, per batch of point ops).
+level-1 slab, per interleave, per batch of point ops, per chain).
 """
 from __future__ import annotations
 
@@ -301,6 +310,36 @@ def add_plain(x1, y1, z1, x2, y2, z2):
     x3, y3, z3 = f.select(p_inf, x2, x3), f.select(p_inf, y2, y3), f.select(p_inf, z2, z3)
     keep_p = q_inf & ~p_inf
     return Jac(f.select(keep_p, x1, x3), f.select(keep_p, y1, y3), f.select(keep_p, z1, z3))
+
+
+class _G1KernelPlainOps(CurveOps):
+    """BN254 G1 on the dbl, add and madd kernels' plain versions: its
+    ladder, sum_in_order and horner (CurveOps' loops) are the chain
+    kernels' plain versions."""
+
+    def dbl(self, p: Jac) -> Jac:
+        return dbl_plain(*p)
+
+    def add(self, p: Jac, q: Jac) -> Jac:
+        return add_plain(*p, *q)
+
+    def add_mixed(self, p: Jac, ax, ay) -> Jac:
+        return madd_plain(*p, ax, ay)
+
+
+_G1_KERNEL_PLAIN = _G1KernelPlainOps(tf.FqPlain, "g1_kernel_plain", tf.FR)
+
+
+def jac_ladder_plain(ax, ay, scalars, nbits: int) -> Jac:
+    return _G1_KERNEL_PLAIN.ladder(ax, ay, scalars, nbits)
+
+
+def jac_sum_plain(x, y, z) -> Jac:
+    return _G1_KERNEL_PLAIN.sum_in_order(Jac(x, y, z))
+
+
+def jac_horner_plain(x, y, z, c: int) -> Jac:
+    return _G1_KERNEL_PLAIN.horner(Jac(x, y, z), c)
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +617,73 @@ def add(x1, y1, z1, x2, y2, z2):
 
 
 add.launches = 0
+
+
+def _launch_chain(fn, entry: str, args: tuple, out_shape: tuple, lanes: int, *tail) -> Jac:
+    """Launch the chain kernel `entry` on `args` (checked, contiguous int32
+    limb tensors on one device), 16-byte aligned, with `tail` after the
+    output pointers; count the launch on the wrapper `fn` and return the
+    three (out_shape) outputs."""
+    args = tuple(cuda_lib.aligned(t) for t in args)
+    dev = args[0].device
+    outs = tuple(torch.empty(out_shape, dtype=torch.int32, device=dev) for _ in range(3))
+    if lanes:
+        rc = getattr(cuda_lib.lib(), entry)(*(t.data_ptr() for t in args), *(o.data_ptr() for o in outs), *tail,
+                                            cuda_lib.stream_ptr(dev))
+        cuda_lib.check(entry, rc)
+        fn.launches += 1
+    return Jac(*outs)
+
+
+def jac_ladder(ax, ay, scalars, nbits: int) -> Jac:
+    """The compact msm's per-point ladders in one launch: for (N, 16)
+    affine limbs ((0,0) = infinity) and (N, 16) int32 plain scalar limbs,
+    lane i's s_i * P_i from its top nbits bits, as (N, 16) Jacobian limbs
+    (jac_ladder_plain's, limb for limb)."""
+    if not 1 <= nbits <= 256:
+        raise ValueError(f"jac_ladder: nbits={nbits} is not in 1..256 (16 limbs of 16 bits)")
+    if not ax.is_cuda:
+        return jac_ladder_plain(ax, ay, scalars, nbits)
+    _check_batch(jac_ladder, (ax, ay, scalars), (16,))
+    if ax.dim() != 2:
+        raise ValueError(f"jac_ladder: expected (N, 16) limbs, got {tuple(ax.shape)}")
+    n = ax.shape[0]
+    return _launch_chain(jac_ladder, "hk_jac_ladder", (ax, ay, scalars), (n, 16), n, n, nbits)
+
+
+jac_ladder.launches = 0
+
+
+def jac_sum(x, y, z) -> Jac:
+    """The in-order sum over the leading axis of a (K, ..., 16) Jacobian
+    stack in one launch, one thread a lane (jac_sum_plain's limbs)."""
+    if not x.is_cuda:
+        return jac_sum_plain(x, y, z)
+    _check_batch(jac_sum, (x, y, z), (16,))
+    if x.dim() < 2:
+        raise ValueError(f"jac_sum: expected a (K, ..., 16) stack, got {tuple(x.shape)}")
+    K, out_shape = x.shape[0], tuple(x.shape[1:])
+    n = math.prod(out_shape) // 16
+    return _launch_chain(jac_sum, "hk_jac_sum", (x, y, z), out_shape, n, n, K)
+
+
+jac_sum.launches = 0
+
+
+def jac_horner(x, y, z, c: int) -> Jac:
+    """The compact msm's Horner combine of (W, 16) Jacobian window sums,
+    sum_w 2^(c*w) * S_w, in one launch on one thread (jac_horner_plain's
+    limbs): three (16,) tensors."""
+    if x.dim() != 2 or x.shape[0] < 1 or c < 0:
+        raise ValueError(f"jac_horner: expected (W, 16) window sums, W >= 1, and c >= 0, got "
+                         f"{tuple(x.shape)}, c={c}")
+    if not x.is_cuda:
+        return jac_horner_plain(x, y, z, c)
+    _check_batch(jac_horner, (x, y, z), (16,))
+    return _launch_chain(jac_horner, "hk_jac_horner", (x, y, z), (16,), 1, x.shape[0], int(c))
+
+
+jac_horner.launches = 0
 
 
 def pmadd_rcb(x, y, z, ax, ay):

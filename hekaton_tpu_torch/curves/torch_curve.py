@@ -8,10 +8,12 @@ short-Weierstrass a=0 formulas are the same, with every edge case
 (0, 0), Jacobian infinity is z == 0.
 
 The Jacobian group law serves the fixed-base scalar muls of setup
-(msm/pippenger.py::fixed_base_msm) and the compact `msm`. G1's `dbl`, `add`
+(msm/pippenger.py::fixed_base_msm) and the compact `msm`, which runs its
+loops of point ops as `ladder`, `sum_in_order` and `horner`. G1's `dbl`, `add`
 and `add_mixed` are the dbl, add and madd kernel wrappers
 (curves/cuda_curve.py): the CUDA kernel on CUDA tensors, its plain version on
-CPU tensors, as `PallasG1Ops` dispatches to the Pallas kernels. The plain
+CPU tensors, as `PallasG1Ops` dispatches to the Pallas kernels; its three
+loops are one launch each of the chain kernel wrappers. The plain
 versions of `add` and `add_mixed` mirror the Pallas `_add_tiles` and
 `_madd_tiles`, which agree with `CurveOps.add` and `CurveOps.add_mixed` as
 points but not as limbs on infinity lanes; `dbl` is the same formula in all
@@ -154,6 +156,39 @@ class CurveOps:
         res = self.select(self.is_inf(p), q_jac, res)
         return self.select(q_inf, p, res)
 
+    # -- chains of the group law (the compact msm's loops) ---------------------
+    def ladder(self, ax, ay, scalars, nbits: int) -> Jac:
+        """Lane i's s_i * P_i for (N, ...) affine limbs ((0,0) = infinity)
+        and (N, 16) plain scalar limbs: from the identity, bit j = nbits-1
+        down to 0, a dbl, then where bit j is set the mixed add (a select)."""
+        s = scalars.long()
+        acc = self.inf((ax.shape[0],), ax.device)
+        for j in range(nbits - 1, -1, -1):
+            bit = ((s[:, j // 16] >> (j % 16)) & 1) == 1
+            acc = self.dbl(acc)
+            acc = self.select(bit, self.add_mixed(acc, ax, ay), acc)
+        return acc
+
+    def sum_in_order(self, stack: Jac) -> Jac:
+        """acc = add(acc, p_j) from the identity over the leading axis of a
+        (K, ...) stack, j = 0 .. K-1 in that order."""
+        acc = self.inf(stack.x.shape[1 : stack.x.dim() - self.f.ndim], stack.x.device)
+        for j in range(stack.x.shape[0]):
+            acc = self.add(acc, Jac(*(a[j] for a in stack)))
+        return acc
+
+    def horner(self, window_sums: Jac, c: int) -> Jac:
+        """sum_w 2^(c w) S_w of (W, ...) window sums on one lane: from window
+        sum W-1 down, c doublings and the add of the next window sum a
+        window."""
+        W = window_sums.x.shape[0]
+        acc = Jac(*(a[W - 1] for a in window_sums))
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                acc = self.dbl(acc)
+            acc = self.add(acc, Jac(*(a[w] for a in window_sums)))
+        return acc
+
     # -- host interop ---------------------------------------------------------
     def _zero(self):
         return 0 if self.f.ndim == 1 else Fq2.zero()
@@ -192,7 +227,9 @@ class CurveOps:
 
 class G1Ops(CurveOps):
     """BN254 G1 ops whose group law is the dbl, add and madd kernel
-    wrappers."""
+    wrappers, and whose chains (ladder, sum_in_order, horner) are one launch
+    each of the chain kernel wrappers jac_ladder, jac_sum and jac_horner, the
+    limbs of CurveOps' loops on those single ops."""
 
     def dbl(self, p: Jac) -> Jac:
         from .cuda_curve import dbl
@@ -208,6 +245,21 @@ class G1Ops(CurveOps):
         from .cuda_curve import madd
 
         return madd(*(t.contiguous() for t in (*p, ax, ay)))
+
+    def ladder(self, ax, ay, scalars, nbits: int) -> Jac:
+        from .cuda_curve import jac_ladder
+
+        return jac_ladder(ax.contiguous(), ay.contiguous(), scalars.contiguous(), nbits)
+
+    def sum_in_order(self, stack: Jac) -> Jac:
+        from .cuda_curve import jac_sum
+
+        return jac_sum(*(a.contiguous() for a in stack))
+
+    def horner(self, window_sums: Jac, c: int) -> Jac:
+        from .cuda_curve import jac_horner
+
+        return jac_horner(*(a.contiguous() for a in window_sums), c)
 
 
 G1 = G1Ops(FqOps, "g1", FR)

@@ -9,8 +9,12 @@ window a digit sort, a segmented reduce-by-key of the sorted stream into
 Jacobian buckets (complete runs scatter-set, lane-boundary runs stitched by
 recursion), a suffix scan and tree sum of the weighted buckets, and a Horner
 combine. It runs on the curve's Jacobian group law (curves/torch_curve.py:
-G1 on the dbl, add and madd kernels, G2 on the plain Fq2 formulas, BLS12-381
-G1 on the plain formulas over the 24-limb mont_mul kernel). The JAX
+G1 on the add and madd kernels, G2 on the plain Fq2 formulas, BLS12-381
+G1 on the plain formulas over the 24-limb mont_mul kernel); the ladders,
+the tree reduction's in-order chunk sums and the Horner combine are the
+curve's `ladder`, `sum_in_order` and `horner`, on BN254 G1 one launch each
+of curves/cuda_curve.py's chain kernels (jac_ladder, jac_sum, jac_horner),
+the same limbs as the loops of single ops. The JAX
 code scans the windows one after another; here every window is one row of a
 leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.
@@ -250,16 +254,9 @@ def _tree_reduce(curve: CurveOps, pts: Jac, K: int = 64) -> Jac:
             pts = _tree_map(lambda a, i: torch.cat([a, i], 1), pts, curve.inf((W, pad), dev))
             M += pad
         if M <= K:
-            acc = curve.inf((W,), dev)
-            for j in range(M):
-                acc = curve.add(acc, _tree_index(pts, (slice(None), j)))
-            return acc
+            return curve.sum_in_order(_tree_map(lambda a: a.movedim(1, 0), pts))
         C = M // K
-        cols = _tree_map(lambda a: a.reshape((W, C, K) + a.shape[2:]).movedim(2, 0), pts)
-        acc = curve.inf((W, C), dev)
-        for j in range(K):
-            acc = curve.add(acc, _tree_index(cols, j))
-        pts, M = acc, C
+        pts, M = curve.sum_in_order(_tree_map(lambda a: a.reshape((W, C, K) + a.shape[2:]).movedim(2, 0), pts)), C
     return _tree_index(pts, (slice(None), 0))
 
 
@@ -280,14 +277,7 @@ def _weighted_bucket_sum(curve: CurveOps, buckets: Jac, nbuckets: int) -> Jac:
 def _msm_ladder(curve: CurveOps, ax, ay, scalars, nbits: int = 254) -> Jac:
     """Small-N MSM: batched per-point double-and-add ladders (lane i computes
     s_i * P_i MSB-first) and a tree reduction of the lanes."""
-    N = ax.shape[0]
-    s = scalars.long()
-    acc = curve.inf((N,), ax.device)
-    for k in range(nbits):
-        j = nbits - 1 - k
-        bit = ((s[:, j // 16] >> (j % 16)) & 1) == 1
-        acc = curve.dbl(acc)
-        acc = curve.select(bit, curve.add_mixed(acc, ax, ay), acc)
+    acc = curve.ladder(ax, ay, scalars, nbits)
     return _tree_index(_tree_reduce(curve, _tree_map(lambda a: a[None], acc)), 0)
 
 
@@ -314,13 +304,7 @@ def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbi
                         curve.inf((W, nbuckets + 2), ax.device))
     buckets = _segmented_accumulate(curve, sd, (ax[order], ay[order]), buckets, nbuckets, mixed=True, K=K)
     window_sums = _weighted_bucket_sum(curve, buckets, nbuckets)
-    # Horner combine from the top window down
-    acc = _tree_index(window_sums, W - 1)
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = curve.dbl(acc)
-        acc = curve.add(acc, _tree_index(window_sums, w))
-    return acc
+    return curve.horner(window_sums, c)  # from the top window down
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,8 @@ def test_madd_lazy_bounds_hold_at_their_worst_case():
     and the closing sum below p 2^256 word for word in the column form on
     the largest words its operands may hold, the bound comments held; the
     lazy values are hh2, i4 and r2 (i4 below 4p); the kernel takes the
-    products and reductions chip_smoke.py's bound counts, on a generic lane
+    products and reductions chip_smoke.py's bound counts but one product
+    that the least formula squares, on a generic lane
     and on a doubling lane (madd_diffs, then jac_dbl)."""
     top = V(P - 1, 0, P - 1)
     env = dict(rk.worst_case_ops(), x1=top, y1=top, z1=top, qx=top, qy=top)
@@ -153,13 +154,13 @@ def test_madd_lazy_bounds_hold_at_their_worst_case():
     wide, squares, reductions = (a + b for a, b in zip(diffs, rk.op_counts(FINISH)))
     assert (wide, squares, reductions) == (11, 3, 10)
     lazy_products = chip_smoke.lazy_products
-    assert chip_smoke.LAZY_G1_PRODUCTS["madd"] == lazy_products(wide - squares, reductions, squares=squares)
-    body = rk._body("__device__ void jac_dbl(")
-    dbl_sqr, dbl_mul = body.count("fe_sqr<FQ>("), body.count("fe_mul<FQ>(")
-    assert (dbl_sqr, dbl_mul) == (5, 2)
-    assert chip_smoke.LAZY_G1_PRODUCTS["madd_dbl"] == (
+    # the bound counts madd-2007-bl's least work: the kernel's z3 = 2 z1 h as (z1 + h)^2 - z1z1 - hh, a square
+    assert chip_smoke.LAZY_G1_PRODUCTS["madd"] == lazy_products(wide - squares - 1, reductions, squares=squares + 1)
+    dbl_wide, dbl_squares, dbl_reductions = rk.op_counts(rk.kernel_steps("__device__ __forceinline__ void jac_dbl("))
+    assert (dbl_wide, dbl_squares, dbl_reductions) == (7, 2, 6)
+    assert chip_smoke.LAZY_G1_PRODUCTS["madd_dbl"] == (  # the doubling at its least: e = 3 x^2 from a square
         lazy_products(diffs[0] - diffs[1], diffs[2], squares=diffs[1])
-        + lazy_products(dbl_mul, dbl_sqr + dbl_mul, squares=dbl_sqr))
+        + lazy_products(dbl_wide - dbl_squares - 1, dbl_reductions, squares=dbl_squares + 1))
 
 
 def test_madd_model_matches_plain_python_and_jax():

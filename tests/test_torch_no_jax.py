@@ -9,7 +9,9 @@ with TorchBackend("cpu"), stage 1 with the port's HostBackend (whose
 stateless recommit must reproduce TorchBackend's stage-0 commitments),
 per-proof verify, aggregation and aggregate verify. A lazy import that
 reaches JAX or the JAX package at run time fails it. It then runs msm_gpu
-along the tsort, gather and affine steps routes against msm_host, msm_gpu on
+along the tsort, gather and affine steps routes against msm_host, the
+compact msm's chain wrappers (jac_ladder, jac_sum, jac_horner) against
+their loops of single ops, msm_gpu on
 BLS12-381 G1 against a host sum, and the device exec tree against the host
 tree. tests/test_torch_slice.py runs stage 1 on TorchBackend.
 """
@@ -78,7 +80,7 @@ SCRIPT = textwrap.dedent(
     # msm_gpu's tsort, gather and affine steps routes on the CPU
     import random, warnings
     from hekaton_tpu_torch.curves import host as ch
-    from hekaton_tpu_torch.curves.torch_curve import G1
+    from hekaton_tpu_torch.curves.torch_curve import G1, CurveOps, Jac
     from hekaton_tpu_torch.fields.bn254 import R
     from hekaton_tpu_torch.msm import pippenger as pip
     r = random.Random(3)
@@ -92,6 +94,16 @@ SCRIPT = textwrap.dedent(
             warnings.simplefilter("ignore")  # the gather default warns that "pair" becomes "steps"
             out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars, G1), c=6, L=4, **route)
         assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars), route
+
+    # the compact msm's chain wrappers against their loops of single ops
+    from hekaton_tpu_torch.curves import cuda_curve as cc
+    lx, ly, lsc = ax[:4], ay[:4], pip.pack_scalars(scalars[:4], G1)
+    lad = cc.jac_ladder(lx, ly, lsc, 8)
+    assert all(torch.equal(a, b) for a, b in zip(lad, CurveOps.ladder(G1, lx, ly, lsc, 8)))
+    stack = Jac(*(torch.stack([a, a.flip(0)]) for a in lad))
+    assert all(torch.equal(a, b) for a, b in zip(cc.jac_sum(*stack), CurveOps.sum_in_order(G1, stack)))
+    assert all(torch.equal(a, b) for a, b in zip(cc.jac_horner(*lad, 2), CurveOps.horner(G1, lad, 2)))
+    print("chains", flush=True)
 
     # msm_gpu on BLS12-381 G1, a scalar above BN254's r among them
     from hekaton_tpu_torch.curves.torch_curve import g1_bls12_381
@@ -149,6 +161,7 @@ def test_port_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout and "'g1_msm_compact': 2" in proc.stdout, proc.stdout
     assert "routes 5 bls tree" in proc.stdout, proc.stdout
+    assert "chains" in proc.stdout, proc.stdout
     assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 

@@ -58,7 +58,10 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   plain version, where an older library that lacks them runs the loop of
   single ops they replace (torch_curve.CurveOps' ladder, sum_in_order and
   horner on its dbl, madd and add: chain_loop), as this tree's library
-  does too ("loop (new)");
+  does too ("loop (new)"); an older jac_ladder (one thread a lane on the
+  Jacobian formulas, as at d01b559) and the loops of the ladder are held
+  to the plain version as affine points (this tree's jac_ladder runs the
+  RCB formulas);
   --only keeps the
   rows of the kernels it names (and builds no other row's inputs); then the Horner chain's latency a point op, from the c=13
   and c=0 times, and one product's latency in the old one-thread body
@@ -72,8 +75,13 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   function, and the length of its dependent chain (chip_smoke.inv_chain);
 - g2: pmadd_rcb_g2, padd_rcb_g2 and pdbl_rcb_g2 at the G2 MSM's own
   level-1 width (chip_smoke.g2_level1_inputs on the 2^20-point msm_g2 set),
-  and pdbl_rcb_g2 at one lane (the G2 Horner's width, also against the
-  plain version), the libraries equal;
+  and pdbl_rcb_g2 at one lane (the width of the one-lane Horner launches,
+  also against the plain version), the libraries equal; then the G2 window
+  Horner at G2_HORNER_SHAPES and at W=20, c=0: horner_fold_g2 (one launch)
+  against, in a library without it, the loop of one-lane pdbl_rcb_g2 /
+  padd_rcb_g2 launches it replaced (cuda_curve.fold_windows on PROJ_G2), both
+  equal to horner_fold_g2_plain, and the time of a point op from the c=13
+  and c=0 times;
 - k_add: the widths of every affine-pair launch of one 2^20-point v9
   msm_gpu and one route (h) (steps, affine) are recorded, and each
   lanes-a-thread count of --k-add is timed at each width, the counts in
@@ -83,8 +91,9 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   ladder, c=3, c=8; chip_smoke's msm_compact inputs), each against
   msm_host, on the host clock (torch.cuda.synchronize around each call),
   the median of --reps calls, in turns: "old" is the older library with
-  G1's chains run as CurveOps' loops of single ops (SingleOpG1: the
-  launch sequence before the chain kernels), "new" this tree; then the
+  its own chain kernels, or where it has none G1's chains run as CurveOps'
+  loops of single ops (SingleOpG1: the launch sequence before the chain
+  kernels), "new" this tree; then the
   Horner combine at CHAIN_SHAPES' (W, c) two ways, in turns on this tree:
   jac_horner, and msm_gpu's route (curves/proj.py from_jacobian,
   horner_fold, to_jacobian), the same point.
@@ -116,6 +125,7 @@ SECTIONS = ("pairs", "halves", "others", "inv", "g2", "k_add", "compact")
 # the chunk sum at (K, lanes), the Horner at (W, c)
 CHAIN_SHAPES = {"jac_ladder": ((32, 254), (28, 254)), "jac_sum": ((64, 128), (7, 85), (32, 1), (28, 1), (4, 32)),
                 "jac_horner": ((85, 3), (32, 8))}
+G2_HORNER_SHAPES = ((20, 13),)  # (W, c) of the G2 window Horner of the 2^20 G2 MSM
 COMPACT_POINTS = (32, 33, 2048)
 VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb", "dbl", "add", "jac_ladder", "jac_sum",
                  "jac_horner")  # the others rows --variant times
@@ -483,11 +493,15 @@ def main() -> int:
             ref = plain() if plain else None
             libs = {"old": old, "new": new, **(variants if name in VARIANT_TIMED else {})}
             runs = {label: using(lib, fn) for label, lib in libs.items()}
-            if loop:  # a chain kernel: the older library runs the loop of single ops it replaces
+            if loop and not hasattr(old, "hk_" + name):  # the older library runs the loop of single ops it replaces
                 runs.update({"old": using(old, loop[0]), "loop (new)": using(new, loop[0])})
             for label, run in runs.items():
                 got = run()
                 ref = got if ref is None else ref  # without a plain version, the libraries equal the first
+                if name == "jac_ladder" and label in ("old", "loop (new)"):  # other formulas: the same points
+                    cs.require(G1.unpack_jacobian(Jac(*got)) == G1.unpack_jacobian(Jac(*ref)),
+                               f"{name} {shape} from the {label} library: other points than the plain version's")
+                    continue
                 err = cs.max_abs_err(got, ref)
                 cs.require(err == 0, f"{name} {shape} from the {label} library differs from the "
                                      + ("plain version" if plain else "old library"))
@@ -558,6 +572,26 @@ def main() -> int:
             in_turns("pdbl_rcb_g2", f"{m} lanes", {"old": using(old, lambda: fn(*kargs)), "new": lambda: fn(*kargs)},
                      (6 * 128 * m, cs.RCB_G2_PRODUCTS["pdbl_rcb_g2"] * m))
         del sc
+        # the G2 window Horner: one horner_fold_g2 launch against the loop of one-lane launches it replaced
+        old_fold = (lambda p, hc: cc.horner_fold_g2(*p, hc)) if hasattr(old, "hk_horner_g2") \
+            else (lambda p, hc: cc.fold_windows(proj.PROJ_G2, *p, hc))
+        g2_ms = {}
+        for W, hc in (*G2_HORNER_SHAPES, (20, 0)):
+            p = cs.horner_windows(proj, g2x, g2y, W, proj.PROJ_G2)
+            ref = cc.horner_fold_g2_plain(*p, hc)
+            with cuda_lib.using(old):
+                cs.require(cs.max_abs_err(old_fold(p, hc), ref) == 0, f"G2 Horner W={W}, c={hc}: the old library differs")
+            cs.require(cs.max_abs_err(cc.horner_fold_g2(*p, hc), ref) == 0,
+                       f"horner_fold_g2 W={W}, c={hc} differs from its plain version")
+            ms = in_turns("horner_fold_g2", f"W={W}, c={hc}", {"old": using(old, lambda: old_fold(p, hc)),
+                                                               "new": lambda: cc.horner_fold_g2(*p, hc)},
+                          cs.horner_g2_work(W, hc), f"; {cs.latency_note(cs.chain_levels('horner_fold_g2', (W, hc)))}")
+            g2_ms[(W, hc)] = {k: min(v) for k, v in ms.items()}
+        if (20, 13) in g2_ms:
+            full, adds = g2_ms[(20, 13)], g2_ms[(20, 0)]
+            print("[horner_g2] per point op (W=20): " + "; ".join(
+                f"{k} double {(full[k] - adds[k]) / (19 * 13) * 1e3:.3f} us, add {adds[k] / 19 * 1e3:.3f} us"
+                for k in full) + f"; on {card}", flush=True)
 
     if "k_add" in sections:  # K_ADD at the main path's widths
         widths = {}
@@ -597,9 +631,11 @@ def main() -> int:
               + ", ".join(f"K_ADD={k} {t:.3f} ms" for k, t in totals.items()) + "; by kernel: "
               + ", ".join(f"{name} K_ADD={k} {t:.3f} ms" for (name, k), t in sorted(by_name.items())) + f" on {card}")
     if "compact" in sections:  # the compact msm, the chains as loops of single ops (old) or one launch each (new)
+        old_g1 = G1 if hasattr(old, "hk_jac_ladder") else g1_loops  # an older library's own chain kernels
+
         def old_msm(*a, **kw):
             with cuda_lib.using(old):
-                return pip.msm(g1_loops, *a, **kw)
+                return pip.msm(old_g1, *a, **kw)
 
         def host_ms(fn):
             times = []

@@ -25,14 +25,17 @@ first N_BLS_ROUTES points; their Horner is the generic one
 With --curve g2 it times the BN254 G2 MSM on chip_smoke.py's msm_g2 set
 (chip_smoke.g2_set: 4,096 distinct points k_j * G2 tiled, row 5 the
 infinity sentinel; random scalars below r) along its one route (sort plan,
-projective steps; the Horner is `_horner_generic`), and inside level 1 and
-the Horner also the spans of `_mixed_step`'s `unpack_words` and of the three
-G2 kernel wrappers, each summed over the call ("of which" columns after the
-total, left out of "other"); on BN254 the same columns give the spans of
-`unpack_words` and of the `pmadd_rcb` wrapper (route (c)'s steps). Then the G2 Horner of one call alone, from each
-library (g2_horner_clocks): its host clock over its launches against its
-kernels' device time a launch (torch.profiler), and the share of the host
-span the device was busy.
+projective steps; the Horner is `horner_fold_g2`, one launch), and inside
+level 1 and the Horner also the spans of `_mixed_step`'s `unpack_words` and
+of the three G2 kernel wrappers, each summed over the call ("of which"
+columns after the total, left out of "other"); on BN254 the same columns
+give the spans of `unpack_words` and of the `pmadd_rcb` wrapper (route
+(c)'s steps). An older library without `hk_horner_g2` (d01b559 and older)
+runs the Horner as it did, the loop of one-lane pdbl_rcb_g2 / padd_rcb_g2
+launches (cuda_curve.fold_windows on PROJ_G2), in the same stage. Then the G2
+Horner of one call alone, from each library (g2_horner_clocks): its host
+clock over its launches against its kernels' device time a launch
+(torch.profiler), and the share of the host span the device was busy.
 
 --routes keeps the routes of those labels (comma-separated; "v9", "(a)"...
 "(h)", "default", "pair", ...). With --old (csrc sources, for example an
@@ -59,6 +62,7 @@ false.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import statistics
 import subprocess
@@ -76,42 +80,65 @@ NESTED = {"g2": ("unpack_words", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"), 
           "bls12_381": ()}
 STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", "_level1_pair", "l1_aff_halves_t",
           "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold",
-          "_horner_generic")
+          "horner_fold_g2", "_horner_generic")
+# each G2 Horner wrapper and its kernel's name in the profiler's trace
+G2_HORNER_KERNELS = {"horner_fold_g2": "horner_g2_kernel", "pdbl_rcb_g2": "pdbl_rcb_g2_kernel",
+                     "padd_rcb_g2": "padd_rcb_g2_kernel"}
 
 
-def g2_horner_clocks(cs, pip, cc, cuda_lib, ax, ay, sc, c, L, curve, old_lib, card) -> None:
-    """The G2 Horner (`_horner_generic` on one lane) of one msm_gpu call,
-    from each library in turns (this tree, old, old, this tree): its host
+def open_lib(cuda_lib, path: str) -> ctypes.CDLL:
+    """A kernel library with this tree's entry points declared as far as it
+    has them (an older one lacks the newer ones)."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in cuda_lib.SIGNATURES.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return handle
+
+
+def g2_fold_of(proj, cc, lib):
+    """The G2 Horner fold a library runs: horner_fold_g2, or where it lacks
+    hk_horner_g2 the loop of one-lane launches it replaced."""
+    if hasattr(lib, "hk_horner_g2"):
+        return cc.horner_fold_g2
+    return lambda x, y, z, c: cc.fold_windows(proj.PROJ_G2, x, y, z, c)
+
+
+def g2_horner_clocks(cs, pip, cc, proj, cuda_lib, ax, ay, sc, c, L, curve, old_lib, card) -> None:
+    """The G2 Horner of one msm_gpu call (its window sums and c), from each
+    library in turns (this tree, old, old, this tree; g2_fold_of): its host
     clock (a synchronize before and after, best of 3) over its launches,
     against its kernels' device time a launch, from torch.profiler's trace
     of one more call (chip_smoke.kernel_device_times); and the share of the
     host span the device was busy, where the trace holds every launch."""
-    horner, got = pip._horner_generic, {}
+    fold, got = pip.horner_fold_g2, {}
 
     def grab(*a):
         got["args"] = a
-        return horner(*a)
+        return fold(*a)
 
-    pip._horner_generic = grab
+    pip.horner_fold_g2 = grab
     pip.msm_gpu(ax, ay, sc, c=c, L=L, curve=curve)
-    pip._horner_generic = horner
-    kernels = ("pdbl_rcb_g2", "padd_rcb_g2")
+    pip.horner_fold_g2 = fold
     turns = [("this tree", cuda_lib.lib())]
     if old_lib is not None:
         turns = [turns[0], ("old", old_lib), ("old", old_lib), turns[0]]
     for label, lib in turns:
+        horner = g2_fold_of(proj, cc, lib)
         with cuda_lib.using(lib):
             horner(*got["args"])
             host = []
             for _ in range(3):
-                for k in kernels:
+                for k in G2_HORNER_KERNELS:
                     getattr(cc, k).launches = 0
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 horner(*got["args"])
                 torch.cuda.synchronize()
                 host.append((time.perf_counter() - t) * 1e3)
-            launches = {f"{k}_kernel": getattr(cc, k).launches for k in kernels}
+            launches = {G2_HORNER_KERNELS[k]: getattr(cc, k).launches for k in G2_HORNER_KERNELS
+                        if getattr(cc, k).launches}
             dev = cs.kernel_device_times(lambda: horner(*got["args"]), launches)
         host_ms, n = min(host), sum(launches.values())
         parts = []
@@ -177,6 +204,7 @@ def main() -> int:
     from hekaton_tpu_torch import host as h
     from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
     from hekaton_tpu_torch.curves import cuda_curve as cc
+    from hekaton_tpu_torch.curves import proj
     from hekaton_tpu_torch.curves.torch_curve import G1, G2, g1_bls12_381
     from hekaton_tpu_torch.fields import cuda_field as cf
     from hekaton_tpu_torch.fields import torch_field as tf
@@ -219,7 +247,7 @@ def main() -> int:
         def old_batch_inv(spec, a):
             return tf._batch_inv(spec, a, cf.mont_mul, cf.fermat_inv, args.old_root_width)
     if args.old:
-        old_lib = cuda_lib.load(cuda_lib.build(swap=args.old)[0])
+        old_lib = open_lib(cuda_lib, cuda_lib.build(swap=args.old)[0])
         twins = []
         for label, *rest in routes:
             twins += [(f"{label} [old]", *rest), (label, *rest)]
@@ -261,7 +289,9 @@ def main() -> int:
             torch.cuda.synchronize()
             start.record()
             tf.batch_inv = old_batch_inv if label in libs else this_batch_inv  # callers look it up on tf
-            with warnings.catch_warnings(), cuda_lib.using(libs.get(label) or cuda_lib.lib()):
+            lib = libs.get(label) or cuda_lib.lib()
+            pip.horner_fold_g2 = timed("horner_fold_g2", g2_fold_of(proj, cc, lib))
+            with warnings.catch_warnings(), cuda_lib.using(lib):
                 warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
                 pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
             tf.batch_inv = this_batch_inv
@@ -292,7 +322,7 @@ def main() -> int:
     for name, (mod, fn) in nested.items():
         setattr(mod, name, fn)
     if args.curve == "g2":
-        g2_horner_clocks(cs, pip, cc, cuda_lib, ax, ay, sc, c, L, curve, old_lib if args.old else None, card)
+        g2_horner_clocks(cs, pip, cc, proj, cuda_lib, ax, ay, sc, c, L, curve, old_lib if args.old else None, card)
     if args.curve != "bn254":
         print(card)
         return 0

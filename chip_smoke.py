@@ -18,9 +18,10 @@ native host library). Phases, one line each, every failure raises:
      points refuse an unknown field id;
      pmadd_rcb_g2 and padd_rcb_g2 also at the G2 MSM's own level-1 width
      (the msm_g2 set's plan, every lane against the plain version; lines of
-     their own), pdbl_rcb_g2 on those accumulators, on one lane (the G2
-     Horner's width; timed, with its device time a launch from
-     torch.profiler) and on 2^18 edge lanes as unaligned views;
+     their own), pdbl_rcb_g2 on those accumulators, on one lane (the width
+     of the one-lane Horner launches horner_fold_g2 replaced; timed, with
+     its device time a launch from torch.profiler) and on 2^18 edge lanes as
+     unaligned views;
      l1_aff_halves and l1_aff_halves_t on the G1 MSM's own v9 slab (734,740 columns x 32 at 2^20 points; one launch is one level 1),
      every column against the plain version, and on a 2^16-point plan's
      slab (lines of their own); l1_rcb_mega on the same v9 slab (its row;
@@ -53,7 +54,8 @@ native host library). Phases, one line each, every failure raises:
        launch a bucket MSM (every main path is held to that);
      - msm_g2: the G2 MSM at 2^20 points (4,096 distinct points k_j * G2
        tiled 256 times, an infinity row) against (sum_i s_i k_(i mod 4096))
-       * G2 by one host mul;
+       * G2 by one host mul; its window Horner in one horner_fold_g2 launch
+       (every main path is held to one a G2 msm_gpu call);
      - msm_bls: the BLS12-381 G1 MSM at 2^20 points on msm_gpu's default
        route for that curve (4,096 distinct points k_j * G tiled 256 times,
        an infinity row, scalars below BLS12-381's r) against (sum_i s_i
@@ -96,6 +98,12 @@ native host library). Phases, one line each, every failure raises:
      those of 2^20-, 2^16-, 2^15- and 2^12-point MSMs (horner_shapes), timed
      at the one launched most often, on edge window sums
      (horner_edge_sets) and at its widest W, one window more refused;
+     horner_fold_g2's row the same way (horner_g2_rows: every (W, c) the
+     main paths launched, G2 edge window sums, the widest W, one more
+     refused), timed beside the loop of one-lane pdbl_rcb_g2 / padd_rcb_g2
+     launches it replaces; each chain and fold row logs a latency
+     diagnostic (chain_levels: its dependent product levels times
+     PRODUCT_LATENCY_US);
   4. coverage: every kernel of each path was launched in that path's run,
      the point-op kernels' launches by width (lanes), the level-1 slab
      kernels' by (columns, L) and horner_fold's by (W, c), summed over the
@@ -105,7 +113,8 @@ native host library). Phases, one line each, every failure raises:
      no path but msm_routes launched one of ROUTE_KERNELS, none but
      unfused_affine one of UNFUSED_KERNELS, none but msm_bls one of
      BLS_KERNELS (the 24-limb instances), and msm_bls nothing else; no path
-     launched dbl (NO_PATH_KERNELS) or add on one lane.
+     launched dbl or pdbl_rcb_g2 (NO_PATH_KERNELS) or add on one lane; one
+     horner_fold_g2 launch a G2 msm_gpu call.
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -159,7 +168,7 @@ BLS_KERNELS = ("mont_mul fq_bls381", "fermat_inv fq_bls381")  # the 24-limb inst
 # the compact msm's chains of Jacobian ops on BN254 G1, one launch each: the
 # ladders, the in-order chunk sums of its tree reduction, the Horner combine
 CHAIN_KERNELS = ("jac_ladder", "jac_sum", "jac_horner")
-NO_PATH_KERNELS = ("dbl",)  # held in [kernels] only: the chains double inside their kernels
+NO_PATH_KERNELS = ("dbl", "pdbl_rcb_g2")  # held in [kernels] only: the chains and folds double inside their kernels
 N_BLS_DISTINCT = 4096  # distinct BLS12-381 G1 points of msm_bls, tiled to N_MSM
 N_BLS_ROUTES = 1 << 16  # points of the BLS12-381 routes other than the default
 # msm_bls's other routes: (label, msm_gpu route arguments), c and L of msm_g1
@@ -280,6 +289,12 @@ def g1_work(op: str, lanes: float) -> float:
 # products and 2 squares (25) and 8 results, 1 a sum (16).
 RCB_G2_PRODUCTS = {"pmadd_rcb_g2": lazy_products(39, 20), "padd_rcb_g2": lazy_products(42, 22),
                    "pdbl_rcb_g2": lazy_products(25, 16)}
+
+# One Montgomery product's latency on one H100 thread, us: the fit of the
+# one-thread horner_fold body of 1b89d60 from benches/torch_aff_ab.py's
+# Horner times (two products ~0.56 us, PERF.md). A chain's dependent product levels times it is a latency
+# diagnostic beside its operations bound, not a bound (chain_levels).
+PRODUCT_LATENCY_US = 0.28
 
 
 def require(cond: bool, msg: str) -> None:
@@ -764,14 +779,22 @@ def chain_rows(h, tf, cc, G1, bound, widths: dict, host_pts: list, scalars: list
             ref, plain_ms = timed_once(lambda: plain(*args))
             err = max_abs_err(fn(*args), ref)
             ms = cuda_ms(lambda: fn(*args), 5)
+            lanes = []
+            if name == "jac_ladder":  # its lanes' scalars, 0 where the base is (0,0)
+                ax, ay, limbs, _ = args
+                inf = ((ax == 0).all(-1) & (ay == 0).all(-1)).tolist()
+                lanes = [0 if z else sum(int(v) << (16 * i) for i, v in enumerate(row))
+                         for z, row in zip(inf, limbs.tolist())]
+            note = latency_note(chain_levels(name, shape, lanes))
             if shape == ranked[0]:
                 rows.append({**kernel_row(bound, name, "hekaton_tpu_torch/csrc/curve.cu",
                                           f"hekaton_tpu/curves/pallas_curve.py:{1289 if name == 'jac_sum' else 1285}",
                                           ms, plain_ms, err, work), "shape": label})
+                log(f"[kernels] {name} {label}: {note}")
                 continue
             require(err == 0, f"{name} {label}: kernel differs from its plain version (max abs err {err})")
             log(f"[kernels] {name} {label} (x{shapes[shape]}): bit-identical, kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.1f} ms, bound {bound(*work)[0]:.6f} ms ({bound(*work)[1]})")
+                f"{plain_ms:.1f} ms, bound {bound(*work)[0]:.6f} ms ({bound(*work)[1]}); {note}")
     return rows
 
 
@@ -843,29 +866,33 @@ def horner_shapes() -> list:
     return [(-(-254 // c), c) for c in (TorchBackend.msm_params(1 << lg)[0] for lg in (20, 16, 15, 12))]
 
 
-def horner_windows(proj, ax, ay, W: int):
-    """W projective window sums 2 P_i (z != 1) of the first W affine points."""
-    p = proj.PROJ_G1.dbl(proj.PROJ_G1.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
+def horner_windows(proj, ax, ay, W: int, ops=None):
+    """W projective window sums 2 P_i (z != 1) of the first W affine points
+    (G1 by default; `ops` proj.PROJ_G2 for (N, 2, 16) G2 points)."""
+    ops = ops or proj.PROJ_G1
+    p = ops.dbl(ops.from_affine(ax[:W].contiguous(), ay[:W].contiguous()))
     return proj.Proj(*(t.contiguous() for t in p))
 
 
-def horner_edge_sets(tf, proj, ax, ay) -> list:
-    """(label, window sums, c) of horner_fold's edge cases: identity (0:1:0)
-    windows (every third one, and all of them), every window the same
-    point (with c=0 the first add is a doubling), P and -P alternating
-    (with c=0 the sums cancel), and W=2."""
-    one = tf.consts(tf.FQ, DEVICE)["one"]
-    p = horner_windows(proj, ax, ay, 20)
+def horner_edge_sets(proj, ax, ay, ops=None) -> list:
+    """(label, window sums, c) of the Horner folds' edge cases: identity
+    (0:1:0) windows (every third one, and all of them), every window the
+    same point (with c=0 the first add is a doubling), P and -P alternating
+    (with c=0 the sums cancel), and W=2; G1 by default, G2 with `ops`
+    proj.PROJ_G2."""
+    ops = ops or proj.PROJ_G1
+    p = horner_windows(proj, ax, ay, 20, ops)
+    one = ops.inf((), DEVICE).y
     sets = []
     holes = proj.Proj(*(t.clone() for t in p))
     holes.x[::3], holes.y[::3], holes.z[::3] = 0, one, 0
     sets.append(("identity windows (every third)", holes, 13))
     sets.append(("identity windows (all)", proj.Proj(torch.zeros_like(p.x), one.expand_as(p.y).contiguous(),
                                                      torch.zeros_like(p.z)), 13))
-    same = proj.Proj(*(t[:1].repeat(20, 1) for t in p))
+    same = proj.Proj(*(t[:1].repeat(20, *([1] * (t.dim() - 1))) for t in p))
     sets += [("all windows equal", same, 13), ("all windows equal", same, 0)]
     alt = proj.Proj(*(t.clone() for t in same))
-    alt.y[1::2] = tf.neg(tf.FQ, alt.y[1::2])
+    alt.y[1::2] = ops.f.neg(alt.y[1::2])
     sets += [("P and -P alternating", alt, 13), ("P and -P alternating", alt, 0)]
     sets.append(("W=2", proj.Proj(*(t[:2].contiguous() for t in p)), 13))
     return sets
@@ -875,6 +902,35 @@ def horner_work(W: int, c: int) -> tuple:
     """horner_fold's work: 3 (W, 16) limb rows in, 3 rows out; (W-1) c RCB
     doublings and W-1 adds."""
     return 3 * 64 * (W + 1), (W - 1) * (c * g1_work("pdbl_rcb", 1) + g1_work("padd_rcb", 1))
+
+
+def horner_g2_work(W: int, c: int) -> tuple:
+    """horner_fold_g2's work: 3 (W, 2, 16) limb rows in, 3 (2, 16) rows
+    out; (W-1) c G2 RCB doublings and W-1 adds (RCB_G2_PRODUCTS)."""
+    return 3 * 128 * (W + 1), (W - 1) * (c * RCB_G2_PRODUCTS["pdbl_rcb_g2"] + RCB_G2_PRODUCTS["padd_rcb_g2"])
+
+
+def chain_levels(name: str, shape: tuple, scalars: list = ()) -> int:
+    """A chain's dependent product levels: the one-warp folds and jac_ladder
+    two a point op (jac_ladder's slowest lane from its top set bit, given
+    its lanes' `scalars`, 0 for a (0,0) base, and two more for its Jacobian
+    form); the one-thread chains every wide product of an op in program
+    order (jac_dbl 7, the add 16: LAZY_G1_PRODUCTS' kernel counts)."""
+    if name in ("horner_fold", "horner_fold_g2"):
+        W, c = shape
+        return 2 * (W - 1) * (c + 1)
+    if name == "jac_ladder":
+        bits = [s % (1 << shape[1]) for s in scalars]
+        return 2 * max(b.bit_length() + bin(b).count("1") for b in bits) + 2
+    if name == "jac_horner":
+        W, c = shape
+        return (W - 1) * (7 * c + 16)
+    return 16 * shape[0]  # jac_sum: K adds a lane
+
+
+def latency_note(levels: int) -> str:
+    return (f"latency diagnostic {levels} dependent product levels x {PRODUCT_LATENCY_US} us = "
+            f"{levels * PRODUCT_LATENCY_US / 1e3:.4f} ms")
 
 
 def aff_lanes(x1, y1, x2, y2) -> tuple:
@@ -1061,6 +1117,7 @@ def horner_rows(tf, cc, proj, bound, widths: dict, ax, ay) -> list:
         err = max_abs_err(cc.horner_fold(p.x, p.y, p.z, hc), ref)
         ms = cuda_ms(lambda: cc.horner_fold(p.x, p.y, p.z, hc), 10)
         if (W, hc) == ranked[0]:
+            log(f"[kernels] horner_fold W={W}, c={hc}: {latency_note(chain_levels('horner_fold', (W, hc)))}")
             rows.append({**kernel_row(bound, "horner_fold", "hekaton_tpu_torch/csrc/curve.cu",
                                       "hekaton_tpu/curves/pallas_curve.py:625", ms, plain_ms, err, horner_work(W, hc)),
                          "shape": f"W={W}, c={hc}"})
@@ -1068,7 +1125,7 @@ def horner_rows(tf, cc, proj, bound, widths: dict, ax, ay) -> list:
         require(err == 0, f"horner_fold W={W}, c={hc}: kernel differs from its plain version (max abs err {err})")
         log(f"[kernels] horner_fold W={W}, c={hc} (x{widths.get((W, hc), 0)}): bit-identical, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound(*horner_work(W, hc))[0]:.6f} ms")
-    for label, p, hc in horner_edge_sets(tf, proj, ax, ay):
+    for label, p, hc in horner_edge_sets(proj, ax, ay):
         err = max_abs_err(cc.horner_fold(p.x, p.y, p.z, hc), cc.horner_fold_plain(p.x, p.y, p.z, hc))
         require(err == 0, f"horner_fold on {label}, c={hc}: kernel differs from its plain version (max abs err {err})")
         log(f"[kernels] horner_fold on {label} (W={p.x.shape[0]}, c={hc}): bit-identical")
@@ -1084,6 +1141,70 @@ def horner_rows(tf, cc, proj, bound, widths: dict, ax, ay) -> list:
         refused = True
     require(refused, f"horner_fold took {top + 1} windows, past its limit of {top}")
     log(f"[kernels] horner_fold W={top} (its widest), c=0: bit-identical; W={top + 1} refused")
+    return rows
+
+
+def horner_g2_rows(cc, proj, bound, widths: dict, g2x, g2y) -> list:
+    """horner_fold_g2's row at the (W, c) the main paths launched it at
+    (`widths`: {(W, c): launches}): held limb for limb against
+    horner_fold_g2_plain at every one of them (each with an empty window),
+    the row at the one launched most often, where both are timed, with the
+    loop of one-lane pdbl_rcb_g2 / padd_rcb_g2 launches it replaces timed
+    beside it; then on horner_edge_sets' G2 window sums, at the kernel's
+    widest W (HORNER_G2_MAX_W, c=0), and one window past it, which it
+    refuses. Apart from the row's timed run, the plain version runs on CPU
+    copies of the inputs: on the card its one-lane Fq2 ops take 12-30 s a
+    fold, on the host's CPU a few."""
+    ops = proj.PROJ_G2
+    one = ops.inf((), DEVICE).y
+    ranked = sorted(widths, key=lambda k: (-widths[k], -k[0]))
+    require(bool(ranked), "horner_fold_g2: no main path launched it")
+    rows = []
+
+    def plain_err(p, hc):  # the kernel against the plain version on CPU copies
+        got = cc.horner_fold_g2(*p, hc)
+        return max_abs_err(tuple(t.cpu() for t in got), cc.horner_fold_g2_plain(*(t.cpu() for t in p), hc))
+    for W, hc in ranked:
+        p = horner_windows(proj, g2x, g2y, W, ops)
+        p.x[3 % W], p.y[3 % W], p.z[3 % W] = 0, one, 0  # an empty window
+        ms = cuda_ms(lambda: cc.horner_fold_g2(p.x, p.y, p.z, hc), 10)
+        note = latency_note(chain_levels("horner_fold_g2", (W, hc)))
+        if (W, hc) == ranked[0]:
+            ref, plain_ms = timed_once(lambda: cc.horner_fold_g2_plain(p.x, p.y, p.z, hc))
+            err = max_abs_err(cc.horner_fold_g2(p.x, p.y, p.z, hc), ref)
+            launches = (W - 1) * (hc + 1)
+            require(max_abs_err(cc.fold_windows(ops, *p, hc), ref) == 0,
+                    "horner_fold_g2: the loop of one-lane launches differs from the plain version")
+            loop_ms = cuda_ms(lambda: cc.fold_windows(ops, *p, hc), 3)
+            log(f"[kernels] horner_fold_g2 W={W}, c={hc}: one launch {ms:.4f} ms against the {launches} one-lane "
+                f"pdbl_rcb_g2 / padd_rcb_g2 launches it replaces {loop_ms:.3f} ms (CUDA events, host-issued); {note}")
+            rows.append({**kernel_row(bound, "horner_fold_g2", "hekaton_tpu_torch/csrc/curve_g2.cu",
+                                      "hekaton_tpu/msm/pippenger.py:1145", ms, plain_ms, err, horner_g2_work(W, hc)),
+                         "shape": f"W={W}, c={hc}"})
+            continue
+        err = plain_err(p, hc)
+        require(err == 0, f"horner_fold_g2 W={W}, c={hc}: kernel differs from its plain version (max abs err {err})")
+        log(f"[kernels] horner_fold_g2 W={W}, c={hc} (x{widths[(W, hc)]}): bit-identical, kernel {ms:.4f} ms, "
+            f"bound {bound(*horner_g2_work(W, hc))[0]:.6f} ms; {note}")
+    for label, p, hc in horner_edge_sets(proj, g2x, g2y, ops):
+        err = plain_err(p, hc)
+        require(err == 0, f"horner_fold_g2 on {label}, c={hc}: kernel differs from its plain version (max abs err {err})")
+        log(f"[kernels] horner_fold_g2 on {label} (W={p.x.shape[0]}, c={hc}): bit-identical")
+    from hekaton_tpu_torch import cuda_lib
+
+    top = cc.HORNER_G2_MAX_W
+    lib_top = cuda_lib.lib().hk_horner_g2_max_w()
+    require(lib_top == top, f"horner_fold_g2: the kernel takes {lib_top} windows, the wrapper {top}")
+    p = horner_windows(proj, g2x, g2y, top + 1, ops)
+    err = plain_err(proj.Proj(*(t[:top].contiguous() for t in p)), 0)
+    require(err == 0, f"horner_fold_g2 W={top}, c=0: kernel differs from its plain version (max abs err {err})")
+    try:
+        cc.horner_fold_g2(*p, 0)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"horner_fold_g2 took {top + 1} windows, past its limit of {top}")
+    log(f"[kernels] horner_fold_g2 W={top} (its widest), c=0: bit-identical; W={top + 1} refused")
     return rows
 
 
@@ -1148,7 +1269,7 @@ def width_list(name: str, widths: dict) -> str:
     (W, c) of horner_fold and jac_horner, (lanes, nbits) of jac_ladder, (K,
     lanes) of jac_sum, or (field, lanes) of fermat_inv."""
     def label(k):
-        if name in ("horner_fold", "jac_horner"):
+        if name in ("horner_fold", "horner_fold_g2", "jac_horner"):
             return "W={}, c={}".format(*k)
         if name == "jac_ladder":
             return "{} lanes, nbits={}".format(*k)
@@ -1170,7 +1291,7 @@ def width_list(name: str, widths: dict) -> str:
 def width_lanes(name: str, widths: dict) -> str:
     """The lanes summed over the launches of `widths` (a level-1 slab
     kernel's columns; a horner_fold launch is one fold)."""
-    if name in ("horner_fold", "jac_horner"):
+    if name in ("horner_fold", "horner_fold_g2", "jac_horner"):
         return f"{sum(widths.values())} folds"
     if name in ("jac_ladder", "jac_sum"):
         return f"{sum(n * (k[0] if name == 'jac_ladder' else k[1]) for k, n in widths.items()):,} lanes in all"
@@ -1487,9 +1608,10 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
         log(f"[kernels] {op} at the G2 MSM's level-1 width ({g2_cols} lanes of the msm_g2 plan, all held "
             f"against the plain version): bit-identical, kernel {cuda_ms(lambda: fn(*kargs), 10):.3f} ms, "
             f"bound {work[0]:.4f} ms ({work[1]})")
-    # pdbl_rcb_g2 on the same accumulators, on one lane (the G2 Horner's
-    # launches: timed, and its device time a launch from the profiler's
-    # trace), and on 2^18 edge lanes as views off the 16-byte grid
+    # pdbl_rcb_g2 on the same accumulators, on one lane (the one-lane Horner
+    # launches horner_fold_g2 replaced: timed, and its device time a launch
+    # from the profiler's trace), and on 2^18 edge lanes as views off the
+    # 16-byte grid
     fn, plain = cc.pdbl_rcb_g2, cc.pdbl_rcb_g2_plain
     gp = proj_edge_lanes(tf, proj, *g2_pts, gen)[0]
     one_lane = tuple(t[:1].contiguous() for t in pa_args[:3])
@@ -1876,7 +1998,8 @@ def main() -> int:
                          g2_level1_inputs(pip, g2x, g2y, sc, c, L), (sc, c, L))
 
     curve_kernels = {"aff_add_fused": cc.aff_add_fused, "l1_aff_halves": cc.l1_aff_halves,
-                     "horner_fold": cc.horner_fold, "madd": cc.madd, "pmadd_rcb_g2": cc.pmadd_rcb_g2,
+                     "horner_fold": cc.horner_fold, "horner_fold_g2": cc.horner_fold_g2, "madd": cc.madd,
+                     "pmadd_rcb_g2": cc.pmadd_rcb_g2,
                      "padd_rcb_g2": cc.padd_rcb_g2, "pdbl_rcb_g2": cc.pdbl_rcb_g2, "dbl": cc.dbl, "add": cc.add,
                      "pmadd_rcb": cc.pmadd_rcb, "padd_rcb": cc.padd_rcb, "pdbl_rcb": cc.pdbl_rcb,
                      "l1_rcb_mega": cc.l1_rcb_mega, "aff_add_mixed_packed": cc.aff_add_mixed_packed,
@@ -1893,8 +2016,9 @@ def main() -> int:
                "mont_mul fq_bls381": field_count(cf.mont_mul, ("fq_bls381",)),
                **{k: field_count(cf.fermat_inv, fields) for k, fields in INV_ROWS.items()},
                **{k: (lambda fn=fn: fn.launches) for k, fn in curve_kernels.items()}}
-    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS) | {"horner_fold"}
-            | set(CHAIN_KERNELS), "the kernel table and the launch counts name other kernels")
+    require(set(kernels) == {r["name"] for r in rows} | set(INV_ROWS) | set(AFF_ROWS)
+            | {"horner_fold", "horner_fold_g2"} | set(CHAIN_KERNELS),
+            "the kernel table and the launch counts name other kernels")
     totals = dict.fromkeys(kernels, 0)
     # the inversion kernel's calls on CUDA tensors by main path, (field,
     # lanes) and caller: tf.batch_inv's (one launch each; the [batch_inv]
@@ -1954,6 +2078,26 @@ def main() -> int:
         return fold(x, y, z, c)
 
     pip.horner_fold = recorded_fold
+    fold_g2 = pip.horner_fold_g2
+
+    def recorded_fold_g2(x, y, z, c):
+        if path_now[0] is not None and x.is_cuda:
+            record_width("horner_fold_g2", (x.shape[0], c))
+        return fold_g2(x, y, z, c)
+
+    pip.horner_fold_g2 = recorded_fold_g2
+    # msm_gpu's G2 calls on CUDA tensors by main path: each folds its
+    # windows in one horner_fold_g2 launch (TorchBackend looks msm_gpu up at
+    # call time)
+    g2_msms = {}
+    bucket_msm = pip.msm_gpu
+
+    def recorded_msm_gpu(ax, *rest, **kw):
+        if path_now[0] is not None and ax.is_cuda and tuple(ax.shape[1:]) == (2, 16):
+            g2_msms[path_now[0]] = g2_msms.get(path_now[0], 0) + 1
+        return bucket_msm(ax, *rest, **kw)
+
+    pip.msm_gpu = recorded_msm_gpu
 
     # the chain kernels' launches by shape: jac_ladder by (lanes, nbits),
     # jac_sum by (K, lanes), jac_horner by (W, c), from the kernel arguments
@@ -2002,7 +2146,8 @@ def main() -> int:
         """Run one main path with every launch count at 0 before it; fail if
         one of its kernels was not launched, or one of `absent` was, or the
         chain kernels were not launched once a compact BN254 G1 ladder
-        (jac_ladder) and once a compact bucket MSM (jac_horner)."""
+        (jac_ladder) and once a compact bucket MSM (jac_horner), or
+        horner_fold_g2 not once a G2 msm_gpu call."""
         path_now[0] = name
         cf.reset_counts(cf.mont_mul)
         cf.reset_counts(cf.fermat_inv)
@@ -2028,6 +2173,8 @@ def main() -> int:
         require(all(counts[k] == v for k, v in runs.items()),
                 f"{name}: compact BN254 G1 MSMs {runs}, chain launches "
                 f"{ {k: counts[k] for k in runs} } (one a ladder, one a bucket MSM)")
+        require(counts["horner_fold_g2"] == g2_msms.get(name, 0),
+                f"{name}: {g2_msms.get(name, 0)} G2 msm_gpu calls, {counts['horner_fold_g2']} horner_fold_g2 launches")
 
     def msm_path(label, x, y, exp, curve, L=L, **route):
         torch.cuda.synchronize()
@@ -2113,8 +2260,9 @@ def main() -> int:
 
     main_path("msm_compact", ["add", "madd", *CHAIN_KERNELS], compact_path)
     del ax, ay
-    main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"],
+    main_path("msm_g2", ["mont_mul", "pmadd_rcb_g2", "padd_rcb_g2", "horner_fold_g2"],
               lambda: msm_path("G2", g2x, g2y, expected_g2, G2))
+    g2_rows = (g2x[:512].clone(), g2y[:512].clone())  # window sums of horner_g2_rows
     del g2x, g2y, sc
 
     bls_paths(h, pip, main_path, [k for k in kernels if k not in BLS_KERNELS], card, rs, c, L)
@@ -2229,12 +2377,17 @@ def main() -> int:
         require(sum(widths.values()) == totals[name], f"{name}: {totals[name]} launches, {widths} recorded")
         log(f"[coverage] {name} launches by width on the main paths ({len(widths)} widths, "
             f"{width_lanes(name, widths)}): " + width_list(name, widths))
-    require(set(op_calls) >= {"horner_fold", "pdbl_rcb_g2", *CHAIN_KERNELS}, f"widths recorded for {sorted(op_calls)} only")
+    require(set(op_calls) >= {"horner_fold", "horner_fold_g2", *CHAIN_KERNELS},
+            f"widths recorded for {sorted(op_calls)} only")
+    require(sum(g2_msms.values()) == totals["horner_fold_g2"] and "pdbl_rcb_g2" not in op_calls,
+            f"G2 msm_gpu calls {g2_msms}, horner_fold_g2 launches {totals['horner_fold_g2']}, pdbl_rcb_g2 widths "
+            f"{op_calls.get('pdbl_rcb_g2')}: each G2 MSM folds its windows in one launch, no one-lane double")
     require("dbl" not in op_calls and 1 not in op_calls.get("add", {}),
             "a main path launched dbl, or add on one lane: the compact msm's chains run in the chain kernels")
     path_now[0] = None
     ax, ay = torch.from_numpy(ax_np).to(DEVICE), torch.from_numpy(ay_np).to(DEVICE)
     rows += horner_rows(tf, cc, proj, bound, op_calls["horner_fold"], ax, ay)
+    rows += horner_g2_rows(cc, proj, bound, op_calls["horner_fold_g2"], *g2_rows)
     rows += chain_rows(h, tf, cc, G1, bound, op_calls, host_pts, scalars, gen)
     rows += inv_rows(tf, cf, bound, inv_calls, totals, gen)
     rows += aff_rows(tf, cc, bound, aff_calls, totals, ax, ay)

@@ -15,9 +15,10 @@
 // _madd_tiles :164 with the _dbl_tiles escape :146). dbl and add replace
 // curves/pallas_curve.py::dbl and ::add (_dbl_kernel :1188 on _dbl_tiles
 // :146, _add_kernel :1196 on _add_tiles :210). jac_ladder, jac_sum and
-// jac_horner run the JAX compact msm's loops of those kernels in one launch
-// each (hekaton_tpu/msm/pippenger.py: _msm_ladder :209, _tree_reduce's
-// chunks :159, msm's Horner :258).
+// jac_horner run the JAX compact msm's loops of kernels in one launch each
+// (hekaton_tpu/msm/pippenger.py: _msm_ladder :209 of dbl and madd, here on
+// the RCB formulas; _tree_reduce's chunks :159 and msm's Horner :258 of dbl
+// and add).
 //
 // Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
 // (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
@@ -100,14 +101,17 @@
 // arithmetic they make moot and its doubling escape madd's out-of-line one.
 // The compact msm ran them one host launch a point op, at 1 to a few
 // thousand lanes, where the launch, not the multiplies, set the time. Its
-// chains now run in one launch each (jac_ladder: every lane's nbits
-// doublings and mixed adds; jac_sum: a chunk's K adds a lane; jac_horner:
-// the (W-1)(c+1) ops of the Horner combine on one thread), the accumulator
-// in registers: bound by the chain's latency, one op after another on one
-// thread a lane. On one H100 80GB HBM3 (700 W), in turns with the row-product
-// bodies and their loops of launches (benches/torch_aff_ab.py): dbl 0.051 ms
-// against 0.175 at 2^18 lanes (bound 0.030, bytes), add 0.102 against 0.237
-// (bound 0.061, multiplies); a 32-lane ladder 2.03 ms against 45-52, the
+// chains now run in one launch each, bound by the chain's latency: jac_sum
+// (a chunk's K adds a lane) and jac_horner (the (W-1)(c+1) ops of the
+// Horner combine) one thread a lane, the accumulator in registers, one op
+// after another; jac_ladder (every lane's nbits doublings and mixed adds)
+// one warp a lane on horner_fold's two-level RCB ops (horner_dbl and a
+// two-level mixed add, horner_madd), so a step is two levels of products
+// and an add two more, not one thread's product after product. On one H100
+// 80GB HBM3 (700 W), in turns with the row-product bodies and their loops of
+// launches (benches/torch_aff_ab.py): dbl 0.051 ms against 0.175 at 2^18
+// lanes (bound 0.030, bytes), add 0.102 against 0.237 (bound 0.061,
+// multiplies); the one-thread 32-lane ladder 2.03 ms against 45-52, the
 // Horner at W=85, c=3 1.43 against 15.4-15.7 (PERF.md).
 //
 // The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
@@ -885,6 +889,26 @@ __device__ Proj horner_add(const Proj& p, const Proj& q, Levels lv) {
               fe_add<FQ>(get_fe(lv[1][4]), get_fe(lv[1][5]))};
 }
 
+// RCB15 Algorithm 8 (a=0, Z2=1, b3=9), pmadd_rcb's values in two levels, for
+// a finite Q = (qx, qy) (qxy = qx + qy): X1 X2, Y1 Y2, (X1+Y1)(X2+Y2), Y2 Z1,
+// X2 Z1, then the six closing products
+__device__ Proj horner_madd(const Proj& p, const Fe& qx, const Fe& qy, const Fe& qxy, Levels lv) {
+  const int h = threadIdx.x % 6;
+  const Fe pxy = fe_add<FQ>(p.x, p.y);
+  level(lv[0], 5, pick(h, p.x, p.y, pxy, p.z, p.z), pick(h, qx, qy, qxy, qy, qx));
+  const Fe t0 = get_fe(lv[0][0]), t1 = get_fe(lv[0][1]);
+  const Fe t3 = fe_sub<FQ>(get_fe(lv[0][2]), fe_add<FQ>(t0, t1));
+  const Fe t4 = fe_add<FQ>(get_fe(lv[0][3]), p.y);
+  const Fe y3 = mul9(fe_add<FQ>(get_fe(lv[0][4]), p.x));
+  const Fe t03 = fe_add<FQ>(fe_add<FQ>(t0, t0), t0);
+  const Fe t2 = mul9(p.z);
+  const Fe z3 = fe_add<FQ>(t1, t2);
+  const Fe t1m = fe_sub<FQ>(t1, t2);
+  level(lv[1], 6, pick(h, t3, t4, t1m, y3, z3, t03), pick(h, t1m, y3, z3, t03, t4, t3));
+  return Proj{fe_sub<FQ>(get_fe(lv[1][0]), get_fe(lv[1][1])), fe_add<FQ>(get_fe(lv[1][2]), get_fe(lv[1][3])),
+              fe_add<FQ>(get_fe(lv[1][4]), get_fe(lv[1][5]))};
+}
+
 __device__ __forceinline__ Proj window_sum(const uint32_t* win, int w) {
   return Proj{get_fe(win + 24 * w), get_fe(win + 24 * w + 8), get_fe(win + 24 * w + 16)};
 }
@@ -1140,35 +1164,18 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
   store_limbs16(oz + i * 16, z3);
 }
 
-// -- the compact msm's chains of Jacobian ops, one launch each ---------------
+// -- the compact msm's chains, one launch each --------------------------------
 //
-// One thread a lane walks the whole chain with its accumulator in registers:
-// the ladder's nbits doublings and mixed adds, a chunk's K adds, the Horner's
-// (W-1)(c+1) ops. Each step is the op above (jac_dbl; madd_diffs and
-// madd_finish; add_diffs and madd_finish) with its kernel's overrides in the
-// same order, so every limb is that of the same loop of dbl, madd and add
-// launches; the doubling escapes double the accumulator in place.
+// jac_sum and jac_horner: one thread a lane walks the whole chain with its
+// accumulator in registers, a chunk's K adds or the Horner's (W-1)(c+1)
+// ops. Each step is the op above (jac_dbl; add_diffs and madd_finish) with
+// its kernel's overrides in the same order, so every limb is that of the
+// same loop of dbl and add launches; the doubling escapes double the
+// accumulator in place. jac_ladder (below) runs the RCB formulas on a warp.
 
 struct Jac {
   Fe x, y, z;
 };
-
-// _madd_tiles on registers: P + (qx, qy)
-__device__ __forceinline__ Jac jac_madd(const Jac& p, const Fe& qx, const Fe& qy) {
-  const bool q_inf = fe_is_zero(qx) && fe_is_zero(qy);
-  if (fe_is_zero(p.z)) return Jac{qx, qy, q_inf ? fe_zero() : fe_one<FQ>()};
-  if (q_inf) return p;
-  Fe h, rr;
-  madd_diffs(p.x, p.y, p.z, qx, qy, h, rr);
-  Jac r;
-  if (fe_is_zero(h) && fe_is_zero(rr)) {
-    jac_dbl(p.x, p.y, p.z, r.x, r.y, r.z);
-    return r;
-  }
-  madd_finish(p.x, p.y, p.z, h, rr, r.x, r.y, r.z);
-  if (fe_is_zero(h)) r.z = fe_zero();
-  return r;
-}
 
 // _add_tiles on registers: P + Q
 __device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
@@ -1196,26 +1203,50 @@ __device__ __forceinline__ void store_jac(int32_t* x, int32_t* y, int32_t* z, lo
   store_limbs16(z + i * 16, p.z);
 }
 
-// _msm_ladder's lanes (hekaton_tpu/msm/pippenger.py:209-229): lane i from
-// the identity (1, 1, 0) takes nbits steps, bit j = nbits-1 down to 0 of its
-// (16,) plain 16-bit scalar limbs: a doubling, then where the bit is set the
-// mixed add of (ax_i, ay_i). A limb is loaded once, for its 16 bits.
-__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+// _msm_ladder's lanes (hekaton_tpu/msm/pippenger.py:209-229) on the RCB
+// formulas, one warp a lane (a block of one warp each: the block scheduler
+// spreads the <= 32 warps of a compact msm over as many SMs, each alone on
+// its SM's issue slots): from the identity (0:1:0), bit j = nbits-1 down to
+// 0 of the lane's (16,) plain 16-bit scalar limbs, horner_dbl, then where
+// the bit is set horner_madd of (ax, ay). The scalar is the warp's own, so
+// every branch is uniform. Doublings of the identity leave it as it is, so
+// the walk starts at the top set bit; a (0,0) base or a zero scalar stores
+// the identity. The projective result goes to the port's Jacobian form (X
+// Z, Y Z^2, Z; (1, 1, 0) where Z = 0).
+__global__ void __launch_bounds__(HORNER_THREADS)
     jac_ladder_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
                       const int32_t* __restrict__ scalars, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                      int32_t* __restrict__ oz, long long n, int nbits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                      int32_t* __restrict__ oz, int nbits) {
+  __shared__ __align__(16) HornerLevels lv;
+  const long long i = blockIdx.x;
   const Fe qx = load_limbs16(ax + i * 16), qy = load_limbs16(ay + i * 16);
-  Jac acc{fe_one<FQ>(), fe_one<FQ>(), fe_zero()};
-  uint32_t limb = 0;
-#pragma unroll 1
-  for (int j = nbits - 1; j >= 0; j--) {
-    if (j == nbits - 1 || j % 16 == 15) limb = (uint32_t)scalars[i * 16 + j / 16];
-    jac_dbl(acc.x, acc.y, acc.z, acc.x, acc.y, acc.z);
-    if ((limb >> (j % 16)) & 1) acc = jac_madd(acc, qx, qy);
+  int top = -1;  // the top set bit below nbits
+  if (!(fe_is_zero(qx) && fe_is_zero(qy))) {
+    for (int l = (nbits - 1) / 16; l >= 0 && top < 0; l--) {
+      uint32_t v = (uint32_t)scalars[i * 16 + l];
+      if (16 * l + 16 > nbits) v &= (1u << (nbits - 16 * l)) - 1u;
+      if (v) top = 16 * l + 31 - __clz(v);
+    }
   }
-  store_jac(ox, oy, oz, i, acc);
+  Proj acc{fe_zero(), fe_one<FQ>(), fe_zero()};
+  if (top >= 0) {
+    const Fe qxy = fe_add<FQ>(qx, qy);
+    uint32_t limb = (uint32_t)scalars[i * 16 + top / 16];
+#pragma unroll 1
+    for (int j = top; j >= 0; j--) {
+      if (j % 16 == 15) limb = (uint32_t)scalars[i * 16 + j / 16];
+      acc = horner_dbl(acc, lv);
+      if ((limb >> (j % 16)) & 1) acc = horner_madd(acc, qx, qy, qxy, lv);
+    }
+  }
+  const int h = threadIdx.x & 1;
+  level(lv[0], 2, pick(h, acc.x, acc.z), acc.z);  // X Z, Z^2
+  const Fe xz = get_fe(lv[0][0]);
+  level(lv[1], 1, acc.y, get_fe(lv[0][1]));  // Y Z^2
+  if (threadIdx.x == 0) {
+    const bool inf = fe_is_zero(acc.z);
+    store_jac(ox, oy, oz, i, Jac{inf ? fe_one<FQ>() : xz, inf ? fe_one<FQ>() : get_fe(lv[1][0]), acc.z});
+  }
 }
 
 // _tree_reduce's chunk sum (hekaton_tpu/msm/pippenger.py:159-185): lane i
@@ -1285,7 +1316,7 @@ const KernelSlot KERNELS[] = {
     {"madd_kernel", (const void*)madd_kernel, THREADS, 0},
     {"dbl_kernel", (const void*)dbl_kernel, THREADS, 0},
     {"add_kernel", (const void*)add_kernel, THREADS, 0},
-    {"jac_ladder_kernel", (const void*)jac_ladder_kernel, THREADS, 0},
+    {"jac_ladder_kernel", (const void*)jac_ladder_kernel, HORNER_THREADS, 0},
     {"jac_sum_kernel", (const void*)jac_sum_kernel, THREADS, 0},
     {"jac_horner_kernel", (const void*)jac_horner_kernel, 1, 0},
 };
@@ -1428,14 +1459,14 @@ extern "C" int hk_add(const void* x1, const void* y1, const void* z1, const void
   return (int)cudaGetLastError();
 }
 
-// n lanes of affine (16,) limb rows and (16,) plain 16-bit scalar limbs, 16-byte
-// aligned, 1 <= nbits <= 256 -> n Jacobian rows
+// n >= 1 lanes of affine (16,) limb rows and (16,) plain 16-bit scalar limbs,
+// 16-byte aligned, 1 <= nbits <= 256 -> n Jacobian rows
 extern "C" int hk_jac_ladder(const void* ax, const void* ay, const void* scalars, void* ox, void* oy, void* oz,
                              long long n, int nbits, void* stream) {
-  if (nbits < 1 || nbits > 256) return (int)cudaErrorInvalidValue;
-  jac_ladder_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (nbits < 1 || nbits > 256 || n < 1 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  jac_ladder_kernel<<<(unsigned)n, HORNER_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)scalars, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz,
-      n, nbits);
+      nbits);
   return (int)cudaGetLastError();
 }
 

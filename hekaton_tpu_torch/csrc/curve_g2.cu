@@ -22,8 +22,9 @@
 //
 // All three run two threads a lane, thread k making the c_k half of every
 // Fq2 value: pmadd_rcb_g2 and padd_rcb_g2 (the G2 MSM's level 1, collapse
-// and suffix scan, on up to ~735K lanes) and pdbl_rcb_g2 (the G2 Horner's
-// doublings, one lane a launch). Their earlier design, one thread a lane
+// and suffix scan, on up to ~735K lanes) and pdbl_rcb_g2 (no main path
+// launches it: the G2 MSM's window Horner runs in horner_g2_kernel, below,
+// one launch a fold). Their earlier design, one thread a lane
 // with the whole formula unrolled over Fq2 values, took 176-255 registers
 // (the adds spilled 172 and 12 bytes), so 8-11 warps fitted on an SM: too
 // few to hide the dependent multiply-add chains; and at one lane it left
@@ -386,13 +387,252 @@ __global__ void __launch_bounds__(PAIR_THREADS, PAIR_MIN_BLOCKS)
   write_out(sm, ox, oy, oz, r, lane0, n);
 }
 
+// -- the G2 window Horner fold: one warp over Fq2 ------------------------------
+//
+// horner_g2_kernel replaces the G2 MSM's window combine, the fori_loop of
+// proj.dbl / proj.add in hekaton_tpu/msm/pippenger.py:1145-1153 (on the TPU
+// the XLA Fq2 formulas at one lane: PallasProjG2Ops takes Pallas only from
+// 128 lanes). The port ran it as one-lane pdbl_rcb_g2 / padd_rcb_g2
+// launches, (W-1)(c+1) of them a fold. It is a chain of dependent point ops
+// on one lane: bound by the chain's latency, not by bytes or multiplies.
+//
+// One warp walks it, as horner_kernel (curve.cu) does on G1. The unit of a
+// lane is one half of an Fq2 product, c_k = a0 b_k + a1 (k ? b0 : p - b1):
+// two wide products and one reduction (csrc/curve_g2.cu's mac_f2 design),
+// lane 2i + k making component k of product i of a level. The sums between
+// levels are made on every lane, for its own component (Fq2 additions work
+// component by component), so each lane adds one component, not two.
+//
+// b3 = 9/(9+u) is a full Fq2 constant, so b3 Z^2 (the double) and b3 Z1 Z2,
+// b3 y3 (the add) would each need a level of their own. Here they need none:
+// - the accumulator carries BZ = b3 Z beside X, Y, Z, so the double's
+//   level 1 makes t2 = b3 Z^2 as Z BZ, and its level 2 makes the next BZ
+//   = (Y BZ) z3 beside Z3 = (Y Z) z3;
+// - each window sum Q is multiplied by b3 once, before the chain (Q_BX,
+//   Q_BY, Q_BZ, Q_BBZ = b3^2 Z2, and 3 X2, 3 b3 X2), so the add's level 1
+//   makes t0 = 3 X1 X2, b3 Z1 Z2, b3 (X1 Z2 + X2 Z1) and b3 z3, b3 t0 (for
+//   the next BZ) as products of the accumulator and those values, and its
+//   level 2 makes X3, Y3, Z3 and BZ3 = (b3 z3) t4 + (b3 t0) t3.
+// So a point op is two levels of products, as on G1 (schedule below: a
+// double 5 + 5 products, an add 12 + 8, at most 24 lanes), and between
+// them short sums: a double 7 and 2, an add 6 and 4 (G1's horner_dbl and
+// horner_add also run mul9's additions). A sum of two products is two
+// lanes and one addition, not one lane of four wide products: a level's
+// latency is its slowest lane's.
+//
+// Shared memory: the HG2_NSLOT working values (2,880 bytes, static) and the
+// window table, HG2_WVALS values a window (576 bytes), dynamic: W <=
+// HG2_MAX_W = 398 fills the 227 KB a block may have (232,448 bytes, after
+// cudaFuncSetAttribute). Every G2 MSM has W = ceil(254 / c) <= 127 windows
+// for c >= 2 (73 KB).
+
+constexpr int HG2_THREADS = 32;
+
+namespace hg2 {
+// The fold's Fq2 values, 16 words each (component k's word j at 8 k + j): the
+// accumulator X, Y, Z, BZ = b3 Z, then each product and sum of the schedule
+// below, a slot of its own; Q_* are the window sum's values of the add
+// (win[], HG2_WVALS a window).
+enum Slot : int {
+  X, Y, Z, BZ,
+  D_YY, D_YZ, D_T2, D_XY, D_BYZ, D_Z3A, D_Z3B, D_Z3, D_Y3, D_T2A, D_T2B, D_T0, D_A, D_B, D_C,
+  A_T0, A_T1, A_T2, A_XQY, A_YQX, A_YQZ, A_ZQY, A_XQBZ, A_ZQBX, A_YQBY, A_ZQBBZ, A_BT0,
+  A_T3, A_T4, A_Y3, A_BZ3, A_Z3, A_T1M, A_X3A, A_X3B, A_Y3A, A_Y3B, A_Z3A, A_Z3B, A_BZA, A_BZB,
+  NSLOT,
+  Q_X = 64, Q_Y, Q_Z, Q_3X, Q_BX, Q_BY, Q_BZ, Q_BBZ, Q_3BX, Q_END
+};
+}  // namespace hg2
+
+constexpr int HG2_NSLOT = hg2::NSLOT;
+constexpr int HG2_WVALS = hg2::Q_END - hg2::Q_X;
+constexpr int HG2_MAX_W = 398;
+static_assert(HG2_MAX_W * HG2_WVALS * 64 + HG2_NSLOT * 64 <= 232448 &&
+                  (HG2_MAX_W + 1) * HG2_WVALS * 64 + HG2_NSLOT * 64 > 232448,
+              "the window table and the working values in the 227 KB of a block");
+
+// The schedule, RCB15 algorithms 9 and 7 (a=0, b3 = 9/(9+u)): per point op a
+// level of products, its sums, a level, its sums. MUL(a, b, out): out = a b,
+// product i of a level on lanes 2i and 2i+1. ADD / SUB(out, a, b): out = a +
+// b or a - b, on every lane, in order.
+// The double: t0 = Y^2, t2 = b3 Z^2; X3 = 2 t0' XY, Y3 = t2 8t0 + t0' (t0 +
+// t2), Z3 = YZ 8t0 with t0' = t0 - 3 t2; BZ3 = (Y BZ) 8t0.
+#define HG2_DBL_L1(MUL) MUL(Y, Y, D_YY) MUL(Y, Z, D_YZ) MUL(Z, BZ, D_T2) MUL(X, Y, D_XY) MUL(Y, BZ, D_BYZ)
+#define HG2_DBL_S1(ADD, SUB)                                                                                \
+  ADD(D_Z3A, D_YY, D_YY) ADD(D_Z3B, D_Z3A, D_Z3A) ADD(D_Z3, D_Z3B, D_Z3B) ADD(D_Y3, D_YY, D_T2)            \
+  ADD(D_T2A, D_T2, D_T2) ADD(D_T2B, D_T2A, D_T2) SUB(D_T0, D_YY, D_T2B)
+#define HG2_DBL_L2(MUL) \
+  MUL(D_T2, D_Z3, D_A) MUL(D_T0, D_Y3, D_B) MUL(D_YZ, D_Z3, Z) MUL(D_T0, D_XY, D_C) MUL(D_BYZ, D_Z3, BZ)
+#define HG2_DBL_S2(ADD, SUB) ADD(Y, D_A, D_B) ADD(X, D_C, D_C)
+// The add of window sum Q: t0 = 3 X1 X2, t1 = Y1 Y2, t2 = b3 Z1 Z2, t3 = X1 Y2
+// + Y1 X2, t4 = Y1 Z2 + Z1 Y2, y3 = b3 (X1 Z2 + Z1 X2), z3 = t1 + t2, t1' =
+// t1 - t2; X3 = t3 t1' - t4 y3, Y3 = t1' z3 + y3 t0, Z3 = z3 t4 + t0 t3, BZ3
+// = (b3 z3) t4 + (b3 t0) t3.
+#define HG2_ADD_L1(MUL)                                                                                    \
+  MUL(X, Q_3X, A_T0) MUL(Y, Q_Y, A_T1) MUL(Z, Q_BZ, A_T2) MUL(X, Q_Y, A_XQY) MUL(Y, Q_X, A_YQX)             \
+  MUL(Y, Q_Z, A_YQZ) MUL(Z, Q_Y, A_ZQY) MUL(X, Q_BZ, A_XQBZ) MUL(Z, Q_BX, A_ZQBX) MUL(Y, Q_BY, A_YQBY)      \
+  MUL(Z, Q_BBZ, A_ZQBBZ) MUL(X, Q_3BX, A_BT0)
+#define HG2_ADD_S1(ADD, SUB)                                                                               \
+  ADD(A_T3, A_XQY, A_YQX) ADD(A_T4, A_YQZ, A_ZQY) ADD(A_Y3, A_XQBZ, A_ZQBX) ADD(A_BZ3, A_YQBY, A_ZQBBZ)    \
+  ADD(A_Z3, A_T1, A_T2) SUB(A_T1M, A_T1, A_T2)
+#define HG2_ADD_L2(MUL)                                                                                    \
+  MUL(A_T3, A_T1M, A_X3A) MUL(A_T4, A_Y3, A_X3B) MUL(A_T1M, A_Z3, A_Y3A) MUL(A_Y3, A_T0, A_Y3B)            \
+  MUL(A_Z3, A_T4, A_Z3A) MUL(A_T0, A_T3, A_Z3B) MUL(A_BZ3, A_T4, A_BZA) MUL(A_BT0, A_T3, A_BZB)
+#define HG2_ADD_S2(ADD, SUB) SUB(X, A_X3A, A_X3B) ADD(Y, A_Y3A, A_Y3B) ADD(Z, A_Z3A, A_Z3B) ADD(BZ, A_BZA, A_BZB)
+
+__device__ __forceinline__ Fe get8(const uint32_t* s) {
+  const uint4* q = reinterpret_cast<const uint4*>(s);
+  const uint4 a = q[0], b = q[1];
+  Fe r;
+  r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+  r.w[4] = b.x, r.w[5] = b.y, r.w[6] = b.z, r.w[7] = b.w;
+  return r;
+}
+
+__device__ __forceinline__ void put8(uint32_t* s, const Fe& v) {
+  uint4* d = reinterpret_cast<uint4*>(s);
+  d[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  d[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+// component k of a b, from a's components and b_k, b_(1-k)
+__device__ __forceinline__ Fe f2_half(const Fe& a0, const Fe& a1, const Fe& bk, const Fe& bo, int k) {
+  uint32_t T[16] = {0};
+  mac_wide(T, a0, bk);
+  mac_wide(T, a1, fe_select(k == 0, fe_neg(bo), bo));
+  return redc_wide<FQ>(T);
+}
+
+// component k of b3 a
+__device__ __forceinline__ Fe b3_half(const Fe& a0, const Fe& a1, int k) {
+  Fe bk, bo;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    bk.w[i] = B3_G2_WORDS[k][i];
+    bo.w[i] = B3_G2_WORDS[k ^ 1][i];
+  }
+  return f2_half(a0, a1, bk, bo, k);
+}
+
+// a product of a level: its operand slots and the slot it fills (-1: none)
+struct F2Mul {
+  int a, b, out;
+};
+
+#define HG2_PICK(A_, B_, O_) \
+  if (i++ == j) m = F2Mul{A_, B_, O_};
+
+// product j of a level's schedule (a lane past the level's width fills no slot)
+#define HG2_PRODUCT_OF(LEVEL, PAIR) \
+  [](int j) {                       \
+    using namespace hg2;            \
+    F2Mul m{X, X, -1};              \
+    int i = 0;                      \
+    LEVEL(HG2_PICK)                 \
+    return m;                       \
+  }(PAIR)
+
+// one level of products: lane 2i + k makes component k of product m (its
+// lane pair's) from the working values and, at slots Q_*, the window sum q
+__device__ __forceinline__ void hg2_level(uint32_t* work, const uint32_t* q, F2Mul m) {
+  const int k = threadIdx.x & 1;
+  const uint32_t* a = m.a >= hg2::Q_X ? q + (m.a - hg2::Q_X) * 16 : work + m.a * 16;
+  const uint32_t* b = m.b >= hg2::Q_X ? q + (m.b - hg2::Q_X) * 16 : work + m.b * 16;
+  const Fe r = f2_half(get8(a), get8(a + 8), get8(b + 8 * k), get8(b + 8 * (k ^ 1)), k);
+  if (m.out >= 0) put8(work + m.out * 16 + 8 * k, r);
+  __syncwarp();
+}
+
+// the sums between levels, on every lane for its component: the working
+// values in registers (the loads no sum reads are dead), each sum stored
+#define HG2_ADD(O_, A_, B_)                 \
+  v[O_] = fe_add<FQ>(v[A_], v[B_]);         \
+  put8(work + (O_) * 16 + 8 * k, v[O_]);
+#define HG2_SUB(O_, A_, B_)                 \
+  v[O_] = fe_sub<FQ>(v[A_], v[B_]);         \
+  put8(work + (O_) * 16 + 8 * k, v[O_]);
+#define HG2_SUMS(STEPS)                                                                  \
+  {                                                                                      \
+    using namespace hg2;                                                                 \
+    const int k = threadIdx.x & 1;                                                       \
+    Fe v[HG2_NSLOT];                                                                     \
+    _Pragma("unroll") for (int s = 0; s < HG2_NSLOT; s++) v[s] = get8(work + s * 16 + 8 * k); \
+    STEPS(HG2_ADD, HG2_SUB)                                                              \
+    __syncwarp();                                                                        \
+  }
+
+// (W, 2, 16) limb rows of window sums, 16-byte aligned -> one (2, 16) limb
+// row a coordinate: from window W-1 down, c doublings, then the add of the
+// next window sum
+__global__ void __launch_bounds__(HG2_THREADS)
+    horner_g2_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                     int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
+  using namespace hg2;
+  extern __shared__ __align__(16) uint32_t win[];  // value v of window w at win[(w HG2_WVALS + v) 16]
+  __shared__ __align__(16) uint32_t work[HG2_NSLOT * 16];
+  const int k = threadIdx.x & 1;
+  // the window table: lane 2w' + k makes component k of window w's values
+  for (int i = threadIdx.x; i < 2 * W; i += HG2_THREADS) {
+    const int w = i >> 1;
+    uint32_t* q = win + w * HG2_WVALS * 16 + 8 * k;
+    const Fe x0 = load_limbs16(x + w * 32), x1 = load_limbs16(x + w * 32 + 16);
+    const Fe y0 = load_limbs16(y + w * 32), y1 = load_limbs16(y + w * 32 + 16);
+    const Fe z0 = load_limbs16(z + w * 32), z1 = load_limbs16(z + w * 32 + 16);
+    const Fe xk = k ? x1 : x0, bx = b3_half(x0, x1, k);
+    put8(q + (Q_X - Q_X) * 16, xk);
+    put8(q + (Q_Y - Q_X) * 16, k ? y1 : y0);
+    put8(q + (Q_Z - Q_X) * 16, k ? z1 : z0);
+    put8(q + (Q_3X - Q_X) * 16, fe_add<FQ>(fe_add<FQ>(xk, xk), xk));
+    put8(q + (Q_BX - Q_X) * 16, bx);
+    put8(q + (Q_BY - Q_X) * 16, b3_half(y0, y1, k));
+    put8(q + (Q_BZ - Q_X) * 16, b3_half(z0, z1, k));
+    put8(q + (Q_3BX - Q_X) * 16, fe_add<FQ>(fe_add<FQ>(bx, bx), bx));
+  }
+  __syncwarp();
+  for (int i = threadIdx.x; i < 2 * W; i += HG2_THREADS) {
+    uint32_t* q = win + (i >> 1) * HG2_WVALS * 16;
+    put8(q + (Q_BBZ - Q_X) * 16 + 8 * k, b3_half(get8(q + (Q_BZ - Q_X) * 16), get8(q + (Q_BZ - Q_X) * 16 + 8), k));
+  }
+  __syncwarp();
+  // the accumulator: window W-1's X, Y, Z and b3 Z
+  const uint32_t* top = win + (W - 1) * HG2_WVALS * 16;
+  for (int i = threadIdx.x; i < 4 * 16; i += HG2_THREADS) {
+    const int v = i / 16;  // X, Y, Z, BZ
+    work[i] = top[(v == BZ ? Q_BZ - Q_X : v) * 16 + i % 16];
+  }
+  __syncwarp();
+  const int j = threadIdx.x >> 1;
+  const F2Mul d1 = HG2_PRODUCT_OF(HG2_DBL_L1, j), d2 = HG2_PRODUCT_OF(HG2_DBL_L2, j);
+  const F2Mul a1 = HG2_PRODUCT_OF(HG2_ADD_L1, j), a2 = HG2_PRODUCT_OF(HG2_ADD_L2, j);
+#pragma unroll 1
+  for (int w = W - 2; w >= 0; w--) {
+#pragma unroll 1
+    for (int d = 0; d < c; d++) {
+      hg2_level(work, win, d1);
+      HG2_SUMS(HG2_DBL_S1)
+      hg2_level(work, win, d2);
+      HG2_SUMS(HG2_DBL_S2)
+    }
+    const uint32_t* q = win + w * HG2_WVALS * 16;
+    hg2_level(work, q, a1);
+    HG2_SUMS(HG2_ADD_S1)
+    hg2_level(work, q, a2);
+    HG2_SUMS(HG2_ADD_S2)
+  }
+  if (threadIdx.x < 2) {
+    store_limbs16(ox + 16 * k, get8(work + X * 16 + 8 * k));
+    store_limbs16(oy + 16 * k, get8(work + Y * 16 + 8 * k));
+    store_limbs16(oz + 16 * k, get8(work + Z * 16 + 8 * k));
+  }
+}
+
 unsigned blocks_for(long long n, int lanes) { return (unsigned)((n + lanes - 1) / lanes); }
 
-// every kernel (its shared memory static), for the occupancy query
+// every kernel (horner_g2_kernel with W = 20 window sums), for the occupancy query
 const KernelSlot KERNELS[] = {
     {"pmadd_rcb_g2_kernel", (const void*)pmadd_rcb_g2_kernel, PAIR_THREADS, 0},
     {"padd_rcb_g2_kernel", (const void*)padd_rcb_g2_kernel, PAIR_THREADS, 0},
     {"pdbl_rcb_g2_kernel", (const void*)pdbl_rcb_g2_kernel, PAIR_THREADS, 0},
+    {"horner_g2_kernel", (const void*)horner_g2_kernel, HG2_THREADS, 20 * HG2_WVALS * 16 * sizeof(uint32_t)},
 };
 
 }  // namespace
@@ -427,5 +667,21 @@ extern "C" int hk_pdbl_rcb_g2(const void* x, const void* y, const void* z, void*
   pdbl_rcb_g2_kernel<<<blocks_for(n, PAIR_LANES), PAIR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
       (int32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// the most window sums hk_horner_g2 takes
+extern "C" int hk_horner_g2_max_w() { return HG2_MAX_W; }
+
+// (W, 2, 16) limb rows per coordinate, 16-byte aligned, 1 <= W <= HG2_MAX_W,
+// c >= 0 -> one (2, 16) row per coordinate
+extern "C" int hk_horner_g2(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, int W,
+                            int c, void* stream) {
+  if (W < 1 || W > HG2_MAX_W || c < 0) return (int)cudaErrorInvalidValue;
+  const int smem = W * HG2_WVALS * 16 * (int)sizeof(uint32_t);
+  const cudaError_t e = cudaFuncSetAttribute(horner_g2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  horner_g2_kernel<<<1, HG2_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, W, c);
   return (int)cudaGetLastError();
 }

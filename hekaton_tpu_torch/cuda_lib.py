@@ -70,6 +70,8 @@ SIGNATURES = {
     "hk_pmadd_rcb_g2": [_vp] * 8 + [_ll, _vp],
     "hk_padd_rcb_g2": [_vp] * 9 + [_ll, _vp],
     "hk_pdbl_rcb_g2": [_vp] * 6 + [_ll, _vp],
+    "hk_horner_g2_max_w": [],
+    "hk_horner_g2": [_vp] * 6 + [_int, _int, _vp],
 }
 
 _LIB = None

@@ -3,7 +3,8 @@ packed-row operand, and unfused as prep / finish), level-1 halves pairing
 (on either slab layout), the tsort plan's slab interleave and the window
 Horner fold; its three complete projective ops and projective level 1 (the
 accum="proj" and level1="mega" routes); the G1 Jacobian mixed add of the
-fixed-base muls; and the G2 MSM's three complete projective Fq2 ops.
+fixed-base muls; and the G2 MSM's three complete projective Fq2 ops and its
+window Horner fold.
 
 Port of the main-path kernels of hekaton_tpu/curves/pallas_curve.py. Source:
 csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
@@ -32,11 +33,14 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
   kernels `_dbl_kernel` :1188 on `_dbl_tiles` :146 and `_add_kernel` :1196
   on `_add_tiles` :210).
 - `jac_ladder`, `jac_sum` and `jac_horner` run the JAX compact msm's loops
-  of those kernels (hekaton_tpu/msm/pippenger.py: `_msm_ladder`'s fori_loop
-  of dbl and madd :209, `_tree_reduce`'s in-order chunk adds :159, `msm`'s
-  Horner combine of dbl and add :258) in one launch each; their plain
-  versions are those loops (torch_curve.CurveOps' `ladder`, `sum_in_order`
-  and `horner`) on the single ops' plain versions.
+  of kernels (hekaton_tpu/msm/pippenger.py: `_msm_ladder`'s fori_loop of
+  dbl and madd :209, `_tree_reduce`'s in-order chunk adds :159, `msm`'s
+  Horner combine of dbl and add :258) in one launch each. The plain
+  versions of `jac_sum` and `jac_horner` are those loops
+  (torch_curve.CurveOps' `sum_in_order` and `horner`) on the single ops'
+  plain versions; `jac_ladder` runs the ladder on the complete projective
+  formulas (`jac_ladder_plain`: the same points as `_msm_ladder`'s, other
+  limbs).
 - `pmadd_rcb`, `padd_rcb`, `pdbl_rcb` replace the wrappers of the same names
   (pallas_curve.py:1293/1297/1301; kernels `_pmadd_rcb_kernel` :1206 on
   `_pmadd_rcb_tiles` :264, `_padd_rcb_kernel` :1216, `_pdbl_rcb_kernel`
@@ -50,6 +54,9 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
   :1115, `_padd_rcb_g2_kernel` :1130, `_pdbl_rcb_g2_kernel` :1148, all
   through the one `pallas_call` of `_build` :1250). Their interface keeps
   the JAX shape: (..., 2, 16) int32 Fq2 limbs per coordinate.
+- `horner_fold_g2` replaces the G2 MSM's window combine, the fori_loop of
+  `proj.dbl` / `proj.add` at hekaton_tpu/msm/pippenger.py:1145-1153 (XLA
+  Fq2 formulas at one lane on the TPU), in one launch.
 
 Bounds on an H100 and the design that meets them are in the source note of
 csrc/curve.cu: the adds are bound by integer multiply throughput and run as
@@ -57,8 +64,10 @@ a root kernel / batch_inv / finish kernel split, a prefix chain a thread and
 the chains of a warp folded into one batch_inv root; a halves level 1 is a
 root kernel and one step kernel a round, each step finishing a round and
 building the next one's chains; every product is field.cuh's carry-chain
-one; the Horner fold is one warp, bound by the latency of its chain, each
-point op two levels of independent products, a product a lane.
+one; the Horner folds (`horner_fold`, and `horner_fold_g2` over Fq2, a half
+of an Fq2 product a lane) are one warp, bound by the latency of their chain,
+each point op two levels of independent products, and so is each lane of
+`jac_ladder` (a warp a lane).
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
 straight-line formulas, bound by integer multiply throughput or by bytes
 once the card is full; the G1 mixed add (`pmadd_rcb`, and each add of
@@ -69,8 +78,8 @@ and one reduction, their products by product scanning (column by column
 into a three-register accumulator), on 16-byte rows, 4 blocks an SM;
 `madd` and `add` take their edge overrides as branches before the
 arithmetic they make moot, their doubling escape out of line; the chain
-kernels walk a whole chain of those ops a thread, the accumulator in
-registers, bound by the chain's latency; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+kernels `jac_sum` and `jac_horner` walk a whole chain of those ops a
+thread, the accumulator in registers, bound by the chain's latency; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
 threads a lane, one Fq2 component each, with its operands in shared memory;
 `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
@@ -212,10 +221,10 @@ _PROJ_G1_PLAIN = ProjOps(tf.FqPlain, 9, "g1_proj_plain")
 _PROJ_G2_PLAIN = ProjOps(tf.Fq2Plain, B_G2 * 3, "g2_proj_plain")
 
 
-def horner_fold_plain(x, y, z, c: int):
-    """(W, 16) projective window sums -> sum_w 2^(c*w) * S_w, MSB window
-    first, on the plain complete RCB formulas (curves/proj.py)."""
-    proj = _PROJ_G1_PLAIN
+def fold_windows(proj, x, y, z, c: int) -> Proj:
+    """The window Horner combine on the projective ops `proj`, one op at a
+    time on one lane: from window sum W-1 of the (W, ...) coordinates down,
+    c doublings and the add of the next window sum a window."""
     W = x.shape[0]
     acc = Proj(x[W - 1], y[W - 1], z[W - 1])
     for w in range(W - 2, -1, -1):
@@ -223,6 +232,12 @@ def horner_fold_plain(x, y, z, c: int):
             acc = proj.dbl(acc)
         acc = proj.add(acc, Proj(x[w], y[w], z[w]))
     return acc
+
+
+def horner_fold_plain(x, y, z, c: int):
+    """(W, 16) projective window sums -> sum_w 2^(c*w) * S_w, MSB window
+    first, on the plain complete RCB formulas (curves/proj.py)."""
+    return fold_windows(_PROJ_G1_PLAIN, x, y, z, c)
 
 
 def pmadd_rcb_plain(x, y, z, ax, ay):
@@ -271,6 +286,13 @@ def pdbl_rcb_g2_plain(x, y, z):
     return _PROJ_G2_PLAIN.dbl(Proj(x, y, z))
 
 
+def horner_fold_g2_plain(x, y, z, c: int):
+    """(W, 2, 16) BN254-G2 projective window sums -> sum_w 2^(c*w) * S_w, MSB
+    window first, on the plain complete RCB formulas over Fq2
+    (curves/proj.py, b3 = 9/(9+u)): three (2, 16) tensors."""
+    return fold_windows(_PROJ_G2_PLAIN, x, y, z, c)
+
+
 def madd_plain(x1, y1, z1, ax, ay):
     """G1 Jacobian + affine by madd-2007-bl with the edge overrides of
     pallas_curve.py::_madd_tiles, in its order: the doubling escape; an
@@ -313,9 +335,8 @@ def add_plain(x1, y1, z1, x2, y2, z2):
 
 
 class _G1KernelPlainOps(CurveOps):
-    """BN254 G1 on the dbl, add and madd kernels' plain versions: its
-    ladder, sum_in_order and horner (CurveOps' loops) are the chain
-    kernels' plain versions."""
+    """BN254 G1 on the dbl and add kernels' plain versions: its sum_in_order
+    and horner (CurveOps' loops) are the chain kernels' plain versions."""
 
     def dbl(self, p: Jac) -> Jac:
         return dbl_plain(*p)
@@ -323,15 +344,28 @@ class _G1KernelPlainOps(CurveOps):
     def add(self, p: Jac, q: Jac) -> Jac:
         return add_plain(*p, *q)
 
-    def add_mixed(self, p: Jac, ax, ay) -> Jac:
-        return madd_plain(*p, ax, ay)
-
 
 _G1_KERNEL_PLAIN = _G1KernelPlainOps(tf.FqPlain, "g1_kernel_plain", tf.FR)
 
 
 def jac_ladder_plain(ax, ay, scalars, nbits: int) -> Jac:
-    return _G1_KERNEL_PLAIN.ladder(ax, ay, scalars, nbits)
+    """Lane i's s_i * P_i for (N, 16) affine limbs ((0,0) = infinity) and
+    (N, 16) plain scalar limbs, on the plain complete RCB formulas
+    (curves/proj.py, b3 = 9): from the identity (0:1:0), bit j = nbits-1
+    down to 0, a doubling, then where bit j is set the mixed add of (ax, ay)
+    (a (0,0) lane keeps the accumulator); the projective result in the
+    port's Jacobian form (X Z, Y Z^2, Z), (1, 1, 0) where Z = 0."""
+    proj, f = _PROJ_G1_PLAIN, tf.FqPlain
+    s = scalars.long()
+    acc = proj.inf((ax.shape[0],), ax.device)
+    for j in range(nbits - 1, -1, -1):
+        bit = ((s[:, j // 16] >> (j % 16)) & 1) == 1
+        acc = proj.dbl(acc)
+        acc = proj.select(bit, proj.add_mixed(acc, ax, ay), acc)
+    jac = proj.to_jacobian(acc)
+    inf = f.is_zero(acc.z)
+    one = f.one(inf.shape, ax.device)
+    return Jac(f.select(inf, one, jac.x), f.select(inf, one, jac.y), jac.z)
 
 
 def jac_sum_plain(x, y, z) -> Jac:
@@ -636,10 +670,10 @@ def _launch_chain(fn, entry: str, args: tuple, out_shape: tuple, lanes: int, *ta
 
 
 def jac_ladder(ax, ay, scalars, nbits: int) -> Jac:
-    """The compact msm's per-point ladders in one launch: for (N, 16)
-    affine limbs ((0,0) = infinity) and (N, 16) int32 plain scalar limbs,
-    lane i's s_i * P_i from its top nbits bits, as (N, 16) Jacobian limbs
-    (jac_ladder_plain's, limb for limb)."""
+    """The compact msm's per-point ladders in one launch, a warp a lane: for
+    (N, 16) affine limbs ((0,0) = infinity) and (N, 16) int32 plain scalar
+    limbs, lane i's s_i * P_i from its top nbits bits, as (N, 16) Jacobian
+    limbs (jac_ladder_plain's, limb for limb)."""
     if not 1 <= nbits <= 256:
         raise ValueError(f"jac_ladder: nbits={nbits} is not in 1..256 (16 limbs of 16 bits)")
     if not ax.is_cuda:
@@ -766,3 +800,27 @@ def pdbl_rcb_g2(x, y, z):
 
 
 pdbl_rcb_g2.launches = 0
+
+HORNER_G2_MAX_W = 398  # csrc/curve_g2.cu's HG2_MAX_W: the window table in a block's 227 KB of shared memory
+
+
+def horner_fold_g2(x, y, z, c: int):
+    """(W, 2, 16) BN254-G2 projective window sums -> the projective point
+    sum_w 2^(c*w) * S_w (three (2, 16) tensors), in one launch of one warp;
+    1 <= W <= HORNER_G2_MAX_W, c >= 0."""
+    if x.dim() != 3 or tuple(x.shape[1:]) != (2, 16) or not 1 <= x.shape[0] <= HORNER_G2_MAX_W or c < 0:
+        raise ValueError(f"horner_fold_g2: expected (W, 2, 16) window sums with 1 <= W <= {HORNER_G2_MAX_W} "
+                         f"and c >= 0, got {tuple(x.shape)}, c={c}")
+    if not x.is_cuda:
+        return horner_fold_g2_plain(x, y, z, c)
+    _check_batch(horner_fold_g2, (x, y, z), (2, 16))
+    x, y, z = (cuda_lib.aligned(t) for t in (x, y, z))
+    outs = tuple(torch.empty((2, 16), dtype=torch.int32, device=x.device) for _ in range(3))
+    rc = cuda_lib.lib().hk_horner_g2(*(t.data_ptr() for t in (x, y, z, *outs)), x.shape[0], int(c),
+                                     cuda_lib.stream_ptr(x.device))
+    cuda_lib.check("hk_horner_g2", rc)
+    horner_fold_g2.launches += 1
+    return Proj(*outs)
+
+
+horner_fold_g2.launches = 0

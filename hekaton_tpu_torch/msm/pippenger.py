@@ -13,8 +13,9 @@ G1 on the add and madd kernels, G2 on the plain Fq2 formulas, BLS12-381
 G1 on the plain formulas over the 24-limb mont_mul kernel); the ladders,
 the tree reduction's in-order chunk sums and the Horner combine are the
 curve's `ladder`, `sum_in_order` and `horner`, on BN254 G1 one launch each
-of curves/cuda_curve.py's chain kernels (jac_ladder, jac_sum, jac_horner),
-the same limbs as the loops of single ops. The JAX
+of curves/cuda_curve.py's chain kernels (jac_ladder, jac_sum, jac_horner):
+jac_sum and jac_horner the limbs of the loops of single ops, jac_ladder the
+same points on the complete projective formulas. The JAX
 code scans the windows one after another; here every window is one row of a
 leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.
@@ -60,9 +61,10 @@ roots on the 24-limb mont_mul and inversion kernels), and the generic Horner:
      until every bucket owns one column, then the bucket readout;
   5. `_suffix_weighted`: sum_b b * B_b per window by a suffix scan and a
      halving tree;
-  6. the window Horner combine (BN254 G1: curves/cuda_curve.py::horner_fold;
-     G2 and BLS12-381: c projective doubles and one add per window on one
-     lane).
+  6. the window Horner combine, in one launch on BN254
+     (curves/cuda_curve.py::horner_fold on G1, horner_fold_g2 on G2); on
+     BLS12-381, and for one window, c projective doubles and one add per
+     window on one lane.
 
 `accum="affine"` (the G1 default) accumulates stages 3-5 in complete batched
 affine (curves/affine.py: the aff_add kernel pair and the inversion kernel;
@@ -92,7 +94,8 @@ import numpy as np
 import torch
 
 from ..curves.affine import AffineOps, KernelAffG1Ops, aff_for_curve, pack_words, unpack_words
-from ..curves.cuda_curve import horner_fold, interleave_slab_t, l1_aff_halves, l1_aff_halves_t, l1_rcb_mega
+from ..curves.cuda_curve import (fold_windows, horner_fold, horner_fold_g2, interleave_slab_t, l1_aff_halves,
+                                 l1_aff_halves_t, l1_rcb_mega)
 from ..curves.host import pt_add, pt_dbl
 from ..curves.proj import Proj, proj_for_curve
 from ..curves.torch_curve import G1, G2, CurveOps, Jac
@@ -749,22 +752,18 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int | None = None,
     ws = _suffix_weighted(ops, buckets, W, B)
     if accum == "affine":
         ws = proj.from_affine(ws.x, ws.y)
-    if _is_bn254_g1(curve) and W > 1:
-        return proj.to_jacobian(horner_fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c))
+    if W > 1 and (_is_bn254_g1(curve) or f.ndim == 2):
+        fold = horner_fold if f.ndim == 1 else horner_fold_g2
+        return proj.to_jacobian(fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c))
     return _horner_generic(proj, ws, c)
 
 
 def _horner_generic(proj, ws: Proj, c: int) -> Jac:
     """The window combine (pippenger.py:1145-1154) of the (W,) projective
-    window sums on one lane: from the top window down, c doublings and one
-    add per window. Returns a Jacobian point of unbatched tensors."""
-    W = ws.x.shape[0]
-    a = Proj(*(t[W - 1 : W] for t in ws))
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            a = proj.dbl(a)
-        a = proj.add(a, Proj(*(t[w : w + 1] for t in ws)))
-    return Jac(*(t[0] for t in proj.to_jacobian(a)))
+    window sums on one lane, for BLS12-381 G1 and a single window: from the
+    top window down, c doublings and one add per window. Returns a Jacobian
+    point of unbatched tensors."""
+    return proj.to_jacobian(fold_windows(proj, *ws, c))
 
 
 # ---------------------------------------------------------------------------

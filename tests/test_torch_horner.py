@@ -20,6 +20,14 @@ its own level or a later one fails. It is held limb for limb to
 `ProjOps(jf.FqOps, 9)` chain (run eagerly) at small W, to the plain
 Python-int RCB fold at the (W, c) of the 2^12, 2^16 and 2^20 MSMs, and on
 edge window sums.
+
+jac_ladder's kernel (curve.cu: jac_ladder_kernel) runs the same one-warp
+ops a lane: horner_dbl and the two-level mixed add horner_madd (its picks
+read the same way), from the top set bit of the scalar, a (0,0) base or a
+zero scalar the identity, then the Jacobian form (X Z, Y Z^2, Z; (1, 1, 0)
+at Z = 0) in two more levels. Its model is held limb for limb to
+`cuda_curve.jac_ladder_plain` and to a Python-int RCB ladder at nbits = 254
+on edge lanes, and as points to the host's multiples.
 """
 import os
 import re
@@ -90,6 +98,13 @@ def kernel_levels():
     return dbl, add
 
 
+def kernel_madd_levels():
+    """horner_madd's two levels: product h's operand names."""
+    m = kernel_picks("horner_madd")
+    name = {"p.x": "x1", "p.y": "y1", "p.z": "z1", "pxy": "x1+y1"}
+    return [list(zip([name.get(a, a) for a in m[0]], m[1])), list(zip(m[2], m[3]))]
+
+
 def level(ops: list, vals: dict, lvl: int, lane_of) -> list:
     """One level of products on the warp: lane l makes product lane_of(l) of
     `ops` from the values it picks, lanes below len(ops) write theirs. Every
@@ -133,6 +148,39 @@ def model_add(acc: tuple, win: tuple, levels) -> tuple:
     return (q[0] - q[1]).v, (q[2] + q[3]).v, (q[4] + q[5]).v
 
 
+def model_madd(acc: tuple, q: tuple, levels) -> tuple:
+    """horner_madd: X1 X2, Y1 Y2, (X1+Y1)(X2+Y2), Y2 Z1, X2 Z1 (lane h
+    makes product min(h % 6, 4)), then the six closing products."""
+    x1, y1, z1 = (Lv(v, 0) for v in acc)
+    qx, qy = (Lv(v, 0) for v in q)
+    vals = {"x1": x1, "y1": y1, "z1": z1, "x1+y1": x1 + y1, "qx": qx, "qy": qy, "qxy": qx + qy}
+    m = level(levels[0], vals, 1, lambda lane: min(lane % 6, 4))
+    t0, t1 = m[0], m[1]
+    t2 = 9 * z1
+    vals = {"t3": m[2] - (t0 + t1), "t4": m[3] + y1, "y3": 9 * (m[4] + x1), "t03": 3 * t0, "z3": t1 + t2,
+            "t1m": t1 - t2}
+    q2 = level(levels[1], vals, 2, lambda lane: lane % 6)
+    return (q2[0] - q2[1]).v, (q2[2] + q2[3]).v, (q2[4] + q2[5]).v
+
+
+def model_ladder(pt, s: int, nbits: int) -> tuple:
+    """jac_ladder_kernel's lane: base pt (Montgomery ints, (0, 0) the
+    sentinel), scalar s."""
+    dbl, _ = kernel_levels()
+    madd = kernel_madd_levels()
+    bits = s & ((1 << nbits) - 1)
+    acc = (0, R, 0)
+    if pt != (0, 0):
+        for j in range(bits.bit_length() - 1, -1, -1):
+            acc = model_dbl(acc, dbl)
+            if bits >> j & 1:
+                acc = model_madd(acc, pt, madd)
+    x, y, z = (Lv(v, 0) for v in acc)
+    xz, zz = level([("x", "z"), ("z", "z")], {"x": x, "z": z}, 1, lambda lane: lane & 1)
+    (yzz,) = level([("y", "zz")], {"y": y, "zz": zz}, 2, lambda lane: 0)
+    return (R, R, 0) if z.v == 0 else (xz.v, yzz.v, z.v)
+
+
 def model_fold(win: list, c: int) -> tuple:
     """horner_kernel: from the top window down, c doublings and one add."""
     dbl, add = kernel_levels()
@@ -173,6 +221,30 @@ def rcb_add(p: tuple, q: tuple) -> tuple:
     t0, t2 = 3 * t0 % P, 9 * t2 % P
     z3, t1 = (t1 + t2) % P, (t1 - t2) % P
     return (_mul(t3, t1) - _mul(t4, y3)) % P, (_mul(t1, z3) + _mul(y3, t0)) % P, (_mul(z3, t4) + _mul(t0, t3)) % P
+
+
+def rcb_madd(p: tuple, q: tuple) -> tuple:
+    """csrc/curve.cu::pmadd_rcb (RCB15 algorithm 8) for a finite affine q."""
+    (x1, y1, z1), (x2, y2) = p, q
+    t0, t1 = _mul(x1, x2), _mul(y1, y2)
+    t3 = (_mul(x2 + y2, x1 + y1) - t0 - t1) % P
+    t4 = (_mul(y2, z1) + y1) % P
+    y3 = 9 * (_mul(x2, z1) + x1) % P
+    t0, t2 = 3 * t0 % P, 9 * z1 % P
+    z3, t1 = (t1 + t2) % P, (t1 - t2) % P
+    return (_mul(t3, t1) - _mul(t4, y3)) % P, (_mul(t1, z3) + _mul(y3, t0)) % P, (_mul(z3, t4) + _mul(t0, t3)) % P
+
+
+def rcb_ladder(pt, s: int, nbits: int) -> tuple:
+    """The ladder of RCB doublings and mixed adds from (0:1:0) over every bit
+    j < nbits, then (X Z, Y Z^2, Z), (1, 1, 0) at Z = 0."""
+    acc = (0, R, 0)
+    for j in range(nbits - 1, -1, -1):
+        acc = rcb_dbl(acc)
+        if s >> j & 1 and pt != (0, 0):
+            acc = rcb_madd(acc, pt)
+    x, y, z = acc
+    return (R, R, 0) if z == 0 else (_mul(x, z), _mul(y, _mul(z, z)), z)
 
 
 def rcb_fold(win: list, c: int) -> tuple:
@@ -304,3 +376,30 @@ def test_horner_model_on_edge_windows(kind):
     for c in (0, 4):
         assert model_fold(small, c) == plain(small, c), f"c={c}"
     assert model_fold(big, 13) == rcb_fold(big, 13)
+
+
+def test_ladder_model_matches_plain_and_rcb():
+    """jac_ladder's kernel model at nbits = 254 limb for limb against
+    jac_ladder_plain (the wrapper on CPU tensors) and the Python-int RCB
+    ladder, and as points against the host multiples, on lanes with a (0,0)
+    base, a zero scalar, r - 1, r (the last add an inverse pair), r + 2
+    (the last add a doubling) and a random scalar."""
+    from hekaton_tpu_torch.curves.torch_curve import G1
+    from hekaton_tpu_torch.fields.bn254 import R as ORDER
+
+    assert kernel_madd_levels() == [[("x1", "qx"), ("y1", "qy"), ("x1+y1", "qxy"), ("z1", "qy"), ("z1", "qx")],
+                                    [("t3", "t1m"), ("t4", "y3"), ("t1m", "z3"), ("y3", "t03"), ("z3", "t4"),
+                                     ("t03", "t3")]]
+    rng = np.random.RandomState(31)
+    pts = [ch.pt_mul(ch.g1_gen(), int(rng.randint(1, 2**62))) for _ in range(6)]
+    pts[0] = None
+    scal = [12345, 0, ORDER - 1, ORDER, ORDER + 2, int(rng.randint(1, 2**62)) ** 4 % ORDER]
+    ax, ay = (torch.from_numpy(a.astype(np.int32)) for a in G1.pack_affine(pts))
+    sc = torch.tensor([[(v >> (16 * i)) & 0xFFFF for i in range(16)] for v in scal], dtype=torch.int32)
+    got = cc.jac_ladder(ax, ay, sc, 254)
+    mont = [(_int(ax[i]), _int(ay[i])) for i in range(6)]
+    for i in range(6):
+        want = model_ladder(mont[i], scal[i], 254)
+        assert tuple(_int(t[i]) for t in got) == want, f"lane {i}"
+        assert rcb_ladder(mont[i], scal[i], 254) == want, f"lane {i}"
+    assert G1.unpack_jacobian(got) == [None if p is None else ch.pt_mul(p, s % ORDER) for p, s in zip(pts, scal)]

@@ -5,12 +5,15 @@ against the loops of single ops they replace and the JAX package:
 
 - each chain wrapper on CPU tensors against the loop the compact msm ran
   before it, CurveOps' ladder, sum_in_order and horner through G1's
-  single-op wrappers (dbl, add and add_mixed), limb for limb;
+  single-op wrappers (dbl, add and add_mixed): jac_sum and jac_horner limb
+  for limb; jac_ladder, which runs the ladder on the complete projective
+  formulas (jac_ladder_plain), as affine points;
 - each against an eager walk of the Pallas bodies `_dbl_tiles`,
   `_madd_tiles` and `_add_tiles` (no pallas_call; their field ops
   `tile_mul`, `tile_add` and `tile_sub` each jitted alone, which keeps the
-  walk to seconds) at a short ladder (nbits = 16) and a small Horner (W =
-  3, c = 2), limb for limb;
+  walk to seconds) at a short ladder (nbits = 16: the JAX `_msm_ladder`'s
+  steps, held as affine points) and a small Horner (W = 3, c = 2), limb for
+  limb;
 - msm/pippenger.py::msm on BN254 G1 at 1, 5, 28, 32 and 33 points (32-bit
   scalars, nbits = 32) as points against curves/host.py::msm_host, with one
   jac_ladder call a ladder, one jac_horner call a bucket MSM, and no dbl
@@ -100,7 +103,9 @@ def _same(a, b) -> bool:
 
 def test_chain_wrappers_match_the_single_op_loops():
     (ax, ay, sc), stack, ws = _inputs()
-    assert _same(cc.jac_ladder(ax, ay, sc, NBITS), CurveOps.ladder(G1, ax, ay, sc, NBITS))
+    lad = cc.jac_ladder(ax, ay, sc, NBITS)
+    assert _same(lad, cc.jac_ladder_plain(ax, ay, sc, NBITS))
+    assert G1.unpack_jacobian(lad) == G1.unpack_jacobian(CurveOps.ladder(G1, ax, ay, sc, NBITS))
     assert _same(cc.jac_sum(*stack), CurveOps.sum_in_order(G1, stack))
     for lane in range(LANES):
         x, y, z = (a[:, lane].contiguous() for a in ws)
@@ -133,7 +138,7 @@ def test_chains_match_pallas_bodies(monkeypatch):
         acc = pc._dbl_tiles(*acc, p_col)
         added = pc._madd_tiles(*acc, qx, qy, p_col)
         acc = tuple(pc.tile_select(bit, a, b) for a, b in zip(added, acc))
-    assert _same(cc.jac_ladder(ax, ay, sc, NBITS), [_limbs(t) for t in acc])
+    assert G1.unpack_jacobian(cc.jac_ladder(ax, ay, sc, NBITS)) == G1.unpack_jacobian(Jac(*(_limbs(t) for t in acc)))
     acc = inf
     for j in range(stack.x.shape[0]):
         acc = pc._add_tiles(*acc, *(_tiles(a[j]) for a in stack), p_col)

@@ -182,7 +182,9 @@ def test_add_branches_in_add_tiles_order():
     order: P = inf (Q's limbs, two infinities too) before Q = inf, both
     before any product; then the doubling escape, then the inverse pair's
     z3 = 0 after the generic finish; dbl_kernel and jac_dbl's callers take
-    no branch."""
+    no branch. jac_ladder_kernel (complete RCB formulas, no escapes) finds
+    a (0,0) base or a zero scalar before its ladder, and the identity only
+    at the end, for the Jacobian form."""
     body = rk._body("    add_kernel(const int32_t*")
     marks = ["const bool p_inf = fe_is_zero(z1);", "if (p_inf || fe_is_zero(qz))", "p_inf ? x2 : x",
              "p_inf ? qz : z1", "add_diffs(", "madd_dbl_lane(", "madd_finish(u1, s1, z1z2",
@@ -194,11 +196,11 @@ def test_add_branches_in_add_tiles_order():
              "madd_finish(u1, s1, z1z2", "if (fe_is_zero(h)) r.z = fe_zero();"]
     at = [body.index(m) for m in marks]
     assert at == sorted(at), "jac_add's branches are not in _add_tiles' order"
-    body = rk._body("__device__ __forceinline__ Jac jac_madd(")
-    marks = ["if (fe_is_zero(p.z))", "if (q_inf) return p;", "madd_diffs(", "jac_dbl(", "madd_finish(",
-             "if (fe_is_zero(h)) r.z = fe_zero();"]
+    body = rk._body("    jac_ladder_kernel(const int32_t*")
+    marks = ["if (!(fe_is_zero(qx) && fe_is_zero(qy)))", "if (top >= 0)", "horner_dbl(acc, lv)",
+             "if ((limb >> (j % 16)) & 1) acc = horner_madd(", "const bool inf = fe_is_zero(acc.z);"]
     at = [body.index(m) for m in marks]
-    assert at == sorted(at), "jac_madd's branches are not in madd_kernel's order"
+    assert at == sorted(at), "jac_ladder_kernel: the (0,0) base and zero scalar not before the ladder"
     assert " if " not in rk._body("    dbl_kernel(const int32_t*").replace("if (i >= n) return;", "")
 
 

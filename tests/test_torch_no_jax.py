@@ -11,7 +11,8 @@ per-proof verify, aggregation and aggregate verify. A lazy import that
 reaches JAX or the JAX package at run time fails it. It then runs msm_gpu
 along the tsort, gather and affine steps routes against msm_host, the
 compact msm's chain wrappers (jac_ladder, jac_sum, jac_horner) against
-their loops of single ops, msm_gpu on
+their loops of single ops, the G2 Horner fold (horner_fold_g2) against the
+loop of G2 doublings and adds it replaces, msm_gpu on
 BLS12-381 G1 against a host sum, and the device exec tree against the host
 tree. tests/test_torch_slice.py runs stage 1 on TorchBackend.
 """
@@ -95,15 +96,30 @@ SCRIPT = textwrap.dedent(
             out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars, G1), c=6, L=4, **route)
         assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars), route
 
-    # the compact msm's chain wrappers against their loops of single ops
+    # the compact msm's chain wrappers against their loops of single ops (the
+    # ladder, on the complete projective formulas, as points)
     from hekaton_tpu_torch.curves import cuda_curve as cc
     lx, ly, lsc = ax[:4], ay[:4], pip.pack_scalars(scalars[:4], G1)
     lad = cc.jac_ladder(lx, ly, lsc, 8)
-    assert all(torch.equal(a, b) for a, b in zip(lad, CurveOps.ladder(G1, lx, ly, lsc, 8)))
+    assert G1.unpack_jacobian(lad) == G1.unpack_jacobian(CurveOps.ladder(G1, lx, ly, lsc, 8))
     stack = Jac(*(torch.stack([a, a.flip(0)]) for a in lad))
     assert all(torch.equal(a, b) for a, b in zip(cc.jac_sum(*stack), CurveOps.sum_in_order(G1, stack)))
     assert all(torch.equal(a, b) for a, b in zip(cc.jac_horner(*lad, 2), CurveOps.horner(G1, lad, 2)))
     print("chains", flush=True)
+
+    # the G2 window Horner fold against the loop of single G2 ops it replaces
+    from hekaton_tpu_torch.curves.proj import PROJ_G2, Proj
+    from hekaton_tpu_torch.curves.torch_curve import G2
+    gx, gy = (torch.from_numpy(a.astype("int32"))
+              for a in G2.pack_affine([ch.pt_mul(ch.g2_gen(), r.randrange(1, R)) for _ in range(3)]))
+    ws = Proj(*(t.contiguous() for t in PROJ_G2.dbl(PROJ_G2.from_affine(gx, gy))))
+    acc = Proj(*(t[2] for t in ws))
+    for w in (1, 0):
+        for _ in range(2):
+            acc = PROJ_G2.dbl(acc)
+        acc = PROJ_G2.add(acc, Proj(*(t[w] for t in ws)))
+    assert all(torch.equal(a, b) for a, b in zip(cc.horner_fold_g2(*ws, 2), acc))
+    print("g2 horner", flush=True)
 
     # msm_gpu on BLS12-381 G1, a scalar above BN254's r among them
     from hekaton_tpu_torch.curves.torch_curve import g1_bls12_381
@@ -161,7 +177,7 @@ def test_port_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "modules" in proc.stdout and "'g1_msm_compact': 2" in proc.stdout, proc.stdout
     assert "routes 5 bls tree" in proc.stdout, proc.stdout
-    assert "chains" in proc.stdout, proc.stdout
+    assert "chains" in proc.stdout and "g2 horner" in proc.stdout, proc.stdout
     assert "'fixed_base_gpu': 0" not in proc.stdout, proc.stdout
 
 

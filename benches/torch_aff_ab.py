@@ -58,10 +58,12 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   plain version, where an older library that lacks them runs the loop of
   single ops they replace (torch_curve.CurveOps' ladder, sum_in_order and
   horner on its dbl, madd and add: chain_loop), as this tree's library
-  does too ("loop (new)"); an older jac_ladder (one thread a lane on the
-  Jacobian formulas, as at d01b559) and the loops of the ladder are held
-  to the plain version as affine points (this tree's jac_ladder runs the
-  RCB formulas);
+  does too ("loop (new)"); an older library's chain kernels (one thread a
+  lane on the Jacobian formulas: jac_ladder as at d01b559, jac_sum and
+  jac_horner as at 3ba6b39) and the loops of single ops are held to the
+  plain version as affine points (this tree's chains run the RCB
+  formulas), and each library's chain kernel is timed on the device clock
+  too (chip_smoke.graph_ms: a short launch is issued slower than it runs);
   --only keeps the
   rows of the kernels it names (and builds no other row's inputs); then the Horner chain's latency a point op, from the c=13
   and c=0 times, and one product's latency in the old one-thread body
@@ -93,7 +95,9 @@ chip_smoke.cuda_ms, the mean of --reps launches after a warm one):
   the median of --reps calls, in turns: "old" is the older library with
   its own chain kernels, or where it has none G1's chains run as CurveOps'
   loops of single ops (SingleOpG1: the launch sequence before the chain
-  kernels), "new" this tree; then the
+  kernels), "new" this tree, and the device time of two calls of each
+  (chip_smoke.device_busy: the kernels' time in a torch.profiler trace);
+  then the
   Horner combine at CHAIN_SHAPES' (W, c) two ways, in turns on this tree:
   jac_horner, and msm_gpu's route (curves/proj.py from_jacobian,
   horner_fold, to_jacobian), the same point.
@@ -455,7 +459,7 @@ def main() -> int:
                         cs.add_work(tf, *jp2, *jq2))]
         for name, shapes in CHAIN_SHAPES.items():  # the loop of single ops they replace, from either library
             for shape in (shapes if want(name) else ()):
-                cargs, work, label = cs.chain_inputs(h, tf, G1, name, shape, host_pts, scalars, gen)
+                cargs, work, label, _ = cs.chain_inputs(h, tf, cc, G1, name, shape, host_pts, scalars, gen)
                 others.append((name, label, lambda name=name, cargs=cargs: tuple(getattr(cc, name)(*cargs)),
                                lambda name=name, cargs=cargs: tuple(getattr(cc, name + "_plain")(*cargs)), work,
                                lambda name=name, cargs=cargs: chain_loop(name, cargs)))
@@ -498,7 +502,7 @@ def main() -> int:
             for label, run in runs.items():
                 got = run()
                 ref = got if ref is None else ref  # without a plain version, the libraries equal the first
-                if name == "jac_ladder" and label in ("old", "loop (new)"):  # other formulas: the same points
+                if name in CHAIN_SHAPES and label in ("old", "loop (new)"):  # other formulas: the same points
                     cs.require(G1.unpack_jacobian(Jac(*got)) == G1.unpack_jacobian(Jac(*ref)),
                                f"{name} {shape} from the {label} library: other points than the plain version's")
                     continue
@@ -506,6 +510,12 @@ def main() -> int:
                 cs.require(err == 0, f"{name} {shape} from the {label} library differs from the "
                                      + ("plain version" if plain else "old library"))
             ms = in_turns(name, shape, runs, work)
+            if name in CHAIN_SHAPES:  # a short launch: the host may issue it slower than the card runs it
+                dev = {label: [] for label in ("old", "new")}
+                for label in ("old", "new", "new", "old"):
+                    dev[label].append(cs.graph_ms(runs[label], reps=args.reps))
+                print(f"[device] {name} {shape}: " + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} ms" for k, v in dev.items())
+                      + f" of device time a launch (chip_smoke.graph_ms, in turns); on {card}", flush=True)
             if name == "horner_fold":
                 horner_ms[shape] = {k: min(v) for k, v in ms.items()}
         if {"W=20, c=13", "W=20, c=0"} <= set(horner_ms):  # both Horner rows ran (not cut by --only)
@@ -661,13 +671,17 @@ def main() -> int:
             ms = {k: [] for k in fns}
             for label in list(fns) + list(fns)[::-1]:
                 ms[label].append(host_ms(fns[label]))
+            busy = {label: [cs.device_busy(fns[label])[0] for _ in range(2)] for label in fns}
             print(f"[compact] G1 {n} points ({'ladder' if n <= pip.MSM_LADDER_THRESHOLD else f'c={cn}'}), host "
                   f"clock, medians of {args.reps}: " + "; ".join(f"{k} {v[0]:.2f}, {v[1]:.2f} ms" for k, v in ms.items())
-                  + f"; old / new {min(ms['old']) / min(ms['new']):.1f}; both equal msm_host; on {card}", flush=True)
+                  + f"; old / new {min(ms['old']) / min(ms['new']):.1f}; device time a call (torch.profiler): "
+                  + "; ".join(f"{k} " + ", ".join("not measured" if t is None else f"{t:.3f}" for t in v) + " ms"
+                              for k, v in busy.items())
+                  + f"; both equal msm_host; on {card}", flush=True)
         # the Horner combine two ways on the same window sums: jac_horner, and
         # msm_gpu's horner_fold between the Jacobian and projective forms
         for shape in CHAIN_SHAPES["jac_horner"]:
-            (x, y, z, c), _, label = cs.chain_inputs(h, tf, G1, "jac_horner", shape, host_pts, scalars, gen)
+            (x, y, z, c), _, label, _ = cs.chain_inputs(h, tf, cc, G1, "jac_horner", shape, host_pts, scalars, gen)
             routes = {"jac_horner": lambda: cc.jac_horner(x, y, z, c),
                       "horner_fold route": lambda: proj.PROJ_G1.to_jacobian(
                           cc.horner_fold(*(a.contiguous() for a in proj.PROJ_G1.from_jacobian(Jac(x, y, z))), c))}

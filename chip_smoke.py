@@ -90,9 +90,10 @@ native host library). Phases, one line each, every failure raises:
      version at the widest width, the one with the most lanes and the one
      launched most often, with edge lanes, timed at the last); before them
      the chain kernels' rows (chain_rows: each limb for limb against its
-     plain version at every shape the main paths launched it at, with edge
-     inputs whose chains take the doubling and inverse escapes, timed at the
-     shape launched most often); before them
+     plain version and as points against a host walk at every shape the
+     main paths launched it at, with edge inputs whose chains double, reach
+     the identity and take a Jacobian infinity with X, Y != (1, 1), timed at
+     the shape launched most often); before them
      horner_fold's row (horner_rows): limb for limb against
      horner_fold_plain at every (W, c) the main paths launched it at and at
      those of 2^20-, 2^16-, 2^15- and 2^12-point MSMs (horner_shapes), timed
@@ -356,6 +357,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() in ms with the host's launch cost out of the
+    way: `calls` calls of fn captured in one CUDA graph, the graph replayed
+    reps times between CUDA events (cuda_ms). A wrapper issues a short
+    kernel slower than the card runs it, and cuda_ms then reads the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
 
 
 def device_trace(fn, reps: int = 1) -> dict:
@@ -720,16 +735,30 @@ def jac_of(tf, G1, pts: list, gen) -> tuple:
     return f.select(inf, one, x), f.select(inf, one, y), f.select(inf, torch.zeros_like(z), z)
 
 
-def chain_inputs(h, tf, G1, name: str, shape: tuple, host_pts: list, scalars: list, gen) -> tuple:
-    """(args, work, label) of the chain kernel `name` at `shape` with edge
-    inputs. jac_ladder at (lanes, nbits): the msm_g1 set's first points and
-    scalars (0, 1, r-1, an infinity and a repeated point), lanes 3 and 4
-    taking r and r+2 (the last step's mixed add an inverse pair and a
-    doubling); jac_sum at (K, lanes): distinct points, lane 0 starting at the
-    identity, lane 1 adding P to P, lane 2 P then -P (with one lane, P added
-    to P at row 2 and the identity reached at row 4); jac_horner at (W, c):
-    window sums where the first add doubles, the second gives the identity
-    and window 0 is the identity."""
+def inverse_pair_inf(tf, cc, G1, pt, gen) -> tuple:
+    """What `add` leaves on the inverse pair pt + (-pt) (add_plain): the
+    generic x3 and y3 under z3 = 0, a Jacobian infinity with X, Y != (1, 1)."""
+    x, y, z = jac_of(tf, G1, [pt], gen)
+    out = cc.add_plain(x, y, z, x, tf.neg(tf.FQ, y), z)
+    one = tf.FqPlain.one((1,), DEVICE)
+    require(not bool(out.z.any()) and bool(((out.x != one) | (out.y != one)).any()),
+            "add's inverse pair does not leave Z = 0 under X, Y != (1, 1)")
+    return tuple(t[0] for t in out)
+
+
+def chain_inputs(h, tf, cc, G1, name: str, shape: tuple, host_pts: list, scalars: list, gen) -> tuple:
+    """(args, work, label, want) of the chain kernel `name` at `shape` with
+    edge inputs, `want` the host's affine results of its lanes. jac_ladder at
+    (lanes, nbits): the msm_g1 set's first points and scalars (0, 1, r-1, an
+    infinity and a repeated point), lanes 3 and 4 taking r and r+2 (the last
+    step's mixed add an inverse pair and a doubling); jac_sum at (K, lanes):
+    distinct points, lane 0 starting at the identity, lane 1 adding P to P,
+    lane 2 P then -P, lane 3 a Jacobian infinity with X, Y != (1, 1) (an
+    inverse pair's `add` output, inverse_pair_inf) at row 1 (with one lane:
+    P added to P at row 2, that infinity at row 3 and the identity reached
+    at row 4); jac_horner at (W, c): window sums where the first add
+    doubles, the second gives the identity, window 1 is that infinity and
+    window 0 the identity (1, 1, 0)."""
     R = h.R
     if name == "jac_ladder":
         n, nbits = shape
@@ -740,11 +769,16 @@ def chain_inputs(h, tf, G1, name: str, shape: tuple, host_pts: list, scalars: li
         ax, ay = (torch.from_numpy(a).to(DEVICE) for a in G1.pack_affine(pts))
         limbs = torch.from_numpy(np.array([[(v >> (16 * k)) & 0xFFFF for k in range(16)] for v in sc],
                                           dtype=np.int32)).to(DEVICE)
-        return (ax, ay, limbs, nbits), jac_ladder_work(h, pts, sc, nbits), f"{n} lanes, nbits={nbits}"
+        want = [None if p is None else h.ch.pt_mul(p, v % (1 << nbits)) for p, v in zip(pts, sc)]
+        return (ax, ay, limbs, nbits), jac_ladder_work(h, pts, sc, nbits), f"{n} lanes, nbits={nbits}", want
     if name == "jac_sum":
         K, n = shape
         cols = [list(host_pts[1000 + j * n : 1000 + (j + 1) * n]) for j in range(K)]
         cols[0][0] = None
+        edge = (1, 3) if n > 3 and K > 1 else (3, 0) if n == 1 and K > 4 else None
+        if edge is not None:
+            inf = inverse_pair_inf(tf, cc, G1, cols[edge[0]][edge[1]], gen)
+            cols[edge[0]][edge[1]] = None
         if n > 2 and K > 1:
             cols[1][1] = cols[0][1]
             cols[1][2] = h.ch.pt_neg(cols[0][2])
@@ -753,31 +787,47 @@ def chain_inputs(h, tf, G1, name: str, shape: tuple, host_pts: list, scalars: li
             cols[4][0] = h.ch.pt_neg(_prefix_sums(h, [col[0] for col in cols[:5]])[4])
         stack = [jac_of(tf, G1, col, gen) for col in cols]
         args = tuple(torch.stack([st[k] for st in stack]) for k in range(3))
-        return args, jac_sum_work(h, cols), f"K={K}, {n} lanes"
+        if edge is not None:
+            for a, v in zip(args, inf):
+                a[edge] = v
+        want = [_prefix_sums(h, [col[i] for col in cols] + [None])[-1] for i in range(n)]
+        return args, jac_sum_work(h, cols), f"K={K}, {n} lanes", want
     W, c = shape
     ws = list(host_pts[2000 : 2000 + W])
-    if W >= 4:
+    if W >= 5:
         ws[W - 2] = h.ch.pt_mul(ws[W - 1], 1 << c)
         ws[W - 3] = h.ch.pt_neg(h.ch.pt_mul(ws[W - 1], 1 << (2 * c + 1)))
-        ws[0] = None
-    return (*jac_of(tf, G1, ws, gen), c), jac_horner_work(h, ws, c), f"W={W}, c={c}"
+        inf = inverse_pair_inf(tf, cc, G1, ws[1], gen)
+        ws[0] = ws[1] = None
+    x, y, z = jac_of(tf, G1, ws, gen)
+    if W >= 5:
+        for a, v in zip((x, y, z), inf):
+            a[1] = v
+    want = None
+    for w, pt in enumerate(ws):
+        want = h.ch.pt_add(want, None if pt is None else h.ch.pt_mul(pt, 1 << (c * w)))
+    return (x, y, z, c), jac_horner_work(h, ws, c), f"W={W}, c={c}", [want]
 
 
 def chain_rows(h, tf, cc, G1, bound, widths: dict, host_pts: list, scalars: list, gen) -> list:
     """The chain kernels' rows at the shapes the main paths launched them at
     (`widths`: {name: {shape: launches}}): each held limb for limb against
-    its plain version at every shape on chain_inputs' edge inputs, the row
-    at the shape launched most often, where both are timed."""
+    its plain version and as points against the host's walk at every shape
+    on chain_inputs' edge inputs, the row at the shape launched most often,
+    where both are timed; every shape's device time logged (graph_ms)."""
     rows = []
     for name in CHAIN_KERNELS:
         shapes = widths.get(name, {})
         require(bool(shapes), f"{name}: no main path launched it")
         ranked = sorted(shapes, key=lambda k: (-shapes[k], -k[0]))
         for shape in ranked:
-            args, work, label = chain_inputs(h, tf, G1, name, shape, host_pts, scalars, gen)
+            args, work, label, want = chain_inputs(h, tf, cc, G1, name, shape, host_pts, scalars, gen)
             fn, plain = getattr(cc, name), getattr(cc, name + "_plain")
             ref, plain_ms = timed_once(lambda: plain(*args))
-            err = max_abs_err(fn(*args), ref)
+            got = fn(*args)
+            err = max_abs_err(got, ref)
+            got = type(got)(*(t.reshape(-1, 16) for t in got))
+            require(G1.unpack_jacobian(got) == want, f"{name} {label}: other points than the host's walk")
             ms = cuda_ms(lambda: fn(*args), 5)
             lanes = []
             if name == "jac_ladder":  # its lanes' scalars, 0 where the base is (0,0)
@@ -785,7 +835,8 @@ def chain_rows(h, tf, cc, G1, bound, widths: dict, host_pts: list, scalars: list
                 inf = ((ax == 0).all(-1) & (ay == 0).all(-1)).tolist()
                 lanes = [0 if z else sum(int(v) << (16 * i) for i, v in enumerate(row))
                          for z, row in zip(inf, limbs.tolist())]
-            note = latency_note(chain_levels(name, shape, lanes))
+            note = (f"{latency_note(chain_levels(name, shape, lanes))}; device time "
+                    f"{graph_ms(lambda: fn(*args)):.4f} ms a launch (graph_ms)")
             if shape == ranked[0]:
                 rows.append({**kernel_row(bound, name, "hekaton_tpu_torch/csrc/curve.cu",
                                           f"hekaton_tpu/curves/pallas_curve.py:{1289 if name == 'jac_sum' else 1285}",
@@ -911,11 +962,12 @@ def horner_g2_work(W: int, c: int) -> tuple:
 
 
 def chain_levels(name: str, shape: tuple, scalars: list = ()) -> int:
-    """A chain's dependent product levels: the one-warp folds and jac_ladder
-    two a point op (jac_ladder's slowest lane from its top set bit, given
-    its lanes' `scalars`, 0 for a (0,0) base, and two more for its Jacobian
-    form); the one-thread chains every wide product of an op in program
-    order (jac_dbl 7, the add 16: LAZY_G1_PRODUCTS' kernel counts)."""
+    """A chain's dependent product levels: the one-warp folds and chains two
+    a point op (jac_ladder's slowest lane from its top set bit, given its
+    lanes' `scalars`, 0 for a (0,0) base), and the chains' Jacobian ends:
+    two levels to store (X Z and Z^2, then Y Z^2) and, in jac_sum and
+    jac_horner, two to load each chunk of 32 operands or all the window
+    sums (X Z and Z^2, then Z^3, a thread's own products)."""
     if name in ("horner_fold", "horner_fold_g2"):
         W, c = shape
         return 2 * (W - 1) * (c + 1)
@@ -924,8 +976,8 @@ def chain_levels(name: str, shape: tuple, scalars: list = ()) -> int:
         return 2 * max(b.bit_length() + bin(b).count("1") for b in bits) + 2
     if name == "jac_horner":
         W, c = shape
-        return (W - 1) * (7 * c + 16)
-    return 16 * shape[0]  # jac_sum: K adds a lane
+        return 2 * (W - 1) * (c + 1) + 4
+    return 2 * shape[0] + 2 * -(-shape[0] // 32) + 2  # jac_sum: K adds a lane
 
 
 def latency_note(levels: int) -> str:

@@ -16,9 +16,9 @@
 // curves/pallas_curve.py::dbl and ::add (_dbl_kernel :1188 on _dbl_tiles
 // :146, _add_kernel :1196 on _add_tiles :210). jac_ladder, jac_sum and
 // jac_horner run the JAX compact msm's loops of kernels in one launch each
-// (hekaton_tpu/msm/pippenger.py: _msm_ladder :209 of dbl and madd, here on
-// the RCB formulas; _tree_reduce's chunks :159 and msm's Horner :258 of dbl
-// and add).
+// (hekaton_tpu/msm/pippenger.py: _msm_ladder :209 of dbl and madd,
+// _tree_reduce's chunks :159 and msm's Horner :258 of dbl and add), on the
+// complete RCB formulas: the loops' points, not their limbs.
 //
 // Complete-add semantics are those of _aff_den_tiles / _aff_fin_tiles
 // (pallas_curve.py:350-424): (0,0) is infinity, a lane with P == Q doubles,
@@ -101,18 +101,17 @@
 // arithmetic they make moot and its doubling escape madd's out-of-line one.
 // The compact msm ran them one host launch a point op, at 1 to a few
 // thousand lanes, where the launch, not the multiplies, set the time. Its
-// chains now run in one launch each, bound by the chain's latency: jac_sum
-// (a chunk's K adds a lane) and jac_horner (the (W-1)(c+1) ops of the
-// Horner combine) one thread a lane, the accumulator in registers, one op
-// after another; jac_ladder (every lane's nbits doublings and mixed adds)
-// one warp a lane on horner_fold's two-level RCB ops (horner_dbl and a
-// two-level mixed add, horner_madd), so a step is two levels of products
-// and an add two more, not one thread's product after product. On one H100
-// 80GB HBM3 (700 W), in turns with the row-product bodies and their loops of
-// launches (benches/torch_aff_ab.py): dbl 0.051 ms against 0.175 at 2^18
-// lanes (bound 0.030, bytes), add 0.102 against 0.237 (bound 0.061,
-// multiplies); the one-thread 32-lane ladder 2.03 ms against 45-52, the
-// Horner at W=85, c=3 1.43 against 15.4-15.7 (PERF.md).
+// chains now run in one launch each, bound by the chain's latency, one warp
+// a lane on horner_fold's two-level RCB ops (horner_dbl, horner_add and a
+// two-level mixed add, horner_madd), so an op is two levels of products, not
+// one thread's product after product: jac_ladder (every lane's nbits
+// doublings and mixed adds), jac_sum (a chunk's K adds a lane) and
+// jac_horner (the (W-1)(c+1) ops of the Horner combine, one lane). On one
+// H100 80GB HBM3 (700 W), in turns with the row-product bodies and their
+// loops of launches (benches/torch_aff_ab.py): dbl 0.051 ms against 0.175 at
+// 2^18 lanes (bound 0.030, bytes), add 0.102 against 0.237 (bound 0.061,
+// multiplies); the 32-lane ladder 0.776 ms against one thread a lane's 2.02
+// (PERF.md).
 //
 // The G1 RCB ops (RCB15 algorithms 8, 7 and 9, a=0, b3=9: the complete
 // projective formulas of curves/proj.py, with no escapes) are the same
@@ -913,6 +912,24 @@ __device__ __forceinline__ Proj window_sum(const uint32_t* win, int w) {
   return Proj{get_fe(win + 24 * w), get_fe(win + 24 * w + 8), get_fe(win + 24 * w + 16)};
 }
 
+__device__ __forceinline__ void put_proj(uint32_t* s, const Proj& p) {
+  put_fe(s, p.x);
+  put_fe(s + 8, p.y);
+  put_fe(s + 16, p.z);
+}
+
+// the walk of horner_kernel and jac_horner_kernel over the W window sums in
+// `win` (window_sum's layout): from window W-1 down, c doublings and the add
+// of the next window sum a window
+__device__ __forceinline__ Proj horner_walk(const uint32_t* win, int W, int c, Levels lv) {
+  Proj acc = window_sum(win, W - 1);
+  for (int w = W - 2; w >= 0; w--) {
+    for (int d = 0; d < c; d++) acc = horner_dbl(acc, lv);
+    acc = horner_add(acc, window_sum(win, w), lv);
+  }
+  return acc;
+}
+
 __global__ void __launch_bounds__(HORNER_THREADS)
     horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
                   int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
@@ -924,11 +941,7 @@ __global__ void __launch_bounds__(HORNER_THREADS)
     win[i] = (uint32_t)src[0] | ((uint32_t)src[1] << 16);
   }
   __syncwarp();
-  Proj acc = window_sum(win, W - 1);
-  for (int w = W - 2; w >= 0; w--) {
-    for (int d = 0; d < c; d++) acc = horner_dbl(acc, lv);
-    acc = horner_add(acc, window_sum(win, w), lv);
-  }
+  const Proj acc = horner_walk(win, W, c, lv);
   if (threadIdx.x == 0) {
     store_limbs(ox, acc.x);
     store_limbs(oy, acc.y);
@@ -1166,41 +1179,40 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
 
 // -- the compact msm's chains, one launch each --------------------------------
 //
-// jac_sum and jac_horner: one thread a lane walks the whole chain with its
-// accumulator in registers, a chunk's K adds or the Horner's (W-1)(c+1)
-// ops. Each step is the op above (jac_dbl; add_diffs and madd_finish) with
-// its kernel's overrides in the same order, so every limb is that of the
-// same loop of dbl and add launches; the doubling escapes double the
-// accumulator in place. jac_ladder (below) runs the RCB formulas on a warp.
+// jac_ladder, jac_sum and jac_horner run on horner_fold's one-warp RCB ops
+// (horner_dbl, horner_add, and the mixed add horner_madd), a warp a lane: a
+// point op is two levels of products, not one thread's product after
+// product. The RCB formulas are complete, so a chain has no escape branch.
+// The chains take and give the port's Jacobian rows: jac_sum and jac_horner
+// load each operand as a projective point (load_jac_proj), and all three
+// store the projective result in the Jacobian form (store_proj_jac). Their
+// points are those of the JAX compact msm's loops of dbl, madd and add; their
+// limbs are not.
 
-struct Jac {
-  Fe x, y, z;
-};
+// Jacobian row i, (X, Y, Z) -> the projective (X Z : Y : Z^3), a thread's own
+// three products (no level); Z = 0 gives the identity (0:1:0) explicitly:
+// add's inverse pairs leave Z = 0 under any X and Y, and a Y of 0 would give
+// (0:0:0), which the complete formulas keep at zero
+__device__ __forceinline__ Proj load_jac_proj(const int32_t* x, const int32_t* y, const int32_t* z, long long i) {
+  const Fe zz = load_limbs16(z + i * 16);
+  if (fe_is_zero(zz)) return Proj{fe_zero(), fe_one<FQ>(), fe_zero()};
+  return Proj{fe_mul<FQ>(load_limbs16(x + i * 16), zz), load_limbs16(y + i * 16), fe_mul<FQ>(fe_sqr<FQ>(zz), zz)};
+}
 
-// _add_tiles on registers: P + Q
-__device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
-  if (fe_is_zero(p.z)) return q;
-  if (fe_is_zero(q.z)) return p;
-  Fe u1, s1, z1z2, h, rr;
-  add_diffs(p.x, p.y, p.z, q.x, q.y, q.z, u1, s1, z1z2, h, rr);
-  Jac r;
-  if (fe_is_zero(h) && fe_is_zero(rr)) {
-    jac_dbl(p.x, p.y, p.z, r.x, r.y, r.z);
-    return r;
+// the warp's projective acc -> Jacobian row i, (X Z, Y Z^2, Z) or (1, 1, 0)
+// where Z = 0, in two levels (X Z and Z^2, then Y Z^2); lane 0 stores it
+__device__ __forceinline__ void store_proj_jac(int32_t* ox, int32_t* oy, int32_t* oz, long long i, const Proj& acc,
+                                               Levels lv) {
+  const int h = threadIdx.x & 1;
+  level(lv[0], 2, pick(h, acc.x, acc.z), acc.z);  // X Z, Z^2
+  const Fe xz = get_fe(lv[0][0]);
+  level(lv[1], 1, acc.y, get_fe(lv[0][1]));  // Y Z^2
+  if (threadIdx.x == 0) {
+    const bool inf = fe_is_zero(acc.z);
+    store_limbs16(ox + i * 16, inf ? fe_one<FQ>() : xz);
+    store_limbs16(oy + i * 16, inf ? fe_one<FQ>() : get_fe(lv[1][0]));
+    store_limbs16(oz + i * 16, acc.z);
   }
-  madd_finish(u1, s1, z1z2, h, rr, r.x, r.y, r.z);
-  if (fe_is_zero(h)) r.z = fe_zero();
-  return r;
-}
-
-__device__ __forceinline__ Jac load_jac(const int32_t* x, const int32_t* y, const int32_t* z, long long i) {
-  return Jac{load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16)};
-}
-
-__device__ __forceinline__ void store_jac(int32_t* x, int32_t* y, int32_t* z, long long i, const Jac& p) {
-  store_limbs16(x + i * 16, p.x);
-  store_limbs16(y + i * 16, p.y);
-  store_limbs16(z + i * 16, p.z);
 }
 
 // _msm_ladder's lanes (hekaton_tpu/msm/pippenger.py:209-229) on the RCB
@@ -1211,8 +1223,7 @@ __device__ __forceinline__ void store_jac(int32_t* x, int32_t* y, int32_t* z, lo
 // the bit is set horner_madd of (ax, ay). The scalar is the warp's own, so
 // every branch is uniform. Doublings of the identity leave it as it is, so
 // the walk starts at the top set bit; a (0,0) base or a zero scalar stores
-// the identity. The projective result goes to the port's Jacobian form (X
-// Z, Y Z^2, Z; (1, 1, 0) where Z = 0).
+// the identity.
 __global__ void __launch_bounds__(HORNER_THREADS)
     jac_ladder_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
                       const int32_t* __restrict__ scalars, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
@@ -1239,53 +1250,48 @@ __global__ void __launch_bounds__(HORNER_THREADS)
       if ((limb >> (j % 16)) & 1) acc = horner_madd(acc, qx, qy, qxy, lv);
     }
   }
-  const int h = threadIdx.x & 1;
-  level(lv[0], 2, pick(h, acc.x, acc.z), acc.z);  // X Z, Z^2
-  const Fe xz = get_fe(lv[0][0]);
-  level(lv[1], 1, acc.y, get_fe(lv[0][1]));  // Y Z^2
-  if (threadIdx.x == 0) {
-    const bool inf = fe_is_zero(acc.z);
-    store_jac(ox, oy, oz, i, Jac{inf ? fe_one<FQ>() : xz, inf ? fe_one<FQ>() : get_fe(lv[1][0]), acc.z});
-  }
+  store_proj_jac(ox, oy, oz, i, acc, lv);
 }
 
-// _tree_reduce's chunk sum (hekaton_tpu/msm/pippenger.py:159-185): lane i
-// of the (K, n, 16) stack from the identity (1, 1, 0), acc = add(acc, p_j)
-// for j = 0 .. K-1 in that order.
-__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+// _tree_reduce's chunk sum (hekaton_tpu/msm/pippenger.py:159-185), a block
+// of one warp a lane as jac_ladder: lane i of the (K, n, 16) stack from the
+// identity (0:1:0), horner_add of operand j = 0 .. K-1 in that order. The
+// operands come in chunks of 32 (3 KB of shared memory, whatever K): thread
+// t loads operand 32k + t as a projective point, then the warp adds the
+// chunk's points one after another. A thread writes the chunk again only
+// after the two levels of its last add, which every thread reaches after it
+// has read that add's operand.
+__global__ void __launch_bounds__(HORNER_THREADS)
     jac_sum_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
                    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n,
                    int K) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac acc{fe_one<FQ>(), fe_one<FQ>(), fe_zero()};
+  __shared__ __align__(16) uint32_t chunk[HORNER_THREADS * 24];  // window_sum's layout
+  __shared__ __align__(16) HornerLevels lv;
+  const long long i = blockIdx.x;
+  Proj acc{fe_zero(), fe_one<FQ>(), fe_zero()};
 #pragma unroll 1
-  for (int j = 0; j < K; j++) acc = jac_add(acc, load_jac(x, y, z, (long long)j * n + i));
-  store_jac(ox, oy, oz, i, acc);
+  for (int k = 0; k < K; k += HORNER_THREADS) {
+    const int m = min(K - k, HORNER_THREADS);
+    if ((int)threadIdx.x < m) put_proj(chunk + 24 * threadIdx.x, load_jac_proj(x, y, z, (k + threadIdx.x) * n + i));
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < m; j++) acc = horner_add(acc, window_sum(chunk, j), lv);
+  }
+  store_proj_jac(ox, oy, oz, i, acc, lv);
 }
 
 // the compact msm's Horner combine (hekaton_tpu/msm/pippenger.py:258-268) on
-// one thread: from window sum W-1 down, c doublings and the add of the next
-// window sum a window, as one loop of (W-1)(c+1) ops whose add step loads its
-// window sum (a loop of doublings inside the window's loop let ptxas hoist
-// that load above them: 24 more live words, 32 bytes spilled). Bound by its
-// chain's latency; horner_fold's one-warp design would shorten each op to
-// two product levels.
-__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
+// horner_fold's warp: thread t loads window sums t, t + 32, ... of the (W, 16)
+// Jacobian rows into shared memory as projective points, the warp walks them
+// as horner_kernel does, and the result goes back to the Jacobian form
+__global__ void __launch_bounds__(HORNER_THREADS)
     jac_horner_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,
                       int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int W, int c) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Jac acc = load_jac(x, y, z, W - 1);
-  const long long ops = (long long)(W - 1) * (c + 1);
-#pragma unroll 1
-  for (long long s = 0; s < ops; s++) {
-    if (s % (c + 1) < c) {
-      jac_dbl(acc.x, acc.y, acc.z, acc.x, acc.y, acc.z);
-    } else {
-      acc = jac_add(acc, load_jac(x, y, z, W - 2 - s / (c + 1)));
-    }
-  }
-  store_jac(ox, oy, oz, 0, acc);
+  extern __shared__ __align__(16) uint32_t win[];  // window_sum's layout
+  __shared__ __align__(16) HornerLevels lv;
+  for (int w = threadIdx.x; w < W; w += HORNER_THREADS) put_proj(win + 24 * w, load_jac_proj(x, y, z, w));
+  __syncwarp();
+  store_proj_jac(ox, oy, oz, 0, horner_walk(win, W, c, lv), lv);
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -1317,8 +1323,8 @@ const KernelSlot KERNELS[] = {
     {"dbl_kernel", (const void*)dbl_kernel, THREADS, 0},
     {"add_kernel", (const void*)add_kernel, THREADS, 0},
     {"jac_ladder_kernel", (const void*)jac_ladder_kernel, HORNER_THREADS, 0},
-    {"jac_sum_kernel", (const void*)jac_sum_kernel, THREADS, 0},
-    {"jac_horner_kernel", (const void*)jac_horner_kernel, 1, 0},
+    {"jac_sum_kernel", (const void*)jac_sum_kernel, HORNER_THREADS, 0},
+    {"jac_horner_kernel", (const void*)jac_horner_kernel, HORNER_THREADS, 24 * 20 * sizeof(uint32_t)},
 };
 
 }  // namespace
@@ -1471,22 +1477,22 @@ extern "C" int hk_jac_ladder(const void* ax, const void* ay, const void* scalars
 }
 
 // a (K, n, 16) stack of Jacobian limb rows per coordinate, 16-byte aligned,
-// K >= 0 -> the n lanes' in-order sums
+// K >= 0, n >= 1 -> the n lanes' in-order sums
 extern "C" int hk_jac_sum(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, long long n,
                           int K, void* stream) {
-  if (K < 0) return (int)cudaErrorInvalidValue;
-  jac_sum_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (K < 0 || n < 1 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  jac_sum_kernel<<<(unsigned)n, HORNER_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n, K);
   return (int)cudaGetLastError();
 }
 
-// (W, 16) Jacobian window sums per coordinate, 16-byte aligned, W >= 1,
-// c >= 0 -> one Jacobian row
+// (W, 16) Jacobian window sums per coordinate, 16-byte aligned, 1 <= W <=
+// HORNER_MAX_W, c >= 0 -> one Jacobian row
 extern "C" int hk_jac_horner(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, int W,
                              int c, void* stream) {
-  if (W < 1 || c < 0) return (int)cudaErrorInvalidValue;
-  jac_horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)x, (const int32_t*)y, (const int32_t*)z,
-                                                        (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, W, c);
+  if (W < 1 || W > HORNER_MAX_W || c < 0) return (int)cudaErrorInvalidValue;
+  jac_horner_kernel<<<1, HORNER_THREADS, 24 * W * sizeof(uint32_t), (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, W, c);
   return (int)cudaGetLastError();
 }
 

@@ -35,12 +35,10 @@ csrc/curve.cu (G1 kernels), csrc/curve_g2.cu (G2 kernels), csrc/field.cuh
 - `jac_ladder`, `jac_sum` and `jac_horner` run the JAX compact msm's loops
   of kernels (hekaton_tpu/msm/pippenger.py: `_msm_ladder`'s fori_loop of
   dbl and madd :209, `_tree_reduce`'s in-order chunk adds :159, `msm`'s
-  Horner combine of dbl and add :258) in one launch each. The plain
-  versions of `jac_sum` and `jac_horner` are those loops
-  (torch_curve.CurveOps' `sum_in_order` and `horner`) on the single ops'
-  plain versions; `jac_ladder` runs the ladder on the complete projective
-  formulas (`jac_ladder_plain`: the same points as `_msm_ladder`'s, other
-  limbs).
+  Horner combine of dbl and add :258) in one launch each, on the complete
+  projective formulas: their plain versions (`jac_ladder_plain`,
+  `jac_sum_plain`, `jac_horner_plain`) give those loops' points, not their
+  limbs.
 - `pmadd_rcb`, `padd_rcb`, `pdbl_rcb` replace the wrappers of the same names
   (pallas_curve.py:1293/1297/1301; kernels `_pmadd_rcb_kernel` :1206 on
   `_pmadd_rcb_tiles` :264, `_padd_rcb_kernel` :1216, `_pdbl_rcb_kernel`
@@ -67,7 +65,8 @@ building the next one's chains; every product is field.cuh's carry-chain
 one; the Horner folds (`horner_fold`, and `horner_fold_g2` over Fq2, a half
 of an Fq2 product a lane) are one warp, bound by the latency of their chain,
 each point op two levels of independent products, and so is each lane of
-`jac_ladder` (a warp a lane).
+the chain kernels `jac_ladder` and `jac_sum` (a warp a lane) and the one
+lane of `jac_horner`.
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
 straight-line formulas, bound by integer multiply throughput or by bytes
 once the card is full; the G1 mixed add (`pmadd_rcb`, and each add of
@@ -77,9 +76,7 @@ closing coordinate of the RCB adds (and madd's y3) one sum of two products
 and one reduction, their products by product scanning (column by column
 into a three-register accumulator), on 16-byte rows, 4 blocks an SM;
 `madd` and `add` take their edge overrides as branches before the
-arithmetic they make moot, their doubling escape out of line; the chain
-kernels `jac_sum` and `jac_horner` walk a whole chain of those ops a
-thread, the accumulator in registers, bound by the chain's latency; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
+arithmetic they make moot, their doubling escape out of line; the G2 trio (`pmadd_rcb_g2`, `padd_rcb_g2`, `pdbl_rcb_g2`) runs two
 threads a lane, one Fq2 component each, with its operands in shared memory;
 `l1_rcb_mega` is
 one thread per slab column, its accumulator in registers for all L adds
@@ -334,18 +331,22 @@ def add_plain(x1, y1, z1, x2, y2, z2):
     return Jac(f.select(keep_p, x1, x3), f.select(keep_p, y1, y3), f.select(keep_p, z1, z3))
 
 
-class _G1KernelPlainOps(CurveOps):
-    """BN254 G1 on the dbl and add kernels' plain versions: its sum_in_order
-    and horner (CurveOps' loops) are the chain kernels' plain versions."""
-
-    def dbl(self, p: Jac) -> Jac:
-        return dbl_plain(*p)
-
-    def add(self, p: Jac, q: Jac) -> Jac:
-        return add_plain(*p, *q)
+def _jac_load_plain(x, y, z) -> Proj:
+    """The chain kernels' load of Jacobian limbs: (X, Y, Z) -> (X Z : Y :
+    Z^3), the identity (0:1:0) where Z = 0 (whatever X and Y are there)."""
+    proj, f = _PROJ_G1_PLAIN, tf.FqPlain
+    inf = f.is_zero(z)
+    return proj.select(inf, proj.inf(inf.shape, z.device), proj.from_jacobian(Jac(x, y, z)))
 
 
-_G1_KERNEL_PLAIN = _G1KernelPlainOps(tf.FqPlain, "g1_kernel_plain", tf.FR)
+def _jac_store_plain(acc: Proj) -> Jac:
+    """The chain kernels' store: projective -> the port's Jacobian form (X Z,
+    Y Z^2, Z), (1, 1, 0) where Z = 0."""
+    f = _PROJ_G1_PLAIN.f
+    jac = _PROJ_G1_PLAIN.to_jacobian(acc)
+    inf = f.is_zero(acc.z)
+    one = f.one(inf.shape, acc.z.device)
+    return Jac(f.select(inf, one, jac.x), f.select(inf, one, jac.y), jac.z)
 
 
 def jac_ladder_plain(ax, ay, scalars, nbits: int) -> Jac:
@@ -354,26 +355,35 @@ def jac_ladder_plain(ax, ay, scalars, nbits: int) -> Jac:
     (curves/proj.py, b3 = 9): from the identity (0:1:0), bit j = nbits-1
     down to 0, a doubling, then where bit j is set the mixed add of (ax, ay)
     (a (0,0) lane keeps the accumulator); the projective result in the
-    port's Jacobian form (X Z, Y Z^2, Z), (1, 1, 0) where Z = 0."""
-    proj, f = _PROJ_G1_PLAIN, tf.FqPlain
+    port's Jacobian form (_jac_store_plain)."""
+    proj = _PROJ_G1_PLAIN
     s = scalars.long()
     acc = proj.inf((ax.shape[0],), ax.device)
     for j in range(nbits - 1, -1, -1):
         bit = ((s[:, j // 16] >> (j % 16)) & 1) == 1
         acc = proj.dbl(acc)
         acc = proj.select(bit, proj.add_mixed(acc, ax, ay), acc)
-    jac = proj.to_jacobian(acc)
-    inf = f.is_zero(acc.z)
-    one = f.one(inf.shape, ax.device)
-    return Jac(f.select(inf, one, jac.x), f.select(inf, one, jac.y), jac.z)
+    return _jac_store_plain(acc)
 
 
 def jac_sum_plain(x, y, z) -> Jac:
-    return _G1_KERNEL_PLAIN.sum_in_order(Jac(x, y, z))
+    """The in-order sum over the leading axis of a (K, ..., 16) Jacobian
+    stack on the plain complete RCB formulas: each operand loaded as a
+    projective point (_jac_load_plain), added in order into the identity
+    (0:1:0), the sum in the Jacobian form (_jac_store_plain)."""
+    proj = _PROJ_G1_PLAIN
+    ops = _jac_load_plain(x, y, z)
+    acc = proj.inf(x.shape[1:-1], x.device)
+    for j in range(x.shape[0]):
+        acc = proj.add(acc, Proj(*(t[j] for t in ops)))
+    return _jac_store_plain(acc)
 
 
 def jac_horner_plain(x, y, z, c: int) -> Jac:
-    return _G1_KERNEL_PLAIN.horner(Jac(x, y, z), c)
+    """sum_w 2^(c*w) * S_w of (W, 16) Jacobian window sums: the sums loaded as
+    projective points (_jac_load_plain), folded by horner_fold_plain, the
+    result in the Jacobian form (_jac_store_plain)."""
+    return _jac_store_plain(horner_fold_plain(*_jac_load_plain(x, y, z), c))
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +700,7 @@ jac_ladder.launches = 0
 
 def jac_sum(x, y, z) -> Jac:
     """The in-order sum over the leading axis of a (K, ..., 16) Jacobian
-    stack in one launch, one thread a lane (jac_sum_plain's limbs)."""
+    stack in one launch, a warp a lane (jac_sum_plain's limbs)."""
     if not x.is_cuda:
         return jac_sum_plain(x, y, z)
     _check_batch(jac_sum, (x, y, z), (16,))
@@ -706,7 +716,7 @@ jac_sum.launches = 0
 
 def jac_horner(x, y, z, c: int) -> Jac:
     """The compact msm's Horner combine of (W, 16) Jacobian window sums,
-    sum_w 2^(c*w) * S_w, in one launch on one thread (jac_horner_plain's
+    sum_w 2^(c*w) * S_w, in one launch on one warp (jac_horner_plain's
     limbs): three (16,) tensors."""
     if x.dim() != 2 or x.shape[0] < 1 or c < 0:
         raise ValueError(f"jac_horner: expected (W, 16) window sums, W >= 1, and c >= 0, got "
@@ -714,6 +724,8 @@ def jac_horner(x, y, z, c: int) -> Jac:
     if not x.is_cuda:
         return jac_horner_plain(x, y, z, c)
     _check_batch(jac_horner, (x, y, z), (16,))
+    if x.shape[0] > horner_max_w():
+        raise ValueError(f"jac_horner: {x.shape[0]} windows; the kernel takes 1 to {horner_max_w()}")
     return _launch_chain(jac_horner, "hk_jac_horner", (x, y, z), (16,), 1, x.shape[0], int(c))
 
 

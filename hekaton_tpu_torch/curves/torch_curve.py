@@ -229,8 +229,8 @@ class G1Ops(CurveOps):
     """BN254 G1 ops whose group law is the dbl, add and madd kernel
     wrappers, and whose chains (ladder, sum_in_order, horner) are one launch
     each of the chain kernel wrappers jac_ladder, jac_sum and jac_horner:
-    sum_in_order and horner the limbs of CurveOps' loops on those single
-    ops, ladder their points (it runs the complete projective formulas)."""
+    the points of CurveOps' loops on those single ops, on the complete
+    projective formulas (not their limbs)."""
 
     def dbl(self, p: Jac) -> Jac:
         from .cuda_curve import dbl

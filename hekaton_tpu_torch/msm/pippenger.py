@@ -14,8 +14,8 @@ G1 on the plain formulas over the 24-limb mont_mul kernel); the ladders,
 the tree reduction's in-order chunk sums and the Horner combine are the
 curve's `ladder`, `sum_in_order` and `horner`, on BN254 G1 one launch each
 of curves/cuda_curve.py's chain kernels (jac_ladder, jac_sum, jac_horner):
-jac_sum and jac_horner the limbs of the loops of single ops, jac_ladder the
-same points on the complete projective formulas. The JAX
+the points of the loops of single ops, on the complete projective formulas
+(other limbs). The JAX
 code scans the windows one after another; here every window is one row of a
 leading window axis, so each step of the reduce-by-key is one batched point
 op over all windows.

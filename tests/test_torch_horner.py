@@ -21,13 +21,21 @@ its own level or a later one fails. It is held limb for limb to
 Python-int RCB fold at the (W, c) of the 2^12, 2^16 and 2^20 MSMs, and on
 edge window sums.
 
-jac_ladder's kernel (curve.cu: jac_ladder_kernel) runs the same one-warp
-ops a lane: horner_dbl and the two-level mixed add horner_madd (its picks
-read the same way), from the top set bit of the scalar, a (0,0) base or a
-zero scalar the identity, then the Jacobian form (X Z, Y Z^2, Z; (1, 1, 0)
-at Z = 0) in two more levels. Its model is held limb for limb to
-`cuda_curve.jac_ladder_plain` and to a Python-int RCB ladder at nbits = 254
-on edge lanes, and as points to the host's multiples.
+The compact msm's chain kernels run the same one-warp ops a lane. jac_ladder
+(curve.cu: jac_ladder_kernel) runs horner_dbl and the two-level mixed add
+horner_madd (its picks read the same way) from the top set bit of the
+scalar, a (0,0) base or a zero scalar the identity. jac_sum_kernel loads a
+lane's K Jacobian operands in chunks of 32 as projective points
+(load_jac_proj: (X Z : Y : Z^3), a thread's own products; (0:1:0) where Z =
+0) and adds them in order with horner_add from (0:1:0); jac_horner_kernel
+loads its W window sums the same way and walks them as horner_kernel does
+(one body, horner_walk). All three end in the Jacobian form (store_proj_jac:
+(X Z, Y Z^2, Z), (1, 1, 0) at Z = 0) in two more levels. Their models are
+held limb for limb to the plain versions (`cuda_curve.jac_ladder_plain`,
+`jac_sum_plain`, `jac_horner_plain`) and to Python-int RCB chains on edge
+lanes (a Jacobian infinity with X, Y != (1, 1), as `add` leaves an inverse
+pair; an operand equal to the accumulator and one equal to its negation;
+W = 1; K = 1, 32, 33 and 64), and as points to the host's results.
 """
 import os
 import re
@@ -43,6 +51,7 @@ from hekaton_tpu.fields import jax_field as jf
 from hekaton_tpu_torch.cpgroth16.backend import TorchBackend
 from hekaton_tpu_torch.curves import cuda_curve as cc
 from hekaton_tpu_torch.curves import host as ch
+from hekaton_tpu_torch.curves.torch_curve import G1, Jac
 from hekaton_tpu_torch.fields import torch_field as tf
 
 torch.set_num_threads(1)
@@ -71,12 +80,17 @@ class Lv:
         return Lv(k * self.v, self.lvl)
 
 
-def kernel_picks(fn: str) -> list:
+def body_of(head: str) -> str:
+    """The source of curve.cu from `head` to the end of its function."""
+    src = open(CURVE_CU).read()
+    body = src[src.index(head):]
+    return body[: body.index("\n}\n")]
+
+
+def kernel_picks(fn: str, head: str = "__device__ Proj") -> list:
     """The argument lists of the `pick(h, ...)` calls in the body of the
     device function `fn` of curve.cu, in source order."""
-    src = open(CURVE_CU).read()
-    body = src[src.index(f"__device__ Proj {fn}("):]
-    body = body[: body.index("\n}\n")]
+    body = body_of(f"{head} {fn}(")
     return [[a.strip() for a in args.split(",")] for args in re.findall(r"pick\(h, ([^()]*)\)", body)]
 
 
@@ -175,10 +189,42 @@ def model_ladder(pt, s: int, nbits: int) -> tuple:
             acc = model_dbl(acc, dbl)
             if bits >> j & 1:
                 acc = model_madd(acc, pt, madd)
+    return model_store(acc)
+
+
+def model_store(acc: tuple) -> tuple:
+    """store_proj_jac: X Z and Z^2 (lane h makes product h & 1), then Y Z^2;
+    (1, 1, 0) where Z = 0."""
     x, y, z = (Lv(v, 0) for v in acc)
     xz, zz = level([("x", "z"), ("z", "z")], {"x": x, "z": z}, 1, lambda lane: lane & 1)
     (yzz,) = level([("y", "zz")], {"y": y, "zz": zz}, 2, lambda lane: 0)
     return (R, R, 0) if z.v == 0 else (xz.v, yzz.v, z.v)
+
+
+def jac_to_proj(pt: tuple) -> tuple:
+    """load_jac_proj (a thread's own products, no level): Jacobian (X, Y, Z)
+    -> (X Z : Y : Z^3), (0:1:0) where Z = 0."""
+    x, y, z = pt
+    return (0, R, 0) if z == 0 else (_mul(x, z), y, _mul(_mul(z, z), z))
+
+
+def model_jac_sum(ops: list) -> tuple:
+    """jac_sum_kernel's lane: the operands in chunks of LANES, thread t
+    loading operand k + t into slot t, the warp adding the chunk's slots in
+    order (horner_add) into the accumulator, from (0:1:0); then the store."""
+    _, add = kernel_levels()
+    acc = (0, R, 0)
+    for k in range(0, len(ops), LANES):
+        slots = [jac_to_proj(op) for op in ops[k : k + LANES]]
+        for q in slots:
+            acc = model_add(acc, q, add)
+    return model_store(acc)
+
+
+def model_jac_horner(win: list, c: int) -> tuple:
+    """jac_horner_kernel: each window sum loaded (thread t takes windows t,
+    t + LANES, ...), horner_kernel's walk, then the store."""
+    return model_store(model_fold([jac_to_proj(w) for w in win], c))
 
 
 def model_fold(win: list, c: int) -> tuple:
@@ -243,6 +289,11 @@ def rcb_ladder(pt, s: int, nbits: int) -> tuple:
         acc = rcb_dbl(acc)
         if s >> j & 1 and pt != (0, 0):
             acc = rcb_madd(acc, pt)
+    return proj_to_jac(acc)
+
+
+def proj_to_jac(acc: tuple) -> tuple:
+    """(X Z, Y Z^2, Z), (1, 1, 0) at Z = 0."""
     x, y, z = acc
     return (R, R, 0) if z == 0 else (_mul(x, z), _mul(y, _mul(z, z)), z)
 
@@ -254,6 +305,15 @@ def rcb_fold(win: list, c: int) -> tuple:
             acc = rcb_dbl(acc)
         acc = rcb_add(acc, win[w])
     return acc
+
+
+def rcb_jac_sum(ops: list) -> tuple:
+    """The in-order RCB sum of Jacobian operands from (0:1:0), each loaded
+    as (X Z : Y : Z^3) ((0:1:0) at Z = 0), in the Jacobian form."""
+    acc = (0, R, 0)
+    for op in ops:
+        acc = rcb_add(acc, jac_to_proj(op))
+    return proj_to_jac(acc)
 
 
 # -- window sums: ints (Montgomery form) and (W, 16) limb tensors --
@@ -384,7 +444,6 @@ def test_ladder_model_matches_plain_and_rcb():
     ladder, and as points against the host multiples, on lanes with a (0,0)
     base, a zero scalar, r - 1, r (the last add an inverse pair), r + 2
     (the last add a doubling) and a random scalar."""
-    from hekaton_tpu_torch.curves.torch_curve import G1
     from hekaton_tpu_torch.fields.bn254 import R as ORDER
 
     assert kernel_madd_levels() == [[("x1", "qx"), ("y1", "qy"), ("x1+y1", "qxy"), ("z1", "qy"), ("z1", "qx")],
@@ -403,3 +462,115 @@ def test_ladder_model_matches_plain_and_rcb():
         assert tuple(_int(t[i]) for t in got) == want, f"lane {i}"
         assert rcb_ladder(mont[i], scal[i], 254) == want, f"lane {i}"
     assert G1.unpack_jacobian(got) == [None if p is None else ch.pt_mul(p, s % ORDER) for p, s in zip(pts, scal)]
+
+
+# -- the compact msm's jac_sum and jac_horner --
+
+def jac_ints(pt, rng) -> tuple:
+    """A host affine point (None the identity, (1, 1, 0)) -> Montgomery
+    Jacobian ints under a random z."""
+    if pt is None:
+        return R, R, 0
+    z = int(rng.randint(1, 2**62)) ** 4 % P
+    return pt[0] * z * z * R % P, pt[1] * z ** 3 * R % P, z * R % P
+
+
+def inverse_pair_inf() -> tuple:
+    """What `add` leaves on an inverse pair P + (-P) (cuda_curve.add_plain):
+    the generic x3 and y3, z3 = 0."""
+    x, y, z = (_limbs([v]) for v in jac_ints(ch.pt_mul(ch.g1_gen(), 5), np.random.RandomState(7)))
+    got = tuple(_int(t) for t in cc.add_plain(x, y, z, x, tf.neg(tf.FQ, y), z))
+    assert got[2] == 0 and (got[0], got[1]) != (R, R)
+    return got
+
+
+def test_jac_chain_schedules():
+    """The chain kernels' source as the models run it: the load a thread's
+    own products with the identity set where Z = 0, before any product; the
+    store's two levels (X Z and Z^2 by picks, then Y Z^2); jac_sum's chunks
+    of HORNER_THREADS operands, thread t loading operand k + t, added in
+    order; jac_horner's load of windows t, t + 32, ..., horner_kernel's walk
+    (one body, horner_walk, which both kernels call) and the store; and the
+    one store of all three chain kernels."""
+    load = body_of("__device__ __forceinline__ Proj load_jac_proj(")
+    marks = ["if (fe_is_zero(zz)) return Proj{fe_zero(), fe_one<FQ>(), fe_zero()};",
+             "return Proj{fe_mul<FQ>(load_limbs16(x + i * 16), zz), load_limbs16(y + i * 16), "
+             "fe_mul<FQ>(fe_sqr<FQ>(zz), zz)};"]
+    assert [load.index(m) for m in marks] == sorted(load.index(m) for m in marks) and "level(" not in load
+    store = body_of("__device__ __forceinline__ void store_proj_jac(")
+    assert kernel_picks("store_proj_jac", "__device__ __forceinline__ void") == [["acc.x", "acc.z"]]
+    for m in ("const int h = threadIdx.x & 1;", "level(lv[0], 2, pick(h, acc.x, acc.z), acc.z);",
+              "level(lv[1], 1, acc.y, get_fe(lv[0][1]));", "inf ? fe_one<FQ>() : xz"):
+        assert m in store, m
+    sums = body_of("    jac_sum_kernel(const int32_t*")
+    marks = ["for (int k = 0; k < K; k += HORNER_THREADS)", "const int m = min(K - k, HORNER_THREADS);",
+             "if ((int)threadIdx.x < m) put_proj(chunk + 24 * threadIdx.x, load_jac_proj(x, y, z, (k + threadIdx.x) * n + i));",
+             "__syncwarp();", "for (int j = 0; j < m; j++) acc = horner_add(acc, window_sum(chunk, j), lv);",
+             "store_proj_jac(ox, oy, oz, i, acc, lv);"]
+    assert [sums.index(m) for m in marks] == sorted(sums.index(m) for m in marks)
+    horner = body_of("    jac_horner_kernel(const int32_t*")
+    marks = ["for (int w = threadIdx.x; w < W; w += HORNER_THREADS) put_proj(win + 24 * w, load_jac_proj(x, y, z, w));",
+             "__syncwarp();", "store_proj_jac(ox, oy, oz, 0, horner_walk(win, W, c, lv), lv);"]
+    assert [horner.index(m) for m in marks] == sorted(horner.index(m) for m in marks)
+    assert "horner_walk(win, W, c, lv)" in body_of("    horner_kernel(const int32_t*")
+    src = open(CURVE_CU).read()
+    assert src.count("horner_dbl(acc, lv)") == 2 and src.count("acc = horner_add(") == 2  # the walk, the ladder, the sum
+    assert src.count("store_proj_jac(ox, oy, oz,") == 3
+
+
+@pytest.mark.parametrize("K", [1, 32, 33, 64])
+def test_jac_sum_model_matches_plain_and_rcb(K):
+    """jac_sum's kernel model on two lanes of K operands (a chunk boundary
+    at 32) limb for limb against jac_sum_plain (the wrapper on CPU tensors)
+    and the Python-int RCB sum, and as points against the host's sums.
+    Lane 0 starts with a Jacobian infinity with X, Y != (1, 1) (an inverse
+    pair's `add` output) and holds the identity (1, 1, 0) at K // 2; in lane
+    1 (K > 2) operand 1 equals the accumulator (operand 0) and operand 2 is
+    its negation's double, -2 P_0, so the sum goes back to the identity."""
+    rng = np.random.RandomState(K)
+    host = [[ch.pt_mul(ch.g1_gen(), int(rng.randint(1, 2**62))) for _ in range(K)] for _ in range(2)]
+    host[0][K // 2] = None
+    if K > 2:
+        host[1][1] = host[1][0]
+        host[1][2] = ch.pt_neg(ch.pt_dbl(host[1][0]))
+    ops = [[jac_ints(pt, rng) for pt in lane] for lane in host]
+    ops[0][0], host[0][0] = inverse_pair_inf(), None
+    x, y, z = (torch.stack([_limbs([op[k] for op in lane]) for lane in ops], 1) for k in range(3))
+    got = cc.jac_sum(x, y, z)
+    for lane in range(2):
+        want = model_jac_sum(ops[lane])
+        assert tuple(_int(t[lane]) for t in got) == want, f"lane {lane}"
+        assert rcb_jac_sum(ops[lane]) == want, f"lane {lane}"
+    sums = [None, None]
+    for lane in range(2):
+        for pt in host[lane]:
+            sums[lane] = ch.pt_add(sums[lane], pt)
+    assert G1.unpack_jacobian(got) == sums
+
+
+@pytest.mark.parametrize("W, c", [(1, 3), (6, 2)])
+def test_jac_horner_model_matches_plain_and_rcb(W, c):
+    """jac_horner's kernel model limb for limb against jac_horner_plain (the
+    wrapper on CPU tensors) and the Python-int RCB fold between the same
+    load and store, and as a point against the host's sum: at W = 1 (the
+    load and the store alone) and at W = 6, c = 2 on edge windows: window
+    W-2 is 2^c S_(W-1) (the first add doubles), W-3 is -2^(2c+1) S_(W-1)
+    (the second gives the identity), window 1 an inverse pair's `add`
+    output and window 0 the identity (1, 1, 0)."""
+    rng = np.random.RandomState(40 + W)
+    ws = [ch.pt_mul(ch.g1_gen(), int(rng.randint(1, 2**62))) for _ in range(W)]
+    if W >= 6:
+        ws[W - 2] = ch.pt_mul(ws[W - 1], 1 << c)
+        ws[W - 3] = ch.pt_neg(ch.pt_mul(ws[W - 1], 1 << (2 * c + 1)))
+        ws[0] = ws[1] = None
+    win = [jac_ints(pt, rng) for pt in ws]
+    if W >= 6:
+        win[1] = inverse_pair_inf()
+    got = cc.jac_horner(*(_limbs([w[k] for w in win]) for k in range(3)), c)
+    want = model_jac_horner(win, c)
+    assert tuple(_int(t) for t in got) == want
+    assert proj_to_jac(rcb_fold([jac_to_proj(w) for w in win], c)) == want
+    host = None
+    for w, pt in enumerate(ws):
+        host = ch.pt_add(host, None if pt is None else ch.pt_mul(pt, 1 << (c * w)))
+    assert G1.unpack_jacobian(Jac(*(t[None] for t in got))) == [host]

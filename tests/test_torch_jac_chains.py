@@ -5,23 +5,24 @@ against the loops of single ops they replace and the JAX package:
 
 - each chain wrapper on CPU tensors against the loop the compact msm ran
   before it, CurveOps' ladder, sum_in_order and horner through G1's
-  single-op wrappers (dbl, add and add_mixed): jac_sum and jac_horner limb
-  for limb; jac_ladder, which runs the ladder on the complete projective
-  formulas (jac_ladder_plain), as affine points;
+  single-op wrappers (dbl, add and add_mixed), as affine points: the chains
+  run the complete projective formulas (jac_ladder_plain, jac_sum_plain,
+  jac_horner_plain), whose limbs tests/test_torch_horner.py holds to the
+  kernels' models and Python-int RCB chains;
 - each against an eager walk of the Pallas bodies `_dbl_tiles`,
   `_madd_tiles` and `_add_tiles` (no pallas_call; their field ops
   `tile_mul`, `tile_add` and `tile_sub` each jitted alone, which keeps the
   walk to seconds) at a short ladder (nbits = 16: the JAX `_msm_ladder`'s
-  steps, held as affine points) and a small Horner (W = 3, c = 2), limb for
-  limb;
+  steps), a sum of K = 4 and a small Horner (W = 3, c = 2), as affine
+  points;
 - msm/pippenger.py::msm on BN254 G1 at 1, 5, 28, 32 and 33 points (32-bit
   scalars, nbits = 32) as points against curves/host.py::msm_host, with one
   jac_ladder call a ladder, one jac_horner call a bucket MSM, and no dbl
   call and no one-lane add call left.
 
 On the CPU every wrapper runs its plain version; chip_smoke.py holds the
-kernels against them on the card, at the main paths' shapes and with the
-escapes' edge lanes.
+kernels against them on the card, at the main paths' shapes and on edge
+lanes.
 """
 import random
 
@@ -74,9 +75,10 @@ def _jacobian(pts: list, r: random.Random) -> Jac:
 def _inputs(seed: int = 13):
     """LANES affine points (an identity lane) with 16-bit scalars (0, 1 and
     2^16 - 1 among them); a (K=4, LANES) Jacobian stack with an identity, a
-    doubling (P added to P) and an inverse pair; and LANES sets of W=3
+    doubling (P added to P), an inverse pair and a Jacobian infinity with
+    X, Y != (1, 1) (an inverse pair's `add` output); and LANES sets of W=3
     Jacobian window sums, set i in lane i of a (3, LANES) stack, one with
-    an identity window."""
+    an identity window and one with the `add` output's infinity."""
     r = random.Random(seed)
     g = ch.g1_gen()
     pts = [ch.pt_mul(g, r.randrange(1, R)) for _ in range(LANES)]
@@ -94,6 +96,12 @@ def _inputs(seed: int = 13):
     ws[0][3] = None
     ws = [_jacobian(row, r) for row in ws]
     ws = Jac(*(torch.stack([w[k] for w in ws]) for k in range(3)))
+    p = _jacobian([ch.pt_mul(g, 7)], r)
+    inf = cc.add_plain(*p, p.x, tf.neg(tf.FQ, p.y), p.z)  # z = 0 under the generic x3, y3
+    for a, b in zip(stack, inf):
+        a[3, 3] = b[0]
+    for a, b in zip(ws, inf):
+        a[1, 2] = b[0]
     return (ax, ay, sc), stack, ws
 
 
@@ -101,15 +109,24 @@ def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _points(p) -> list:
+    """One Jacobian point's (16,) limbs -> [its host affine point]."""
+    return G1.unpack_jacobian(Jac(*(a[None] for a in p)))
+
+
 def test_chain_wrappers_match_the_single_op_loops():
     (ax, ay, sc), stack, ws = _inputs()
     lad = cc.jac_ladder(ax, ay, sc, NBITS)
     assert _same(lad, cc.jac_ladder_plain(ax, ay, sc, NBITS))
     assert G1.unpack_jacobian(lad) == G1.unpack_jacobian(CurveOps.ladder(G1, ax, ay, sc, NBITS))
-    assert _same(cc.jac_sum(*stack), CurveOps.sum_in_order(G1, stack))
+    sums = cc.jac_sum(*stack)
+    assert _same(sums, cc.jac_sum_plain(*stack))
+    assert G1.unpack_jacobian(sums) == G1.unpack_jacobian(CurveOps.sum_in_order(G1, stack))
     for lane in range(LANES):
         x, y, z = (a[:, lane].contiguous() for a in ws)
-        assert _same(cc.jac_horner(x, y, z, 2), CurveOps.horner(G1, Jac(x, y, z), 2)), f"Horner set {lane}"
+        got = cc.jac_horner(x, y, z, 2)
+        assert _same(got, cc.jac_horner_plain(x, y, z, 2)), f"Horner set {lane}"
+        assert _points(got) == _points(CurveOps.horner(G1, Jac(x, y, z), 2)), f"Horner set {lane}"
     # the ladder's lanes are the host's multiples, the sum the host's sum
     got = G1.unpack_jacobian(cc.jac_ladder(ax, ay, sc, NBITS))
     pts = G1.unpack_affine(ax, ay)
@@ -123,8 +140,9 @@ def test_chain_wrappers_match_the_single_op_loops():
 
 def test_chains_match_pallas_bodies(monkeypatch):
     """The chains against eager walks of the Pallas bodies at (16, LANES)
-    tiles: the ladder's dbl, madd and select a step; the sum's adds; the
-    Horner's doubles and adds, LANES independent sets a tile."""
+    tiles, as affine points: the ladder's dbl, madd and select a step; the
+    sum's adds; the Horner's doubles and adds, LANES independent sets a
+    tile."""
     for name in ("tile_mul", "tile_add", "tile_sub"):  # the bodies look them up at call time
         monkeypatch.setattr(pc, name, jax.jit(getattr(pc, name)))
     (ax, ay, sc), stack, ws = _inputs()
@@ -142,16 +160,16 @@ def test_chains_match_pallas_bodies(monkeypatch):
     acc = inf
     for j in range(stack.x.shape[0]):
         acc = pc._add_tiles(*acc, *(_tiles(a[j]) for a in stack), p_col)
-    assert _same(cc.jac_sum(*stack), [_limbs(t) for t in acc])
+    assert G1.unpack_jacobian(cc.jac_sum(*stack)) == G1.unpack_jacobian(Jac(*(_limbs(t) for t in acc)))
     acc = tuple(_tiles(a[2]) for a in ws)
     for w in (1, 0):
         for _ in range(2):
             acc = pc._dbl_tiles(*acc, p_col)
         acc = pc._add_tiles(*acc, *(_tiles(a[w]) for a in ws), p_col)
-    want = [_limbs(t) for t in acc]
+    want = G1.unpack_jacobian(Jac(*(_limbs(t) for t in acc)))
     for lane in range(LANES):
         got = cc.jac_horner(*(a[:, lane].contiguous() for a in ws), 2)
-        assert _same(got, [t[lane] for t in want]), f"Horner set {lane}"
+        assert _points(got) == [want[lane]], f"Horner set {lane}"
 
 
 @pytest.mark.parametrize("n", [1, 5, 28, 32, 33])

@@ -1,7 +1,7 @@
 """A Python model of the BN254 G1 Jacobian doubling and add of the port's dbl
 and add kernels (hekaton_tpu_torch/csrc/curve.cu: dbl_kernel on the device
 function jac_dbl, add_kernel on add_diffs and madd_finish with the doubling
-escape madd_dbl_lane; the chain kernels' jac_add on the same functions)
+escape madd_dbl_lane)
 against the port's plain versions, the JAX package's Pallas bodies and
 plain Python-int formulas.
 
@@ -178,29 +178,30 @@ def test_dbl_add_lazy_bounds_hold_at_their_worst_case():
 
 
 def test_add_branches_in_add_tiles_order():
-    """add_kernel and the chains' jac_add take _add_tiles' overrides in its
-    order: P = inf (Q's limbs, two infinities too) before Q = inf, both
-    before any product; then the doubling escape, then the inverse pair's
-    z3 = 0 after the generic finish; dbl_kernel and jac_dbl's callers take
-    no branch. jac_ladder_kernel (complete RCB formulas, no escapes) finds
-    a (0,0) base or a zero scalar before its ladder, and the identity only
-    at the end, for the Jacobian form."""
+    """add_kernel takes _add_tiles' overrides in its order: P = inf (Q's
+    limbs, two infinities too) before Q = inf, both before any product;
+    then the doubling escape, then the inverse pair's z3 = 0 after the
+    generic finish; dbl_kernel and jac_dbl's callers take no branch. The
+    chain kernels run the complete RCB formulas, with no escapes:
+    jac_ladder_kernel finds a (0,0) base or a zero scalar before its
+    ladder, and the identity only at the end, for the Jacobian form;
+    jac_sum_kernel and jac_horner_kernel test only each operand's Z, in
+    the load (load_jac_proj)."""
     body = rk._body("    add_kernel(const int32_t*")
     marks = ["const bool p_inf = fe_is_zero(z1);", "if (p_inf || fe_is_zero(qz))", "p_inf ? x2 : x",
              "p_inf ? qz : z1", "add_diffs(", "madd_dbl_lane(", "madd_finish(u1, s1, z1z2",
              "if (same_x) z3 = fe_zero();"]
     at = [body.index(m) for m in marks]
     assert at == sorted(at), "add_kernel's branches are not in _add_tiles' order"
-    body = rk._body("__device__ __forceinline__ Jac jac_add(")
-    marks = ["if (fe_is_zero(p.z)) return q;", "if (fe_is_zero(q.z)) return p;", "add_diffs(", "jac_dbl(",
-             "madd_finish(u1, s1, z1z2", "if (fe_is_zero(h)) r.z = fe_zero();"]
-    at = [body.index(m) for m in marks]
-    assert at == sorted(at), "jac_add's branches are not in _add_tiles' order"
     body = rk._body("    jac_ladder_kernel(const int32_t*")
     marks = ["if (!(fe_is_zero(qx) && fe_is_zero(qy)))", "if (top >= 0)", "horner_dbl(acc, lv)",
-             "if ((limb >> (j % 16)) & 1) acc = horner_madd(", "const bool inf = fe_is_zero(acc.z);"]
+             "if ((limb >> (j % 16)) & 1) acc = horner_madd(", "store_proj_jac(ox, oy, oz, i, acc, lv);"]
     at = [body.index(m) for m in marks]
     assert at == sorted(at), "jac_ladder_kernel: the (0,0) base and zero scalar not before the ladder"
+    assert "const bool inf = fe_is_zero(acc.z);" in rk._body("__device__ __forceinline__ void store_proj_jac(")
+    for head in ("    jac_sum_kernel(const int32_t*", "    jac_horner_kernel(const int32_t*"):
+        assert "fe_is_zero" not in rk._body(head) and "load_jac_proj(" in rk._body(head), head
+    assert rk._body("__device__ __forceinline__ Proj load_jac_proj(").count("fe_is_zero") == 1
     assert " if " not in rk._body("    dbl_kernel(const int32_t*").replace("if (i >= n) return;", "")
 
 

@@ -11,7 +11,7 @@ per-proof verify, aggregation and aggregate verify. A lazy import that
 reaches JAX or the JAX package at run time fails it. It then runs msm_gpu
 along the tsort, gather and affine steps routes against msm_host, the
 compact msm's chain wrappers (jac_ladder, jac_sum, jac_horner) against
-their loops of single ops, the G2 Horner fold (horner_fold_g2) against the
+their loops of single ops (as points), the G2 Horner fold (horner_fold_g2) against the
 loop of G2 doublings and adds it replaces, msm_gpu on
 BLS12-381 G1 against a host sum, and the device exec tree against the host
 tree. tests/test_torch_slice.py runs stage 1 on TorchBackend.
@@ -96,15 +96,16 @@ SCRIPT = textwrap.dedent(
             out = pip.msm_gpu(ax, ay, pip.pack_scalars(scalars, G1), c=6, L=4, **route)
         assert G1.unpack_jacobian(type(out)(*(a[None] for a in out)))[0] == ch.msm_host(pts, scalars), route
 
-    # the compact msm's chain wrappers against their loops of single ops (the
-    # ladder, on the complete projective formulas, as points)
+    # the compact msm's chain wrappers against their loops of single ops, as
+    # points (the chains run the complete projective formulas)
     from hekaton_tpu_torch.curves import cuda_curve as cc
     lx, ly, lsc = ax[:4], ay[:4], pip.pack_scalars(scalars[:4], G1)
     lad = cc.jac_ladder(lx, ly, lsc, 8)
     assert G1.unpack_jacobian(lad) == G1.unpack_jacobian(CurveOps.ladder(G1, lx, ly, lsc, 8))
     stack = Jac(*(torch.stack([a, a.flip(0)]) for a in lad))
-    assert all(torch.equal(a, b) for a, b in zip(cc.jac_sum(*stack), CurveOps.sum_in_order(G1, stack)))
-    assert all(torch.equal(a, b) for a, b in zip(cc.jac_horner(*lad, 2), CurveOps.horner(G1, lad, 2)))
+    assert G1.unpack_jacobian(cc.jac_sum(*stack)) == G1.unpack_jacobian(CurveOps.sum_in_order(G1, stack))
+    one = lambda p: G1.unpack_jacobian(Jac(*(a[None] for a in p)))
+    assert one(cc.jac_horner(*lad, 2)) == one(CurveOps.horner(G1, lad, 2))
     print("chains", flush=True)
 
     # the G2 window Horner fold against the loop of single G2 ops it replaces

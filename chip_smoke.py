@@ -74,11 +74,25 @@ native host library). Phases, one line each, every failure raises:
        stage 0, stage 1, per-proof verify, SnarkPack aggregation and
        aggregate verify; a tampered proof is rejected; the stage-1 proofs
        equal HostBackend's bit for bit; backend.ran shows no host route;
+     - mesh: the slice's keys and requests through the port's mesh runtime
+       (runtime/mesh_prover.py::MeshProver) on a world of one rank over
+       NCCL on the card (the card runs one rank): stage 0 and stage 1, whose
+       commitments and proofs must equal the slice's bit for bit; stage 0
+       again with force_ladder (every commitment MSM on jac_ladder and
+       jac_sum), its commitments equal to the default path's; the sharded
+       NTT (ntt/sharded.py) at D = 1 at configuration 1's domain size
+       against the port's ntt, forward and inverse;
      - cli: BASELINE.json configuration 4 (VM, cut) and configuration 1
        through the port's CLI in-process (CLI_RUNS): `setup-*`, then `work
        --spill-dir`, which must print that the aggregate proof verified and
        round-trip stage 0 through the wire format; configuration 1's stage-0
-       commitments take the compact msm;
+       commitments take the compact msm; configuration 1's key file then
+       through `work --mesh 1x1`, which must print the mesh line and verify
+       the aggregate;
+     after the main paths, [sha256]: hashes/sha256_torch.py on 2^20
+     messages of 64 bytes (one Merkle level of two-child hashes, two
+     blocks each) on the card, every digest against hashlib, with its time
+     and rate (plain PyTorch: no kernel of its own);
      after msm_bls, [batch_inv]: tf.batch_inv's calls on SWEPT_PATHS,
      recorded by (field, lanes), each timed at every root width of
      ROOT_WIDTHS (and held bit for bit against no tree), summed per path;
@@ -185,7 +199,9 @@ ROOT_WIDTHS = (1024, 4096, 16384, 65536, 1 << 18, None)
 SWEPT_PATHS = ("msm_g1", "unfused_affine", "msm_bls")
 N_TREE = 1 << 16  # transcript entries of the exec_tree phase
 N_TREE_SUB = 32  # its subcircuits
-# The [cli] phase's CLI runs: (label, setup command). BASELINE.json
+N_SHA = 1 << 20  # messages of the [sha256] phase: one Merkle level of two-child hashes
+# The [cli] phase's CLI runs: (label, setup command, whether its key file
+# also goes through `work --mesh 1x1`). BASELINE.json
 # configuration 4 (VM, 32 subcircuits, 1,024 cycles per subcircuit) is cut to
 # fit the script's time limit: a VM subcircuit holds ~1,000 constraints per
 # cycle, and at full size setup took ~300 s and stage 1 did not end within
@@ -195,9 +211,9 @@ N_TREE_SUB = 32  # its subcircuits
 # through the CLI as well: its stage-0 commitments take the compact msm.
 CLI_RUNS = (
     ("configuration 4 cut to VM, 8 subcircuits, 256 cycles each",
-     ["setup-vm", "--num-subcircuits", "8", "--num-cycles-per-subcircuit", "256"]),
+     ["setup-vm", "--num-subcircuits", "8", "--num-cycles-per-subcircuit", "256"], False),
     ("configuration 1 (Big-Merkle, 4 subcircuits, 1 SHA2 iteration, 8 portals)",
-     ["setup-big-merkle", "--num-subcircuits", "4", "--num-sha2-iters", "1", "--num-portals", "8"]),
+     ["setup-big-merkle", "--num-subcircuits", "4", "--num-sha2-iters", "1", "--num-portals", "8"], True),
 )
 
 # The bound of a kernel: the larger of its bytes over the card's memory rate
@@ -1707,9 +1723,11 @@ def slice_circuit(h):
     return "big-merkle", h.MerkleTreeCircuit.rand(h.Rng.from_int(1000), params)
 
 
-def run_work(h, keys, backend, circ):
+def run_work(h, keys, backend, circ, mesh_prover=None):
     """cmd_work's calls through the port: stage 0, stage 1 (stateless
-    recommit), returning (responses 0, responses 1, ipp key, agg state, secs)."""
+    recommit), or with `mesh_prover` both stages through its stage0_all and
+    stage1_all; returns (requests 0, responses 0, responses 1, ipp key, agg
+    state, secs)."""
     from hekaton_tpu_torch.protocol.coordinator import CoordinatorStage0State
     from hekaton_tpu_torch.protocol.worker import process_stage0_request, process_stage1_request
 
@@ -1718,8 +1736,11 @@ def run_work(h, keys, backend, circ):
     t0 = time.perf_counter()
     stage0 = CoordinatorStage0State(circ)
     reqs0 = [stage0.gen_request(i) for i in range(n)]
-    resps0 = [process_stage0_request(rng.fork(str(i).encode()), type(circ), keys.get_pk(i), reqs0[i], backend)
-              for i in range(n)]
+    if mesh_prover is not None:
+        resps0 = mesh_prover.stage0_all(rng, type(circ), reqs0)
+    else:
+        resps0 = [process_stage0_request(rng.fork(str(i).encode()), type(circ), keys.get_pk(i), reqs0[i], backend)
+                  for i in range(n)]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     ipp_ck = h.ipp_setup(n, h.Rng.from_int(2000))
@@ -1727,14 +1748,17 @@ def run_work(h, keys, backend, circ):
     reqs1 = [stage1.gen_request(i) for i in range(n)]
     agg_state = stage1.into_agg_state()
     t2 = time.perf_counter()
-    resps1 = [
-        process_stage1_request(rng.fork(b"s1" + str(i).encode()), type(circ), keys.get_pk(i), reqs0[i],
-                               resps0[i], reqs1[i], backend)
-        for i in range(n)
-    ]
+    if mesh_prover is not None:
+        resps1 = mesh_prover.stage1_all(rng, type(circ), reqs1)
+    else:
+        resps1 = [
+            process_stage1_request(rng.fork(b"s1" + str(i).encode()), type(circ), keys.get_pk(i), reqs0[i],
+                                   resps0[i], reqs1[i], backend)
+            for i in range(n)
+        ]
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    return resps0, resps1, ipp_ck, agg_state, {"stage0": t1 - t0, "exec_tree": t2 - t1, "stage1": t3 - t2}
+    return reqs0, resps0, resps1, ipp_ck, agg_state, {"stage0": t1 - t0, "exec_tree": t2 - t1, "stage1": t3 - t2}
 
 
 class Tee(io.StringIO):
@@ -1748,8 +1772,9 @@ class Tee(io.StringIO):
 
 def cli_phase(card: str) -> None:
     """CLI_RUNS through the port's CLI, in-process, on the card: each a
-    setup, then work with the stage-0 state spilled to disk. The G1
-    compact msm must have run."""
+    setup, then work with the stage-0 state spilled to disk; configuration
+    1's key file then through `work --mesh 1x1` (a world of one rank on the
+    card). The G1 compact msm must have run."""
     from hekaton_tpu_torch import cli
 
     made = []
@@ -1758,7 +1783,7 @@ def cli_phase(card: str) -> None:
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     compact = 0
-    for label, setup in CLI_RUNS:
+    for label, setup, with_mesh in CLI_RUNS:
         out = Tee()
         t = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=build) as tmp, contextlib.redirect_stdout(out):
@@ -1766,7 +1791,15 @@ def cli_phase(card: str) -> None:
             cli.main(["--backend", "gpu", *setup, "--key-out", key])
             t_setup = time.perf_counter() - t
             cli.main(["--backend", "gpu", "work", "--key-file", key, "--spill-dir", os.path.join(tmp, "spill")])
-        t_all = time.perf_counter() - t
+            t_all = time.perf_counter() - t
+            ran = made[-1].ran
+            mesh_text = None
+            if with_mesh:
+                mesh_out = Tee()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(mesh_out):
+                    cli.main(["--backend", "gpu", "work", "--key-file", key, "--mesh", "1x1"])
+                t_mesh, mesh_text = time.perf_counter() - t, mesh_out.getvalue()
         text = out.getvalue()
         require("[work] aggregate proof verified: True" in text, f"cli, {label}: the aggregate proof did not verify")
         require("(wire format)" in text, f"cli, {label}: stage 0 was not spilled through the wire format")
@@ -1778,13 +1811,100 @@ def cli_phase(card: str) -> None:
 
         setup_s = secs(r"\[setup\] .*, ([\d.]+)s -> ")
         s0, s1, agg = (secs(rf"\[work\] {k} done \(([\d.]+)s\)") for k in ("stage0", "stage1", "aggregation"))
-        ran = made[-1].ran
         compact += ran["g1_msm_compact"]
         log(f"[cli] {label} on {card}: setup {setup_s} s (CLI line; {t_setup:.1f} s in all), stage 0 {s0} s, "
             f"stage 1 {s1 - s0:.1f} s (with the spill), aggregation {agg - s1:.1f} s, the whole run {t_all:.1f} s; "
             f"work backend.ran {ran}")
+        if mesh_text is not None:
+            require("[work] mesh 1x1 (sub x pts) over 1 devices" in mesh_text, f"cli, {label}: no mesh line")
+            require("[work] aggregate proof verified: True" in mesh_text,
+                    f"cli, {label}: work --mesh 1x1: the aggregate proof did not verify")
+            m0, m1, magg = (float(re.search(rf"\[work\] {k} done \(([\d.]+)s\)", mesh_text).group(1))
+                            for k in ("stage0", "stage1", "aggregation"))
+            log(f"[cli] {label} work --mesh 1x1 on {card}: stage 0 {m0} s, stage 1 {m1 - m0:.1f} s, aggregation "
+                f"{magg - m1:.1f} s, the whole run {t_mesh:.1f} s; aggregate proof verified")
     cli._backend = make_backend
     require(compact > 0, "cli: no G1 MSM took the compact route")
+
+
+def mesh_phase(h, keys, circ, slice_out: dict, card: str, rs) -> None:
+    """[mesh]: the slice's keys and requests through MeshProver on a world of
+    one rank on the card (NCCL), its commitments and proofs against the
+    slice's; stage 0 again with force_ladder; the sharded NTT at D = 1 at
+    the slice's domain size against the port's ntt."""
+    import torch.distributed as dist
+
+    from hekaton_tpu_torch.fields import torch_field as tf
+    from hekaton_tpu_torch.ntt import ntt as nttm
+    from hekaton_tpu_torch.ntt.sharded import make_sharded_ntt
+    from hekaton_tpu_torch.runtime.mesh_prover import MeshProver
+    from hekaton_tpu_torch.runtime.spmd import make_mesh
+
+    t = time.perf_counter()
+    mesh = make_mesh(device=DEVICE)
+    require(dist.get_backend() == ("nccl" if DEVICE == "cuda" else "gloo") and mesh.shape == (1, 1)
+            and mesh.device.type == torch.device(DEVICE).type,
+            f"mesh: {mesh.shape} on {mesh.device} over {dist.get_backend()}")
+    init_s = time.perf_counter() - t
+    n, ssecs = slice_out["n"], slice_out["secs"]
+    reqs0, resps0, resps1, _, _, msecs = run_work(h, keys, None, circ, mesh_prover=MeshProver(mesh, keys))
+    require([r.com for r in resps0] == [r.com for r in slice_out["resps0"]],
+            "mesh: stage-0 commitments differ from the slice's")
+    for i in range(n):
+        p, q = resps1[i].proof, slice_out["resps1"][i].proof
+        require((p.a, p.b, p.c, p.ds) == (q.a, q.b, q.c, q.ds), f"mesh: stage-1 proof {i} differs from the slice's")
+    log(f"[mesh] {n} subcircuits on a 1x1 mesh ({dist.get_backend()}, world of one rank, group set up in "
+        f"{init_s:.2f} s) on {card}: "
+        f"stage0 {msecs['stage0']:.2f} s, stage1 {msecs['stage1']:.2f} s against the slice's sequential "
+        f"{ssecs['stage0']:.2f} s / {ssecs['stage1']:.2f} s; commitments and proofs equal the slice's bit for bit")
+
+    ladder = MeshProver(mesh, keys, force_ladder=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lad0 = ladder.stage0_all(h.Rng.from_int(1000), type(circ), reqs0)
+    torch.cuda.synchronize()
+    lad_s = time.perf_counter() - t
+    require([r.com for r in lad0] == [r.com for r in resps0], "mesh: force_ladder stage-0 commitments differ")
+    widths = sorted({len(pk.ck.deltas_abc_g[0]) for pk in keys.minimal_pks.values()})
+    log(f"[mesh] stage0 with force_ladder (stage-0 widths {widths}; jac_ladder and jac_sum, one batch a domain "
+        f"size) on {card}: "
+        f"{lad_s:.3f} s (host synthesis included) against {msecs['stage0']:.3f} s on the default route; "
+        f"commitments equal")
+
+    m = max(pk.domain_size for pk in keys.minimal_pks.values())
+    x = tf.tensor(tf.FR.pack([int.from_bytes(rs.bytes(32), "little") % h.R for _ in range(m)]), DEVICE)
+    fwd, inv = make_sharded_ntt(mesh, m), make_sharded_ntt(mesh, m, inverse=True)
+    got = fwd(x)
+    require(torch.equal(got, nttm.ntt(x)) and torch.equal(inv(got), x), f"mesh: sharded NTT at n={m} differs")
+    # in turns (sharded, ntt, ntt, sharded): both issue their launches from the host
+    turns = [cuda_ms(fn, 5) for fn in (lambda: fwd(x), lambda: nttm.ntt(x), lambda: nttm.ntt(x), lambda: fwd(x))]
+    log(f"[mesh] sharded NTT at D = 1, n = {m}: equals ntt forward and back; {turns[0]:.3f}, {turns[3]:.3f} ms "
+        f"against ntt's {turns[1]:.3f}, {turns[2]:.3f} ms (in turns, CUDA events around host-issued launches) on "
+        f"{card}")
+
+
+def sha256_phase(card: str, rs) -> None:
+    """[sha256]: N_SHA 64-byte messages (two 32-byte children each) through
+    hashes/sha256_torch.py on the card, every digest against hashlib."""
+    import hashlib
+
+    from hekaton_tpu_torch.hashes import sha256_torch as sha
+
+    children = rs.bytes(64 * N_SHA)
+    msgs = [children[64 * i: 64 * (i + 1)] for i in range(N_SHA)]
+    t = time.perf_counter()
+    got = sha.sha256_bytes_batch(msgs, device=DEVICE)
+    first = time.perf_counter() - t
+    t = time.perf_counter()
+    sha.sha256_bytes_batch(msgs, device=DEVICE)
+    warm = time.perf_counter() - t
+    require(got == [hashlib.sha256(m).digest() for m in msgs], "sha256: a digest differs from hashlib's")
+    blocks = torch.from_numpy(sha.messages_to_blocks(msgs)).to(DEVICE)
+    dev_ms = cuda_ms(lambda: sha.sha256_blocks(blocks), 3)
+    log(f"[sha256] {N_SHA} messages of 64 bytes ({blocks.shape[1]} blocks each) equal hashlib's on {card}: "
+        f"sha256_bytes_batch first {first:.3f} s, warm {warm:.3f} s ({N_SHA / warm:,.0f} hashes/s, host packing "
+        f"and digest bytes included); the compressions alone {dev_ms:.2f} ms ({N_SHA / dev_ms * 1e3:,.0f} "
+        f"hashes/s, CUDA events)")
 
 
 def bls_paths(h, pip, main_path, bn254_kernels: list, card: str, rs, c: int, L: int) -> None:
@@ -2156,7 +2276,7 @@ def main() -> int:
     # after the output pointers (lanes and nbits, lanes and K, W and c) that
     # every chain wrapper passes to cuda_curve._launch_chain. The compact
     # msm's BN254 G1 runs by kind: a ladder (N <= MSM_LADDER_THRESHOLD)
-    # launches jac_ladder once, a bucket MSM jac_horner once (TorchBackend
+    # launches jac_ladder once, a bucket MSM jac_horner once an MSM (TorchBackend
     # looks pippenger's msm up at call time)
     launch_chain = cc._launch_chain
     chain_shape = {"jac_ladder": lambda t: t, "jac_sum": lambda t: (t[1], t[0]), "jac_horner": lambda t: t}
@@ -2170,13 +2290,27 @@ def main() -> int:
     compact_runs = {}
     compact = pip.msm
 
-    def recorded_msm(curve, ax, *rest, **kw):
+    def record_run(curve, ax, kind, n=1):
         if path_now[0] is not None and ax.is_cuda and pip._is_bn254_g1(curve):
             runs = compact_runs.setdefault(path_now[0], {"jac_ladder": 0, "jac_horner": 0})
-            runs["jac_ladder" if ax.shape[0] <= pip.MSM_LADDER_THRESHOLD else "jac_horner"] += 1
-        return compact(curve, ax, *rest, **kw)
+            runs[kind] += n
+
+    def recorded_msm(curve, ax, ay, scalars, *rest, **kw):
+        # a batched call ((B, N, 16) scalars, the mesh's) launches jac_horner once an MSM
+        if not pip.takes_ladder(scalars.shape[-2]):
+            record_run(curve, ax, "jac_horner", math.prod(scalars.shape[:-2]))
+        return compact(curve, ax, ay, scalars, *rest, **kw)
 
     pip.msm = recorded_msm
+    # a ladder (the compact msm's below MSM_LADDER_THRESHOLD points, or the
+    # mesh's batched and forced ones) launches jac_ladder once
+    ladder = pip._msm_ladder
+
+    def recorded_ladder(curve, ax, *rest, **kw):
+        record_run(curve, ax, "jac_ladder")
+        return ladder(curve, ax, *rest, **kw)
+
+    pip._msm_ladder = recorded_ladder
 
     # the level-1 slab kernels' launches by (columns, L): pippenger imports
     # them by name and calls them with the slab first
@@ -2374,7 +2508,7 @@ def main() -> int:
             f"G1 {secs['fixed_base_g1']:.1f} s, G2 {secs['fixed_base_g2']:.1f} s) and {setup_s - fb_s:.1f} s "
             f"outside it (host synthesis, QAP map); G1 MSM lengths {sizes}")
         secs["msm_g1"] = secs["msm_g2"] = 0.0
-        resps0, resps1, ipp_ck, agg_state, wsecs = run_work(h, keys, backend, circ)
+        _, resps0, resps1, ipp_ck, agg_state, wsecs = run_work(h, keys, backend, circ)
         n = circ.num_subcircuits()
         t = time.perf_counter()
         for i, r in enumerate(resps1):
@@ -2406,14 +2540,14 @@ def main() -> int:
                 and all(backend.ran[k] > 0 for k in ("g1_msm_compact", "g1_msm_gpu", "fixed_base_gpu",
                                                       "witness_map_gpu")),
                 f"a device route did not run: {backend.ran}")
-        slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n)
+        slice_out.update(keys=keys, circ=circ, resps0=resps0, resps1=resps1, n=n, secs=wsecs)
 
     main_path("slice", [k for k in kernels if k not in ROUTE_KERNELS + UNFUSED_KERNELS + BLS_KERNELS + NO_PATH_KERNELS],
               slice_path)
 
     host = HostBackend()
     keys, circ, n = slice_out["keys"], slice_out["circ"], slice_out["n"]
-    h0, h1, _, _, hsecs = run_work(h, keys, host, circ)
+    _, h0, h1, _, _, hsecs = run_work(h, keys, host, circ)
     require([r.com for r in h0] == [r.com for r in slice_out["resps0"]],
             "stage-0 commitments differ from HostBackend's")
     for i in range(n):
@@ -2422,7 +2556,19 @@ def main() -> int:
     log(f"[slice] all {n} stage-1 proofs equal HostBackend's bit for bit (HostBackend stage1 "
         f"{hsecs['stage1']:.2f} s)")
 
+    def mesh_path():
+        mesh_phase(h, keys, circ, slice_out, card, rs)
+
+    # stage 0 takes the ladder below MSM_LADDER_THRESHOLD points, the bucket msm above
+    m0 = max(len(pk.ck.deltas_abc_g[0]) for pk in keys.minimal_pks.values())
+    stage0_kernels = ["jac_ladder", "jac_sum"] + (["madd", "add", "jac_horner"] if m0 > pip.MSM_LADDER_THRESHOLD else [])
+    main_path("mesh", ["mont_mul", "fermat_inv", "aff_add_fused", "l1_aff_halves", "horner_fold", "pmadd_rcb_g2",
+                       "padd_rcb_g2", "horner_fold_g2", *stage0_kernels], mesh_path)
     main_path("cli", ["add", "madd", *CHAIN_KERNELS], lambda: cli_phase(card))
+    path_now[0] = None
+    sha256_phase(card, rs)
+    if torch.distributed.is_initialized():  # the [mesh] phase's group, which the CLI's mesh run reused
+        torch.distributed.destroy_process_group()
 
     log(f"[coverage] kernel launches over the main paths: {totals}")
     for name, widths in sorted(op_calls.items()):

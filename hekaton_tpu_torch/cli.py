@@ -11,14 +11,26 @@ or `host` (HostBackend). There is no fallback: `gpu` without a card fails.
     python -m hekaton_tpu_torch.cli --backend cpu work --key-file k.bin --spill-dir spill/
 
 `work` runs the two-stage proving pipeline in one process (the reference's
-all_in_one mode). The JAX CLI's `work --mesh` and `--force-ladder` (the
-mesh-sharded prover of hekaton_tpu/runtime/{spmd,mesh_prover}.py) are not
-ported yet: they come with the port's torch.distributed runtime. Host
-pairings and aggregation run on the coordinator, as in the JAX package.
+all_in_one mode). With `--mesh SUBxPTS` both prover stages run on the
+port's torch.distributed mesh (runtime/mesh_prover.py: subcircuits over
+`sub` rows of ranks, each MSM's points over the `pts` ranks of a row), one
+rank per device: NCCL on the card (`--backend gpu`), gloo on the CPU
+(`--backend cpu`); `--backend host` runs no mesh. One process is a world
+of one rank (`--mesh 1x1`); more ranks run under torchrun, every rank with
+the same arguments, and only rank 0 prints:
+
+    torchrun --nproc-per-node 4 -m hekaton_tpu_torch.cli --backend cpu work --key-file k.bin --mesh 2x2
+
+`--force-ladder` runs every mesh MSM on pippenger's double-and-add ladder.
+With `--spill-dir`, stage 1 is the sequential stateless recommit, as in the
+JAX CLI. Host pairings and aggregation run on the coordinator (on every
+rank), as in the JAX package; the exit status is the aggregate proof's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import sys
 import time
 
@@ -101,30 +113,66 @@ def _spill(spill_dir: str, circuit_cls, reqs0: list, resps0: list) -> tuple:
     return reqs0, resps0
 
 
+def _mesh_prover(args, keys):
+    """The MeshProver of `work --mesh SUBxPTS` on the backend's device, and
+    this process's rank."""
+    from .runtime.mesh_prover import MeshProver
+    from .runtime.spmd import make_mesh
+
+    if args.backend == "host":
+        raise SystemExit("work --mesh runs on a device backend (--backend gpu or cpu), not --backend host")
+    sub_ax, pts_ax = (int(x) for x in args.mesh.lower().split("x"))
+    mesh = make_mesh(sub_ax * pts_ax, sub=sub_ax, pts=pts_ax, device="cuda" if args.backend == "gpu" else "cpu")
+    return MeshProver(mesh, keys, force_ladder=args.force_ladder), mesh.rank
+
+
 def cmd_work(args):
+    import torch.distributed as dist
+
+    from .runtime.keys import ProvingKeys
+
+    keys = ProvingKeys.load(args.key_file)
+    own_group = args.mesh and not dist.is_initialized()
+    mesh_prover, rank = None, 0
+    try:
+        if args.mesh:
+            mesh_prover, rank = _mesh_prover(args, keys)
+        # only rank 0 prints; every rank runs the coordinator and checks the aggregate
+        with contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext():
+            _work(args, keys, mesh_prover)
+    finally:  # also when the mesh is refused, a stage raises or the aggregate fails (sys.exit)
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _work(args, keys, mesh_prover):
     from .protocol.aggregation import AggProvingKey, agg_transcript
     from .protocol.coordinator import CoordinatorStage0State
     from .protocol.ipp import ipp_setup
     from .protocol.tipa import tipa_key_from_ipp
     from .protocol.worker import process_stage0_request, process_stage1_request
-    from .runtime.keys import ProvingKeys
     from .utils.rng import Rng
 
     backend = _backend(args.backend)
-    keys = ProvingKeys.load(args.key_file)
     circ = _circuit(keys.circ_id, keys.params)
     circuit_cls = type(circ)
     n = circ.num_subcircuits()
     rng = Rng.from_int(1000)
     t0 = time.time()
 
+    if mesh_prover is not None:
+        sub_ax, pts_ax = mesh_prover.mesh.shape
+        print(f"[work] mesh {sub_ax}x{pts_ax} (sub x pts) over {sub_ax * pts_ax} devices")
     print(f"[work] {keys.circ_id}: {n} subcircuits, backend={backend.name}")
     stage0 = CoordinatorStage0State(circ)
     reqs0 = [stage0.gen_request(i) for i in range(n)]
-    resps0 = [
-        process_stage0_request(rng.fork(str(i).encode()), circuit_cls, keys.get_pk(i), reqs0[i], backend)
-        for i in range(n)
-    ]
+    if mesh_prover is not None:
+        resps0 = mesh_prover.stage0_all(rng, circuit_cls, reqs0)
+    else:
+        resps0 = [
+            process_stage0_request(rng.fork(str(i).encode()), circuit_cls, keys.get_pk(i), reqs0[i], backend)
+            for i in range(n)
+        ]
     print(f"[work] stage0 done ({time.time() - t0:.1f}s)")
     if args.spill_dir:
         reqs0, resps0 = _spill(args.spill_dir, circuit_cls, reqs0, resps0)
@@ -133,12 +181,15 @@ def cmd_work(args):
     stage1 = stage0.process_stage0_responses(ipp_ck, resps0)
     reqs1 = [stage1.gen_request(i) for i in range(n)]
     agg_state = stage1.into_agg_state()
-    resps1 = [
-        process_stage1_request(
-            rng.fork(b"s1" + str(i).encode()), circuit_cls, keys.get_pk(i), reqs0[i], resps0[i], reqs1[i], backend
-        )
-        for i in range(n)
-    ]
+    if mesh_prover is not None and not args.spill_dir:
+        resps1 = mesh_prover.stage1_all(rng, circuit_cls, reqs1)
+    else:  # the sequential path, or with --spill-dir the stateless recommit
+        resps1 = [
+            process_stage1_request(
+                rng.fork(b"s1" + str(i).encode()), circuit_cls, keys.get_pk(i), reqs0[i], resps0[i], reqs1[i], backend
+            )
+            for i in range(n)
+        ]
     print(f"[work] stage1 done ({time.time() - t0:.1f}s)")
 
     agg_pk = AggProvingKey(tipa_key_from_ipp(ipp_ck), lambda i: keys.get_pk(i))
@@ -234,6 +285,12 @@ def main(argv=None):
 
     s = sub.add_parser("work")
     s.add_argument("--key-file", required=True)
+    s.add_argument("--mesh", default=None, metavar="SUBxPTS",
+                   help="run both prover stages on a mesh of ranks, e.g. 2x2 (subcircuit-parallel x "
+                        "point-parallel; one rank per device, several under torchrun); replaces the "
+                        "reference's MPI worker ranks")
+    s.add_argument("--force-ladder", action="store_true",
+                   help="with --mesh: every MSM on the double-and-add ladder")
     s.add_argument("--spill-dir", default=None,
                    help="spill stage-0 state to disk between phases (all_in_one low-mem mode)")
 

@@ -19,7 +19,7 @@ from ..fields.bn254 import R
 from ..fields.host import fr_inv
 
 from ..ntt.ntt import COSET_GEN, root_of_unity
-from ..curves.torch_curve import G1, G2
+from ..curves.torch_curve import G1, G2, Jac
 from .data_structures import PointVec
 
 
@@ -130,12 +130,52 @@ class HostBackend:
         return witness_map_host(a_evals, b_evals, c_evals)
 
 
+def device_msm(curve, ax, ay, scalars, nbits: int | None = None) -> tuple:
+    """MSMs of n points on the tensors' device, routed by n: scalars (n, 16),
+    or (B, n, 16) for B MSMs of equal length, with points to match. The
+    compact msm/pippenger.py::msm with TorchBackend.compact_window(n) below
+    COMPACT_PAD (the B MSMs as one batched call), else msm_gpu with
+    TorchBackend.msm_params(n), one MSM after another. Returns (route,
+    Jacobian point with the leading axes), route "compact" or "gpu".
+    TorchBackend.msm and the mesh's local MSMs (runtime/spmd.py) both route
+    through it."""
+    from ..msm import pippenger as pip
+
+    lead, n = scalars.shape[:-2], scalars.shape[-2]
+    c = TorchBackend.compact_window(n)
+    if c is not None:
+        return "compact", pip.msm(curve, ax, ay, scalars, c=c, nbits=nbits)
+    c, L = TorchBackend.msm_params(n)
+    ax, ay, scalars = (a.reshape((-1,) + a.shape[len(lead):]) for a in (ax, ay, scalars))
+    outs = [pip.msm_gpu(x, y, s, c=c, L=L, nbits=nbits, curve=curve) for x, y, s in zip(ax, ay, scalars)]
+    return "gpu", Jac(*(torch.stack(t).reshape(lead + t[0].shape) for t in zip(*outs)))
+
+
+def witness_map_device(evals: torch.Tensor) -> torch.Tensor:
+    """h = (A*B - C)/Z over the coset on the tensor's device: evals
+    [3, ..., m, 16] holds the evaluations of A, B and C (Montgomery limbs,
+    any batch axes between) -> h [..., m, 16], Montgomery limbs. One NTT
+    call for the three vectors; its Montgomery multiplies are the mont_mul
+    kernel on a CUDA device. TorchBackend.witness_map and the mesh's
+    prover step (runtime/spmd.py) both run it."""
+    from ..fields import torch_field as tf
+    from ..fields.cuda_field import mont_mul
+    from ..ntt import ntt as nttm
+
+    m = evals.shape[-2]
+    zinv = tf.tensor(tf.FR.pack([fr_inv((pow(COSET_GEN, m, R) - 1) % R)])[0], evals.device)
+    ca, cb, cc = nttm.coset_ntt(nttm.ntt(evals, inverse=True))
+    q = mont_mul(tf.FR, tf.sub(tf.FR, mont_mul(tf.FR, ca.contiguous(), cb.contiguous()), cc).contiguous(), zinv)
+    return nttm.coset_intt(q)
+
+
 class TorchBackend:
     """The port's backend: every MSM, fixed-base batch and witness map on
     `device`; no route runs on the host.
 
     - `msm` routes as the JAX TpuBackend does, by the length n of the MSM
-      padded as TpuBackend pads it, m = next_pow2(max(n, 4)): below
+      padded as TpuBackend pads it, m = next_pow2(max(n, 4)) (`device_msm`,
+      the one rule that the mesh's local MSMs share): below
       COMPACT_PAD = 4,096 (n <= 2,048) it runs the compact
       msm/pippenger.py::msm on the curve's Jacobian group law (G1: the dbl,
       add and madd kernels), with the window width `msm` derives from m;
@@ -195,10 +235,14 @@ class TorchBackend:
 
     def msm(self, vec: PointVec, scalars: list) -> object:
         n = len(scalars)
-        c = self.compact_window(n)
-        if c is not None:
-            return self._msm_compact(vec, scalars, c)
+        if n == 0:
+            return None
         chunk = self.G1_CHUNK if vec.curve.name == "g1" else self.G2_CHUNK
+        if n <= chunk:
+            ax, ay = vec.device_chunk(0, n, n, self.device)
+            route, out = device_msm(vec.curve, ax, ay, self._packed_scalars(scalars, 0, n, vec.curve))
+            self.ran[f"{vec.curve.name}_msm_{route}"] += 1
+            return self._unpack(vec, out)
         acc = None
         for lo in range(0, n, chunk):
             acc = ch.pt_add(acc, self._msm_chunk(vec, scalars, lo, min(lo + chunk, n)))
@@ -222,17 +266,6 @@ class TorchBackend:
 
     def _unpack(self, vec: PointVec, out):
         return vec.curve.unpack_jacobian(type(out)(*(a[None] for a in out)))[0]
-
-    def _msm_compact(self, vec: PointVec, scalars: list, c: int):
-        from ..msm.pippenger import msm
-
-        n = len(scalars)
-        if n == 0:
-            return None
-        ax, ay = vec.device_chunk(0, n, n, self.device)
-        out = msm(vec.curve, ax, ay, self._packed_scalars(scalars, 0, n, vec.curve), c=c)
-        self.ran[f"{vec.curve.name}_msm_compact"] += 1
-        return self._unpack(vec, out)
 
     def _msm_chunk(self, vec: PointVec, scalars: list, lo: int, hi: int):
         from ..msm.pippenger import msm_gpu
@@ -263,15 +296,10 @@ class TorchBackend:
 
     def witness_map(self, a_evals, b_evals, c_evals) -> list:
         from ..fields import torch_field as tf
-        from ..fields.cuda_field import mont_mul
-        from ..ntt import ntt as nttm
 
         m = len(a_evals)
         evals = tf.tensor(tf.FR.pack(list(a_evals) + list(b_evals) + list(c_evals)), self.device)
-        ca, cb, cc = nttm.coset_ntt(nttm.ntt(evals.reshape(3, m, 16), inverse=True))
-        zinv = tf.tensor(tf.FR.pack([fr_inv((pow(COSET_GEN, m, R) - 1) % R)])[0], self.device)
-        q = mont_mul(tf.FR, tf.sub(tf.FR, mont_mul(tf.FR, ca.contiguous(), cb.contiguous()), cc), zinv)
-        h = nttm.coset_intt(q)
+        h = witness_map_device(evals.reshape(3, m, 16))
         self.ran["witness_map_gpu"] += 1
         return tf.FR.unpack(h)[: m - 1]
 

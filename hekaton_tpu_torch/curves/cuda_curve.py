@@ -380,9 +380,9 @@ def jac_sum_plain(x, y, z) -> Jac:
 
 
 def jac_horner_plain(x, y, z, c: int) -> Jac:
-    """sum_w 2^(c*w) * S_w of (W, 16) Jacobian window sums: the sums loaded as
-    projective points (_jac_load_plain), folded by horner_fold_plain, the
-    result in the Jacobian form (_jac_store_plain)."""
+    """sum_w 2^(c*w) * S_w of (W, ..., 16) Jacobian window sums, each lane on
+    its own: the sums loaded as projective points (_jac_load_plain), folded
+    by horner_fold_plain, the result in the Jacobian form (_jac_store_plain)."""
     return _jac_store_plain(horner_fold_plain(*_jac_load_plain(x, y, z), c))
 
 
@@ -715,18 +715,23 @@ jac_sum.launches = 0
 
 
 def jac_horner(x, y, z, c: int) -> Jac:
-    """The compact msm's Horner combine of (W, 16) Jacobian window sums,
-    sum_w 2^(c*w) * S_w, in one launch on one warp (jac_horner_plain's
-    limbs): three (16,) tensors."""
-    if x.dim() != 2 or x.shape[0] < 1 or c < 0:
-        raise ValueError(f"jac_horner: expected (W, 16) window sums, W >= 1, and c >= 0, got "
+    """The compact msm's Horner combine of (W, ..., 16) Jacobian window sums,
+    sum_w 2^(c*w) * S_w for each lane (the axes between W and the limbs), a
+    launch on one warp a lane (jac_horner_plain's limbs): three (..., 16)
+    tensors."""
+    if x.dim() < 2 or x.shape[0] < 1 or c < 0:
+        raise ValueError(f"jac_horner: expected (W, ..., 16) window sums, W >= 1, and c >= 0, got "
                          f"{tuple(x.shape)}, c={c}")
     if not x.is_cuda:
         return jac_horner_plain(x, y, z, c)
     _check_batch(jac_horner, (x, y, z), (16,))
-    if x.shape[0] > horner_max_w():
-        raise ValueError(f"jac_horner: {x.shape[0]} windows; the kernel takes 1 to {horner_max_w()}")
-    return _launch_chain(jac_horner, "hk_jac_horner", (x, y, z), (16,), 1, x.shape[0], int(c))
+    W, out_shape = x.shape[0], tuple(x.shape[1:])
+    if W > horner_max_w():
+        raise ValueError(f"jac_horner: {W} windows; the kernel takes 1 to {horner_max_w()}")
+    lanes = [t.reshape(W, -1, 16) for t in (x, y, z)]
+    outs = [_launch_chain(jac_horner, "hk_jac_horner", tuple(t[:, i].contiguous() for t in lanes), (16,), 1, W,
+                          int(c)) for i in range(lanes[0].shape[1])]
+    return Jac(*(torch.stack(t).reshape(out_shape) for t in zip(*outs)))
 
 
 jac_horner.launches = 0

@@ -29,7 +29,7 @@ from ..fields import bls12_381 as bls
 from ..fields import torch_field as tf
 from ..fields.torch_field import FqBlsOps, FqOps, Fq2Ops
 from .host import B_G2
-from .torch_curve import Jac
+from .torch_curve import Jac, products
 
 
 class Proj(NamedTuple):
@@ -77,77 +77,67 @@ class ProjOps:
         return self.f.mul(a, self._b3.to(a.device))
 
     def add(self, p: Proj, q: Proj) -> Proj:
-        """Complete P + Q: RCB15 Algorithm 7 (a=0)."""
+        """Complete P + Q: RCB15 Algorithm 7 (a=0), its 12 products and 2
+        products by b3 in three calls of the field's mul."""
         f = self.f
         x1, y1, z1 = p
         x2, y2, z2 = q
-        t0 = f.mul(x1, x2)
-        t1 = f.mul(y1, y2)
-        t2 = f.mul(z1, z2)
-        t3 = f.mul(f.add(x1, y1), f.add(x2, y2))
+        b3 = self._b3.to(x1.device)
+        t0, t1, t2, t3, t4, y3 = products(f, (x1, x2), (y1, y2), (z1, z2), (f.add(x1, y1), f.add(x2, y2)),
+                                          (f.add(y1, z1), f.add(y2, z2)), (f.add(x1, z1), f.add(x2, z2)))
         t3 = f.sub(t3, f.add(t0, t1))
-        t4 = f.mul(f.add(y1, z1), f.add(y2, z2))
         t4 = f.sub(t4, f.add(t1, t2))
-        y3 = f.mul(f.add(x1, z1), f.add(x2, z2))
         y3 = f.sub(y3, f.add(t0, t2))
         x3 = f.add(t0, t0)
         t0 = f.add(x3, t0)
-        t2 = self.mul_b3(t2)
+        t2, y3 = products(f, (t2, b3), (y3, b3))
         z3 = f.add(t1, t2)
         t1 = f.sub(t1, t2)
-        y3 = self.mul_b3(y3)
-        x3 = f.sub(f.mul(t3, t1), f.mul(t4, y3))
-        y3 = f.add(f.mul(t1, z3), f.mul(y3, t0))
-        z3 = f.add(f.mul(z3, t4), f.mul(t0, t3))
-        return Proj(x3, y3, z3)
+        return self._finish(t0, t1, t3, t4, y3, z3)
+
+    def _finish(self, t0, t1, t3, t4, y3, z3) -> Proj:
+        """The six closing products of Algorithms 7 and 8, in one call."""
+        f = self.f
+        m = products(f, (t3, t1), (t4, y3), (t1, z3), (y3, t0), (z3, t4), (t0, t3))
+        return Proj(f.sub(m[0], m[1]), f.add(m[2], m[3]), f.add(m[4], m[5]))
 
     def add_mixed(self, p: Proj, ax, ay) -> Proj:
-        """P + (affine Q): RCB15 Algorithm 8 (a=0, Z2=1). Complete except for
-        the affine sentinel (0,0) (y = 0 only there on prime-order a=0
+        """P + (affine Q): RCB15 Algorithm 8 (a=0, Z2=1), its 11 products and
+        2 products by b3 in three calls of the field's mul. Complete except
+        for the affine sentinel (0,0) (y = 0 only there on prime-order a=0
         curves), resolved by one final select."""
         f = self.f
         x1, y1, z1 = p
         q_inf = f.is_zero(ay)
-        t0 = f.mul(x1, ax)
-        t1 = f.mul(y1, ay)
-        t3 = f.mul(f.add(ax, ay), f.add(x1, y1))
+        b3 = self._b3.to(x1.device)
+        t0, t1, t3, t4, y3, t2 = products(f, (x1, ax), (y1, ay), (f.add(ax, ay), f.add(x1, y1)), (ay, z1),
+                                          (ax, z1), (z1, b3))
         t3 = f.sub(t3, f.add(t0, t1))
-        t4 = f.add(f.mul(ay, z1), y1)
-        y3 = f.add(f.mul(ax, z1), x1)
+        t4 = f.add(t4, y1)
+        y3 = f.add(y3, x1)
         x3 = f.add(t0, t0)
         t0 = f.add(x3, t0)
-        t2 = self.mul_b3(z1)
         z3 = f.add(t1, t2)
         t1 = f.sub(t1, t2)
         y3 = self.mul_b3(y3)
-        x3 = f.sub(f.mul(t3, t1), f.mul(t4, y3))
-        y3 = f.add(f.mul(t1, z3), f.mul(y3, t0))
-        z3 = f.add(f.mul(z3, t4), f.mul(t0, t3))
-        return self.select(q_inf, p, Proj(x3, y3, z3))
+        return self.select(q_inf, p, self._finish(t0, t1, t3, t4, y3, z3))
 
     def dbl(self, p: Proj) -> Proj:
-        """2P: RCB15 Algorithm 9 (a=0)."""
+        """2P: RCB15 Algorithm 9 (a=0), its 8 products and 1 product by b3
+        in three calls of the field's mul (y^2 and z^2 as products: the
+        same canonical values as sqr)."""
         f = self.f
         x, y, z = p
-        t0 = f.sqr(y)
+        t0, t1, t2, xy = products(f, (y, y), (y, z), (z, z), (x, y))
         z3 = f.add(t0, t0)
         z3 = f.add(z3, z3)
         z3 = f.add(z3, z3)
-        t1 = f.mul(y, z)
-        t2 = f.sqr(z)
         t2 = self.mul_b3(t2)
-        x3 = f.mul(t2, z3)
         y3 = f.add(t0, t2)
-        z3 = f.mul(t1, z3)
-        t1 = f.add(t2, t2)
-        t2 = f.add(t1, t2)
-        t0 = f.sub(t0, t2)
-        y3 = f.mul(t0, y3)
+        t0 = f.sub(t0, f.add(f.add(t2, t2), t2))
+        x3, z3, y3, x3b = products(f, (t2, z3), (t1, z3), (t0, y3), (t0, xy))
         y3 = f.add(x3, y3)
-        t1 = f.mul(x, y)
-        x3 = f.mul(t0, t1)
-        x3 = f.add(x3, x3)
-        return Proj(x3, y3, z3)
+        return Proj(f.add(x3b, x3b), y3, z3)
 
     def to_jacobian(self, p: Proj) -> Jac:
         """(X:Y:Z) -> Jacobian (XZ, YZ^2, Z)."""

@@ -38,6 +38,19 @@ class Jac(NamedTuple):
     z: torch.Tensor
 
 
+def products(f, *pairs) -> tuple:
+    """The products of independent (a, b) pairs over the field adapter `f`
+    in one call of its mul on the stacked operands (one mont_mul launch on
+    CUDA tensors); each equals its own call's product. A square is the pair
+    (a, a): the same canonical value as f.sqr(a)."""
+    ops = [t for pair in pairs for t in pair]
+    if any(t.shape != ops[0].shape for t in ops):
+        ops = torch.broadcast_tensors(*ops)
+    k = len(pairs)
+    ab = torch.stack([*ops[0::2], *ops[1::2]])  # one copy: the a's, then the b's
+    return f.mul(ab[:k], ab[k:]).unbind(0)
+
+
 class CurveOps:
     def __init__(self, fops, name: str, scalar: FieldSpec):
         self.f = fops
@@ -68,12 +81,12 @@ class CurveOps:
 
     # -- group law -----------------------------------------------------------
     def dbl(self, p: Jac) -> Jac:
-        """2P via dbl-2009-l (a=0): 2M + 5S. Infinity-safe (z3 = 2yz = 0)."""
+        """2P via dbl-2009-l (a=0): 2M + 5S, in four calls of the field's
+        mul. Infinity-safe (z3 = 2yz = 0)."""
         f = self.f
-        a = f.sqr(p.x)
-        b = f.sqr(p.y)
-        c = f.sqr(b)
-        d0 = f.sqr(f.add(p.x, b))
+        a, b, yz = products(f, (p.x, p.x), (p.y, p.y), (p.y, p.z))
+        xb = f.add(p.x, b)
+        c, d0 = products(f, (b, b), (xb, xb))
         d1 = f.sub(f.sub(d0, a), c)
         d = f.add(d1, d1)
         e = f.add(f.add(a, a), a)
@@ -81,7 +94,7 @@ class CurveOps:
         c8 = f.add(f.add(c, c), f.add(c, c))
         c8 = f.add(c8, c8)
         y3 = f.sub(f.mul(e, f.sub(d, x3)), c8)
-        z3 = f.mul(f.add(p.y, p.y), p.z)
+        z3 = f.add(yz, yz)
         return Jac(x3, y3, z3)
 
     def add(self, p: Jac, q: Jac) -> Jac:
@@ -94,26 +107,23 @@ class CurveOps:
     def add_core(self, p: Jac, q: Jac):
         """add-2007-bl with the doubling escape, before any infinity
         override: (result, same_x, same_y). add and the add kernel's plain
-        version (cuda_curve.add_plain) each add their own overrides."""
+        version (cuda_curve.add_plain) each add their own overrides. Its 16
+        products run in five calls of the field's mul."""
         f = self.f
-        z1z1 = f.sqr(p.z)
-        z2z2 = f.sqr(q.z)
-        u1 = f.mul(p.x, z2z2)
-        u2 = f.mul(q.x, z1z1)
-        s1 = f.mul(f.mul(p.y, q.z), z2z2)
-        s2 = f.mul(f.mul(q.y, p.z), z1z1)
+        z1z1, z2z2, yz1, yz2 = products(f, (p.z, p.z), (q.z, q.z), (p.y, q.z), (q.y, p.z))
+        u1, u2, s1, s2 = products(f, (p.x, z2z2), (q.x, z1z1), (yz1, z2z2), (yz2, z1z1))
         h = f.sub(u2, u1)
         rr = f.sub(s2, s1)
         same_x = f.is_zero(h)
         same_y = f.is_zero(rr)
-        i = f.sqr(f.add(h, h))
-        j = f.mul(h, i)
+        h2 = f.add(h, h)
         r2 = f.add(rr, rr)
-        v = f.mul(u1, i)
-        x3 = f.sub(f.sub(f.sqr(r2), j), f.add(v, v))
-        s1j = f.mul(s1, j)
-        y3 = f.sub(f.mul(r2, f.sub(v, x3)), f.add(s1j, s1j))
-        z3 = f.mul(f.sub(f.sub(f.sqr(f.add(p.z, q.z)), z1z1), z2z2), h)
+        zz = f.add(p.z, q.z)
+        i, r2r2, zz2 = products(f, (h2, h2), (r2, r2), (zz, zz))
+        j, v, z3 = products(f, (h, i), (u1, i), (f.sub(f.sub(zz2, z1z1), z2z2), h))
+        x3 = f.sub(f.sub(r2r2, j), f.add(v, v))
+        s1j, t = products(f, (s1, j), (r2, f.sub(v, x3)))
+        y3 = f.sub(t, f.add(s1j, s1j))
         res = Jac(x3, y3, z3)
         if bool((same_x & same_y).any()):  # the doubling escape, only where a lane takes it
             res = self.select(same_x & same_y, self.dbl(p), res)
@@ -122,24 +132,24 @@ class CurveOps:
     def madd_core(self, p: Jac, ax, ay):
         """madd-2007-bl with the doubling escape, before any infinity
         override: (result, same_x, same_y). add_mixed and the madd kernel's
-        plain version (cuda_curve.madd_plain) each add their own overrides."""
+        plain version (cuda_curve.madd_plain) each add their own overrides.
+        Its 11 products run in five calls of the field's mul."""
         f = self.f
-        z1z1 = f.sqr(p.z)
-        u2 = f.mul(ax, z1z1)
-        s2 = f.mul(f.mul(ay, p.z), z1z1)
+        z1z1, yz = products(f, (p.z, p.z), (ay, p.z))
+        u2, s2 = products(f, (ax, z1z1), (yz, z1z1))
         h = f.sub(u2, p.x)
         rr = f.sub(s2, p.y)
         same_x = f.is_zero(h)
         same_y = f.is_zero(rr)
-        hh = f.sqr(h)
-        i = f.add(f.add(hh, hh), f.add(hh, hh))
-        j = f.mul(h, i)
         r2 = f.add(rr, rr)
-        v = f.mul(p.x, i)
-        x3 = f.sub(f.sub(f.sqr(r2), j), f.add(v, v))
-        yj = f.mul(p.y, j)
-        y3 = f.sub(f.mul(r2, f.sub(v, x3)), f.add(yj, yj))
-        z3 = f.sub(f.sub(f.sqr(f.add(p.z, h)), z1z1), hh)
+        zh = f.add(p.z, h)
+        hh, r2r2, zh2 = products(f, (h, h), (r2, r2), (zh, zh))
+        i = f.add(f.add(hh, hh), f.add(hh, hh))
+        j, v = products(f, (h, i), (p.x, i))
+        x3 = f.sub(f.sub(r2r2, j), f.add(v, v))
+        yj, t = products(f, (p.y, j), (r2, f.sub(v, x3)))
+        y3 = f.sub(t, f.add(yj, yj))
+        z3 = f.sub(f.sub(zh2, z1z1), hh)
         res = Jac(x3, y3, z3)
         if bool((same_x & same_y).any()):  # the doubling escape, only where a lane takes it
             res = self.select(same_x & same_y, self.dbl(p), res)
@@ -178,9 +188,9 @@ class CurveOps:
         return acc
 
     def horner(self, window_sums: Jac, c: int) -> Jac:
-        """sum_w 2^(c w) S_w of (W, ...) window sums on one lane: from window
-        sum W-1 down, c doublings and the add of the next window sum a
-        window."""
+        """sum_w 2^(c w) S_w of (W, ...) window sums, each lane (the axes
+        after W) on its own: from window sum W-1 down, c doublings and the
+        add of the next window sum a window."""
         W = window_sums.x.shape[0]
         acc = Jac(*(a[W - 1] for a in window_sums))
         for w in range(W - 2, -1, -1):

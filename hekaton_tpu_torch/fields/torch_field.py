@@ -424,9 +424,10 @@ FqBlsOps = FpOps(FQ_BLS)  # BLS12-381 Fq: products on the 24-limb mont_mul kerne
 
 class Fq2Field:
     """Fq2 ops namespace, the G2 field adapter. `mul` is Karatsuba over three
-    Fq products and `sqr` takes two, each `FpOps(FQ, plain)`'s `mul`: the
-    mont_mul kernel on CUDA tensors, or (plain=True) the plain formula on
-    every device. Every result is canonical, so the two agree bit for bit."""
+    Fq products and `sqr` takes two, stacked into one call of
+    `FpOps(FQ, plain)`'s `mul`: the mont_mul kernel on CUDA tensors (one
+    launch), or (plain=True) the plain formula on every device. Every
+    result is canonical, so the two agree bit for bit."""
 
     ndim = 2
     spec = FQ
@@ -447,21 +448,20 @@ class Fq2Field:
         return neg(FQ, a)
 
     def mul(self, a, b):
+        """c0 = a0 b0 - a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1."""
+        a, b = torch.broadcast_tensors(a, b)
         a0, a1 = a[..., 0, :], a[..., 1, :]
         b0, b1 = b[..., 0, :], b[..., 1, :]
-        t0 = self.fp.mul(a0, b0)
-        t1 = self.fp.mul(a1, b1)
-        c0 = sub(FQ, t0, t1)
-        s = self.fp.mul(add(FQ, a0, a1), add(FQ, b0, b1))
-        c1 = sub(FQ, sub(FQ, s, t0), t1)
+        sums = add(FQ, torch.stack([a0, b0]), torch.stack([a1, b1]))  # a0 + a1, b0 + b1
+        t0, t1, s = self.fp.mul(torch.stack([a0, a1, sums[0]]), torch.stack([b0, b1, sums[1]]))
+        c0, c1 = sub(FQ, torch.stack([t0, sub(FQ, s, t0)]), t1)
         return torch.stack([c0, c1], dim=-2)
 
     def sqr(self, a):
         """(a0 + a1)(a0 - a1) + 2 a0 a1 u: two Fq products, the same
         canonical values as mul(a, a)."""
         a0, a1 = a[..., 0, :], a[..., 1, :]
-        m = self.fp.mul(a0, a1)
-        c0 = self.fp.mul(add(FQ, a0, a1), sub(FQ, a0, a1))
+        c0, m = self.fp.mul(torch.stack([add(FQ, a0, a1), a0]), torch.stack([sub(FQ, a0, a1), a1]))
         return torch.stack([c0, add(FQ, m, m)], dim=-2)
 
     @staticmethod

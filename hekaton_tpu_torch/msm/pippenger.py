@@ -277,11 +277,27 @@ def _weighted_bucket_sum(curve: CurveOps, buckets: Jac, nbuckets: int) -> Jac:
     return _tree_reduce(curve, b)
 
 
-def _msm_ladder(curve: CurveOps, ax, ay, scalars, nbits: int = 254) -> Jac:
+def takes_ladder(n: int) -> bool:
+    """Whether `msm` runs an n-point MSM on `_msm_ladder` (at most
+    MSM_LADDER_THRESHOLD points) rather than on buckets."""
+    return n <= MSM_LADDER_THRESHOLD
+
+
+def _msm_ladder(curve: CurveOps, ax, ay, scalars, nbits: int | None = None) -> Jac:
     """Small-N MSM: batched per-point double-and-add ladders (lane i computes
-    s_i * P_i MSB-first) and a tree reduction of the lanes."""
-    acc = curve.ladder(ax, ay, scalars, nbits)
-    return _tree_index(_tree_reduce(curve, _tree_map(lambda a: a[None], acc)), 0)
+    s_i * P_i MSB-first) and a tree reduction of the lanes.
+
+    scalars (..., N, 16) and points (..., N, ...) with at most one leading
+    batch axis: B MSMs of N points each run as one ladder over all B*N
+    lanes, each MSM's lanes summed on a row of their own, and the result
+    has the leading axes (an unbatched call is the case B = 1). `nbits`
+    defaults to the bit length of the curve's r."""
+    if nbits is None:
+        nbits = curve.scalar.modulus.bit_length()
+    lead, N = scalars.shape[:-2], scalars.shape[-2]
+    acc = curve.ladder(ax.flatten(0, len(lead)), ay.flatten(0, len(lead)), scalars.flatten(0, len(lead)), nbits)
+    out = _tree_reduce(curve, _tree_map(lambda a: a.reshape((-1, N) + a.shape[1:]), acc))
+    return _tree_map(lambda a: a.reshape(lead + a.shape[1:]), out)
 
 
 def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbits: int | None = None) -> Jac:
@@ -291,23 +307,38 @@ def msm(curve: CurveOps, ax, ay, scalars, c: int | None = None, K: int = 32, nbi
     plain limbs on the same device, `nbits` their bit length (by default
     that of the curve's r: 254 on BN254, 255 on BLS12-381). c defaults to
     the JAX package's rule for N points. Returns a Jacobian point of
-    unbatched tensors."""
-    N = ax.shape[0]
+    unbatched tensors.
+
+    With one leading batch axis, (B, N, ...) points and (B, N, 16) scalars,
+    B MSMs of N points run as one: their windows are the rows of one bucket
+    accumulation (as the JAX prover step vmaps equal-length MSMs) and one
+    Horner call combines the window sums of all B; the result is
+    (B,)-batched, each MSM's equal to its unbatched call's."""
+    lead, N = scalars.shape[:-2], scalars.shape[-2]
     if nbits is None:
         nbits = curve.scalar.modulus.bit_length()
-    if N <= MSM_LADDER_THRESHOLD:
+    if takes_ladder(N):
         return _msm_ladder(curve, ax, ay, scalars, nbits)
     if c is None:
         c = max(2, min(13, int(math.log2(max(N, 2))) - 3))
     nbuckets = 1 << c
-    digits = digits_for_windows(scalars, c, nbits)  # (W, N)
+    ax, ay, scalars = (a.flatten(0, len(lead)) for a in (ax, ay, scalars))  # (B*N, ...)
+    B = scalars.shape[0] // N
+    digits = digits_for_windows(scalars, c, nbits)  # (W, B*N)
     W = digits.shape[0]
+    # row b*W + w: window w of MSM b
+    digits = digits.reshape(W, B, N).transpose(0, 1).reshape(B * W, N)
     sd, order = torch.sort(digits, dim=1)
+    order = order + (torch.arange(B, device=ax.device) * N).repeat_interleave(W)[:, None]
     buckets = _tree_map(lambda a: a.clone(memory_format=torch.contiguous_format),
-                        curve.inf((W, nbuckets + 2), ax.device))
+                        curve.inf((B * W, nbuckets + 2), ax.device))
     buckets = _segmented_accumulate(curve, sd, (ax[order], ay[order]), buckets, nbuckets, mixed=True, K=K)
-    window_sums = _weighted_bucket_sum(curve, buckets, nbuckets)
-    return curve.horner(window_sums, c)  # from the top window down
+    window_sums = _weighted_bucket_sum(curve, buckets, nbuckets)  # (B*W, ...)
+
+    def by_window(a):  # (W, *lead, ...): each MSM's window sums down the leading axis
+        return a.reshape((B, W) + a.shape[1:]).transpose(0, 1).reshape((W,) + lead + a.shape[1:])
+
+    return curve.horner(_tree_map(by_window, window_sums), c)  # from the top window down
 
 
 # ---------------------------------------------------------------------------

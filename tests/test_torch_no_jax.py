@@ -197,3 +197,48 @@ def test_no_port_source_imports_jax():
     package in an import line (the port's own imports are relative)."""
     for path in list((REPO / "hekaton_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not {"jax", "jaxlib", "hekaton_tpu"} & set(_imports(path)), path
+
+
+MESH_SCRIPT = textwrap.dedent(
+    """
+    import hashlib, sys
+    import torch
+
+    torch.set_num_threads(1)
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "hekaton_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+
+    from hekaton_tpu_torch.fields import torch_field as tf
+    from hekaton_tpu_torch.hashes.sha256_torch import sha256_bytes_batch
+    from hekaton_tpu_torch.ntt import ntt as nttm
+    from hekaton_tpu_torch.ntt.sharded import make_sharded_ntt
+    from hekaton_tpu_torch.runtime import DistributedProverStep, fold_partials, make_mesh, sharded_msm_fn  # noqa: F401
+    from hekaton_tpu_torch.runtime.mesh_prover import MeshProver  # noqa: F401
+
+    msgs = [bytes([i]) * 64 for i in range(4)]
+    assert sha256_bytes_batch(msgs, device="cpu") == [hashlib.sha256(m).digest() for m in msgs]
+    mesh = make_mesh(device="cpu")
+    x = tf.tensor(tf.FR.pack(list(range(1, 257))), "cpu")
+    assert torch.equal(make_sharded_ntt(mesh, 256)(x), nttm.ntt(x))
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "hekaton_tpu") for m in sys.modules)
+    print("mesh", mesh.shape)
+    """
+)
+
+
+def test_mesh_modules_run_with_jax_blocked():
+    """The four modules of the mesh runtime and SHA-256 import and run with
+    jax, jaxlib and hekaton_tpu blocked: digests against hashlib and a
+    world-1 CPU mesh's sharded NTT against the local NTT."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "mesh (1, 1)" in proc.stdout, proc.stdout

@@ -25,8 +25,8 @@ this tree's wrappers.
 Each --variant is a csrc source of this tree changed (a curve.cu with
 other launch bounds, say): a library is built with it swapped in, and the
 two affine pairs, the halves and the others rows of VARIANT_TIMED
-(horner_fold, pmadd_rcb, l1_rcb_mega, madd, padd_rcb, dbl, add and the
-chain kernels) are timed from it
+(horner_fold, pmadd_rcb, l1_rcb_mega, madd, padd_rcb, pdbl_rcb, dbl, add
+and the chain kernels) are timed from it
 too ("variant <i>", after "new" in the turns).
 
 --kernels picks the sections, run in this order (all by default). Each
@@ -131,8 +131,8 @@ CHAIN_SHAPES = {"jac_ladder": ((32, 254), (28, 254)), "jac_sum": ((64, 128), (7,
                 "jac_horner": ((85, 3), (32, 8))}
 G2_HORNER_SHAPES = ((20, 13),)  # (W, c) of the G2 window Horner of the 2^20 G2 MSM
 COMPACT_POINTS = (32, 33, 2048)
-VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb", "dbl", "add", "jac_ladder", "jac_sum",
-                 "jac_horner")  # the others rows --variant times
+VARIANT_TIMED = ("horner_fold", "pmadd_rcb", "l1_rcb_mega", "madd", "padd_rcb", "pdbl_rcb", "dbl", "add", "jac_ladder",
+                 "jac_sum", "jac_horner")  # the others rows --variant times
 INSTR_PER_SM_CLOCK = 128  # thread instructions an SM starts a clock: 4 schedulers, one 32-lane warp each
 
 

@@ -33,8 +33,8 @@ native host library). Phases, one line each, every failure raises:
      unaligned views) at 255,357 lanes, a fixed-base width without edges,
      and padd_rcb (its row at 2^18, also unaligned) at 81,940 and 734,740
      lanes, the suffix scan's and the collapse's widths (lines of their
-     own); dbl and add (their rows) on 2^18 edge lanes, also as unaligned
-     views; aff_add_fused and aff_add_mixed_packed on
+     own); pdbl_rcb, dbl and add (their rows) on 2^18 edge lanes, also as
+     unaligned views; aff_add_fused and aff_add_mixed_packed on
      2^18 edge lanes (lines of their own; their rows come after the main
      paths, below); no kernel may spill, and each kernel's registers,
      spills and resident blocks an SM (CUDA's occupancy query) are printed;
@@ -1649,7 +1649,7 @@ def phase_kernels(h, tf, cf, cc, proj, pip, g1_pts, g2_pts, gen, bound, cuda_lib
                 log(f"[kernels] pmadd_rcb at {n} edge lanes (also as unaligned views): bit-identical, kernel "
                     f"{cuda_ms(lambda: fn(*kargs), 10):.4f} ms, bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]})")
                 continue
-            if op + sfx == "padd_rcb":
+            if op + sfx in ("padd_rcb", "pdbl_rcb"):  # 16-byte rows: also as unaligned views
                 err = max(err, max_abs_err(fn(*map(unaligned, kargs)), plain(*kargs)))
             record(op + sfx, f"hekaton_tpu_torch/csrc/{src}", f"hekaton_tpu/curves/pallas_curve.py:{line}",
                    cuda_ms(lambda: fn(*kargs), 10), cuda_ms(lambda: plain(*kargs), 1), err, work)

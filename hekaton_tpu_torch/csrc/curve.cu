@@ -118,16 +118,19 @@
 // design: one thread per lane on (n, 16) limb rows. An add is 12 products
 // against 576 bytes in and out, a double 8 (2 of them squares) against 384,
 // bound by bytes (the adds) or by integer multiply throughput once the card
-// is full. pdbl_rcb runs on canonical values and full products.
+// is full.
 //
 // The mixed add (pmadd_rcb, and every add of l1_rcb_mega), the full add
-// (padd_rcb) and madd run on lazy sums: their values between products may
-// exceed p, as far as each product's 16-word sum stays below p 2^256, and
-// each closing coordinate (x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3
-// t4 + t0 t3) is one sum of two wide products and one reduction (fe_dot):
-// the mixed add 11 wide products and 8 reductions, 2,496 32-bit multiplies
-// against 2,904 for 11 full products, the full add 12 and 9, and fewer
-// modular additions (t4, z3 and t1 - t2 stay lazy, below 2p). Their products
+// (padd_rcb), the double (pdbl_rcb) and madd run on lazy sums: their values
+// between products may exceed p, as far as each product's 16-word sum stays
+// below p 2^256, and each closing coordinate of the adds (x3 = t3 t1 - t4
+// y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3) is one sum of two wide
+// products and one reduction (fe_dot): the mixed add 11 wide products and 8
+// reductions, 2,496 32-bit multiplies against 2,904 for 11 full products,
+// the full add 12 and 9, the double 8 (2 squares) and 7 (its y3 = t2 z3 +
+// t0 y3 the one sum), and fewer modular additions (the adds' t4, z3 and t1
+// - t2 stay lazy, below 2p; the double's z3 = 8 t0 below 4p, its b3 Z^2 the
+// square (3 Z)^2 and its final doubling of x3 in an operand). Their products
 // run by product scanning (col_dot): column by column into a three-register
 // accumulator whose 64-bit pair stays put, where field.cuh's row chains
 // (mac_row) add each 64-bit product (IMAD.WIDE) into another pair of the
@@ -143,12 +146,15 @@
 // bound 3.03 (multiplies); padd_rcb 0.077 against 0.226 at 2^18 lanes,
 // 0.177 against 0.551 at 734,740 (bound 0.126, bytes); madd 0.071 against
 // 0.199 at 2^18 lanes, 0.070 against 0.194 at a fixed-base call's 255,357
-// (bound 0.040, multiplies). Slower: 3 blocks an SM (134 registers) or 5
-// (94-96, padd_rcb spilling 48 bytes); one resident wave of blocks walking
-// the lanes, with or without an L2 prefetch of each block's next lanes; a
-// column-form square in madd (PERF.md). The mixed add needs
-// no escape: the (0,0) sentinel operand (ay = 0 only there) keeps P, by a
-// branch around the op, so that P need not stay live through it.
+// (bound 0.040, multiplies); pdbl_rcb 0.053-0.054 against 0.178-0.179 at
+// 2^18 lanes (bound 0.030, bytes; 85 registers under the cap, so 5 blocks an
+// SM; 2,136 SASS instructions against 2,992). Slower for the adds: 3 blocks
+// an SM (134 registers) or 5 (94-96, padd_rcb spilling 48 bytes); one
+// resident wave of blocks walking the lanes, with or without an L2 prefetch
+// of each block's next lanes; a column-form square in madd (PERF.md). The
+// mixed add needs no escape: the (0,0) sentinel operand (ay = 0 only there)
+// keeps P, by a branch around the op, so that P need not stay live through
+// it.
 //
 // l1_rcb_mega is MSM level 1 on the accum="proj" routes: per column of the
 // (ncols, L*16) packed slab, the L packed rows added in order into the
@@ -593,28 +599,6 @@ struct Proj {
   Fe x, y, z;
 };
 
-// RCB15 Algorithm 9 (pallas_curve.py::_pdbl_rcb_tiles)
-__device__ Proj pdbl_rcb(const Proj& p) {
-  Fe t0 = fe_sqr<FQ>(p.y);
-  Fe z3 = fe_add<FQ>(t0, t0);
-  z3 = fe_add<FQ>(z3, z3);
-  z3 = fe_add<FQ>(z3, z3);
-  Fe t1 = fe_mul<FQ>(p.y, p.z);
-  Fe t2 = mul9(fe_sqr<FQ>(p.z));
-  Fe x3 = fe_mul<FQ>(t2, z3);
-  Fe y3 = fe_add<FQ>(t0, t2);
-  z3 = fe_mul<FQ>(t1, z3);
-  t1 = fe_add<FQ>(t2, t2);
-  t2 = fe_add<FQ>(t1, t2);
-  t0 = fe_sub<FQ>(t0, t2);
-  y3 = fe_mul<FQ>(t0, y3);
-  y3 = fe_add<FQ>(x3, y3);
-  t1 = fe_mul<FQ>(p.x, p.y);
-  x3 = fe_mul<FQ>(t0, t1);
-  x3 = fe_add<FQ>(x3, x3);
-  return Proj{x3, y3, z3};
-}
-
 // -- the G1 mixed add on lazy sums (pmadd_rcb, l1_rcb_mega) ------------------
 //
 // Its values are 8 words that need not be canonical: a lazy sum of two
@@ -767,6 +751,32 @@ __device__ __forceinline__ Proj padd_rcb(const Proj& p, const Proj& q) {
   return r;
 }
 
+// RCB15 Algorithm 9 (a=0, b3=9; pallas_curve.py::_pdbl_rcb_tiles) on the
+// adds' terms: 8 wide products (2 squares), 7 reductions. b3 Z^2 is the
+// square (3 Z)^2, the final doubling of x3 is the 2 X of its product X Y,
+// and y3 = t2 z3 + t0 y3 is one sum. z3 = 8 t0 stays below 4p, so the other
+// term of that sum takes canonical operands (t0 - 3 t2 and t0 + t2): 5 p^2.
+// Each input dies at its last product (X after the first, Y after t1, Z
+// after t2).
+__device__ __forceinline__ Proj pdbl_rcb(const Proj& p) {
+  const Fe xy = col_mul(lazy_add(p.x, p.x), p.y);                   // 2 X Y, operands 2*1 = 2 p^2
+  const Fe t0 = col_mul(p.y, p.y);                                  // < 1
+  const Fe t1 = col_mul(p.y, p.z);                                  // < 1
+  const Fe zx3 = fe_add<FQ>(fe_add<FQ>(p.z, p.z), p.z);             // < 1
+  const Fe t2 = col_mul(zx3, zx3);                                  // < 1
+  const Fe t0x2 = fe_add<FQ>(t0, t0);                               // < 1
+  const Fe t0x4 = lazy_add(t0x2, t0x2);                             // < 2
+  const Fe z3 = lazy_add(t0x4, t0x4);                               // < 4
+  const Fe y3 = fe_add<FQ>(t0, t2);                                 // < 1
+  const Fe t0m = fe_sub<FQ>(t0, fe_add<FQ>(fe_add<FQ>(t2, t2), t2));  // < 1
+  // the closing products, each below 5 p^2 < p 2^256
+  Proj r;
+  r.z = col_mul(t1, z3);          // 1*4 = 4 p^2
+  r.x = col_mul(t0m, xy);         // 1*1 = 1 p^2
+  r.y = fe_dot(t2, z3, t0m, y3);  // 1*4 + 1*1 = 5 p^2
+  return r;
+}
+
 // madd-2007-bl (pallas_curve.py::_madd_tiles) for P and Q finite and Q !=
 // P, on h = u2 - x1 and rr = s2 - y1 (madd_diffs; canonical: the caller
 // tests them for zero): with madd_diffs 11 wide products (3 squares) and 10
@@ -785,18 +795,6 @@ __device__ __forceinline__ void madd_finish(const Fe& x1, const Fe& y1, const Fe
   const Fe r2 = lazy_add(rr, rr);                                          // < 2
   x3 = fe_sub<FQ>(fe_sub<FQ>(col_mul(r2, r2), j), fe_add<FQ>(v, v));       // < 1
   y3 = fe_dot(r2, fe_sub<FQ>(v, x3), lazy_add(y1, y1), lazy_neg(j));  // 2*1 + 2*1 = 4 p^2
-}
-
-__device__ __forceinline__ Proj load_proj(const int32_t* x, const int32_t* y, const int32_t* z,
-                                          long long i) {
-  return Proj{load_limbs(x + i * 16), load_limbs(y + i * 16), load_limbs(z + i * 16)};
-}
-
-__device__ __forceinline__ void store_proj(int32_t* x, int32_t* y, int32_t* z, long long i,
-                                           const Proj& p) {
-  store_limbs(x + i * 16, p.x);
-  store_limbs(y + i * 16, p.y);
-  store_limbs(z + i * 16, p.z);
 }
 
 // -- the window Horner fold: one warp, a Montgomery product a lane ----------
@@ -984,13 +982,17 @@ __global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
   store_limbs16(oz + i * 16, r.z);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// 16-byte rows (the wrapper aligns them)
+__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)
     pdbl_rcb_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                     const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                     int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_proj(ox, oy, oz, i, pdbl_rcb(load_proj(x, y, z, i)));
+  const Proj r = pdbl_rcb(Proj{load_limbs16(x + i * 16), load_limbs16(y + i * 16), load_limbs16(z + i * 16)});
+  store_limbs16(ox + i * 16, r.x);
+  store_limbs16(oy + i * 16, r.y);
+  store_limbs16(oz + i * 16, r.z);
 }
 
 // -- MSM level 1 on projective accumulators: one thread per slab column ------

@@ -70,9 +70,9 @@ lane of `jac_horner`.
 `madd`, `dbl`, `add` and the G1 RCB ops are one thread per lane,
 straight-line formulas, bound by integer multiply throughput or by bytes
 once the card is full; the G1 mixed add (`pmadd_rcb`, and each add of
-`l1_rcb_mega`), the full add `padd_rcb`, `madd`, `dbl` and `add` run on
-lazy sums, each
-closing coordinate of the RCB adds (and madd's y3) one sum of two products
+`l1_rcb_mega`), the full add `padd_rcb`, the double `pdbl_rcb`, `madd`,
+`dbl` and `add` run on lazy sums, each
+closing coordinate of the RCB adds (and the doubles' and madd's y3) one sum of two products
 and one reduction, their products by product scanning (column by column
 into a three-register accumulator), on 16-byte rows, 4 blocks an SM;
 `madd` and `add` take their edge overrides as branches before the

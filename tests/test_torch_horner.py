@@ -243,7 +243,8 @@ def _mul(a: int, b: int) -> int:
 
 
 def rcb_dbl(p: tuple) -> tuple:
-    """csrc/curve.cu::pdbl_rcb (RCB15 algorithm 9, b3 = 9), in its order."""
+    """RCB15 algorithm 9 (b3 = 9) on Montgomery values, in the algorithm's
+    order (the values of csrc/curve.cu::pdbl_rcb and horner_dbl)."""
     x, y, z = p
     t0 = _mul(y, y)
     z3 = 8 * t0 % P

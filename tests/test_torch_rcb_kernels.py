@@ -1,15 +1,17 @@
-"""A Python model of the BN254 G1 complete mixed add and complete add of
-the port's kernels (hekaton_tpu_torch/csrc/curve.cu: the device functions
-pmadd_rcb under pmadd_rcb_kernel and l1_rcb_mega_kernel, and padd_rcb under
-padd_rcb_kernel) against the port's plain versions, the JAX package's
-projective formulas and plain Python-int RCB15 adds.
+"""A Python model of the BN254 G1 complete mixed add, complete add and
+complete doubling of the port's kernels (hekaton_tpu_torch/csrc/curve.cu:
+the device functions pmadd_rcb under pmadd_rcb_kernel and
+l1_rcb_mega_kernel, padd_rcb under padd_rcb_kernel and pdbl_rcb under
+pdbl_rcb_kernel) against the port's plain versions, the JAX package's
+projective formulas and plain Python-int RCB15 formulas.
 
 The kernels run one thread a lane (a slab column for the mega kernel) on
 lazy sums: values between the products need not be canonical, and each
-closing coordinate (x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0
-t3) is one sum of two products and one reduction. The model reads
-each op's steps from the kernel's source (the statements of pmadd_rcb and
-padd_rcb, and the mega kernel's first point into the identity) and runs them on values
+closing coordinate of the adds (x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3
+= z3 t4 + t0 t3), and the doubling's y3 = t2 z3 + t0 y3, is one sum of two
+products and one reduction. The model reads each op's steps from the
+kernel's source (the statements of pmadd_rcb, padd_rcb and pdbl_rcb, and
+the mega kernel's first point into the identity) and runs them on values
 that carry the interval their words may hold, so that every lazy sum is
 checked at its worst case: below 2^256 as 8 words, a product's 16-word sum
 below p 2^256 (where one reduction and one conditional subtraction give
@@ -19,9 +21,10 @@ kernel's column form (curve.cu::col_dot: each column of the 16-word sum in a
 three-word accumulator, the reduction's m_k p added column by column), the
 first point of the mega kernel on field.cuh's row chains (`mac_row` under
 `mac_wide`, `redc_wide`). The model is held limb
-for limb to `cuda_curve.pmadd_rcb_plain` and `padd_rcb_plain`, to the JAX
-package's `PROJ_G1.add_mixed` and `PROJ_G1.add` (run eagerly) and to
-Python-int RCB15 adds on the completeness lanes, and its mega chain to `l1_rcb_mega_plain` and the JAX
+for limb to `cuda_curve.pmadd_rcb_plain`, `padd_rcb_plain` and
+`pdbl_rcb_plain`, to the JAX package's `PROJ_G1.add_mixed`, `PROJ_G1.add`
+and `PROJ_G1.dbl` (run eagerly) and to Python-int RCB15 formulas on the
+completeness lanes, and its mega chain to `l1_rcb_mega_plain` and the JAX
 `_level1_rows(PROJ_G1, ...)` in both slab layouts. The kernels themselves
 are held to the plain versions on the card by chip_smoke.py.
 """
@@ -268,6 +271,7 @@ def kernel_steps(head: str = "__device__ __forceinline__ Proj pmadd_rcb(") -> li
 
 STEPS = kernel_steps()
 PADD_STEPS = kernel_steps("__device__ __forceinline__ Proj padd_rcb(")
+PDBL_STEPS = kernel_steps("__device__ __forceinline__ Proj pdbl_rcb(")
 
 
 def run_steps(steps: list, env: dict) -> dict:
@@ -314,6 +318,13 @@ def model_padd(p, q):
     projective inputs, its steps from the source."""
     env = dict(OPS, **{f"{n}_{c}": V.canonical(v) for n, pt in (("p", p), ("q", q)) for c, v in zip("xyz", pt)})
     env = run_steps(PADD_STEPS, env)
+    return env["r_x"].v, env["r_y"].v, env["r_z"].v
+
+
+def model_pdbl(p):
+    """pdbl_rcb (and pdbl_rcb_kernel, which has no branch) on canonical
+    projective inputs, its steps from the source."""
+    env = run_steps(PDBL_STEPS, dict(OPS, **{f"p_{c}": V.canonical(v) for c, v in zip("xyz", p)}))
     return env["r_x"].v, env["r_y"].v, env["r_z"].v
 
 
@@ -574,6 +585,115 @@ def test_padd_model_matches_plain_jax_and_python_rcb():
         x, y, z = (from_mont(c) for c in model[i])
         got = None if z == 0 else (x * pow(z, -1, P) % P, y * pow(z, -1, P) % P)
         assert got == ch.pt_add(p, q), f"lane {i} is not P + Q"
+
+
+def rcb15_dbl(p):
+    """RCB15 Algorithm 9 (a = 0, b3 = 9) in Python ints on plain (not
+    Montgomery) projective coordinates."""
+    x, y, z = p
+    t0, t1, t2 = y * y % P, y * z % P, 9 * z * z % P
+    z3 = 8 * t0 % P
+    x3, y3 = t2 * z3 % P, (t0 + t2) % P
+    z3 = t1 * z3 % P
+    t0 = (t0 - 3 * t2) % P
+    y3 = (x3 + t0 * y3) % P
+    return 2 * t0 * (x * y % P) % P, y3, z3
+
+
+def _pdbl_lanes():
+    """Montgomery projective (x, y, z) per lane, 16 lanes (the add lanes'
+    width, so the eager JAX ops reuse their shapes): random points under
+    random z and under z = 1, the identity (0:1:0) and (0:z:0); and lanes
+    whose coordinates are 0, 1, p-1, 2^253, p-2 and R (not points: the
+    formula is an identity on any canonical input, and these reach the lazy
+    sums' largest words)."""
+    rng = np.random.RandomState(20261020)
+    g = ch.g1_gen()
+    ps = [ch.pt_mul(g, int(k)) for k in rng.randint(1, 2**62, size=10)]
+    ps[6] = ps[7] = None
+    zs = [int.from_bytes(rng.bytes(32), "little") % P for _ in ps]
+    zs[3] = zs[4] = zs[6] = 1  # Z = 1 on two points; (0:1:0) on lane 6, (0:z:0) on lane 7
+    lanes = [tuple(to_mont(c) for c in ((0, z, 0) if pt is None else (pt[0] * z % P, pt[1] * z % P, z)))
+             for pt, z in zip(ps, zs)]
+    edge = [0, 1, P - 1, 1 << 253, P - 2, R]
+    lanes += [tuple(edge[(i + j) % len(edge)] for j in range(3)) for i in range(len(edge))]
+    return lanes, ps
+
+
+def test_pdbl_lazy_bounds_hold_at_their_worst_case():
+    """pdbl_rcb at the top of every interval: each product and the closing
+    sum below p 2^256 word for word in the column form on the largest words
+    its operands may hold (worst_case_ops), the bound comments held
+    (run_steps); the named lazy values are 4 t0 and z3 = 8 t0 (below 2p and
+    4p; the operand 2 X is inline); the op takes the 8 wide products (2 of
+    them squares) and 7 reductions chip_smoke.py's bound counts."""
+    assert 4 * P < 1 << 256 and 5 * P < 1 << 256  # z3's 4p; the closing sum's 5 p^2 < p 2^256
+    top = V(P - 1, 0, P - 1)
+    env = dict(worst_case_ops(), p_x=top, p_y=top, p_z=top)
+    lazy = {}
+    for step in PDBL_STEPS:
+        run_steps([step], env)
+        name = step[0].split("=")[0].strip()
+        if env[name].hi >= P:
+            lazy[name] = (env[name].lo, env[name].hi)
+    assert lazy == {"t0x4": (0, 2 * P - 2), "z3": (0, 4 * P - 4)}
+    closing = [m.group(1) for m in (re.fullmatch(r"r_\w = fe_dot\((.*)\)", s) for s, _ in PDBL_STEPS) if m]
+    assert closing == ["t2, z3, t0m, y3"]
+    his = [env[n].hi for n in ("t2", "z3", "t0m", "y3")]
+    assert his[0] * his[1] + his[2] * his[3] == 5 * (P - 1) ** 2 < P << 256
+    # the inline operand 2 X of the first product: (2 X) Y < 2 p^2
+    assert col_words([(2 * P - 2, P - 1)]) == (2 * P - 2) * (P - 1) * RINV % P
+    wide, squares, reductions = op_counts(PDBL_STEPS)
+    assert (wide, squares, reductions) == (8, 2, 7)
+    assert chip_smoke.LAZY_G1_PRODUCTS["pdbl_rcb"] == chip_smoke.lazy_products(wide - squares, reductions,
+                                                                              squares=squares)
+
+
+def test_pdbl_kernel_rows_and_no_branch():
+    """pdbl_rcb_kernel is one thread a lane under the adds' register cap, on
+    16-byte rows (the wrapper aligns them), with no branch beyond the lane
+    guard (the formula is complete: the identity maps to itself); the
+    4-byte row loads it used are gone with it."""
+    src = open(CURVE_CU).read()
+    head = "__global__ void __launch_bounds__(THREADS, RCB_MIN_BLOCKS)\n    pdbl_rcb_kernel(const int32_t*"
+    assert head in src
+    body = _body("    pdbl_rcb_kernel(const int32_t*")
+    assert "pdbl_rcb(Proj{" + ", ".join(f"load_limbs16({c} + i * 16)" for c in "xyz") + "})" in body
+    assert [f"store_limbs16(o{c} + i * 16, r.{c});" in body for c in "xyz"] == [True] * 3
+    assert " if " not in body.replace("if (i >= n) return;", "") and "?" not in body
+    assert " if " not in _body("__device__ __forceinline__ Proj pdbl_rcb(")
+    assert "load_proj(" not in src and "store_proj(" not in src
+
+
+def test_pdbl_model_matches_plain_jax_and_python_rcb():
+    """The model on every lane, and again on its own output (each point
+    doubled twice), limb for limb against pdbl_rcb_plain and the JAX
+    PROJ_G1.dbl (eager), in plain coordinates against Python-int RCB15 and
+    test_torch_horner's Montgomery Python-int rcb_dbl, and on the point
+    lanes against the host's 2P and 4P."""
+    from test_torch_horner import rcb_dbl
+
+    lanes, ps = _pdbl_lanes()
+    args = [_tensor([p[c] for p in lanes]) for c in range(3)]
+    jp = JProj(*(_j(a) for a in args))
+    for twice in (False, True):
+        model = [model_pdbl(p) for p in lanes]
+        plain = cc.pdbl_rcb_plain(*args)
+        for c in range(3):
+            assert [m[c] for m in model] == _ints(plain[c]), f"coordinate {c} against pdbl_rcb_plain ({twice=})"
+        jp = JPROJ_G1.dbl(jp)
+        for got, exp in zip(plain, jp):
+            assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(exp))
+        for i, p in enumerate(lanes):  # every lane, points or not
+            assert model[i] == rcb_dbl(p), f"lane {i} against the Montgomery Python-int RCB15 double"
+            want = rcb15_dbl(tuple(from_mont(c) for c in p))
+            assert tuple(from_mont(c) for c in model[i]) == want, f"lane {i} against the Python-int RCB15 double"
+        lanes, args = model, list(plain)
+        ps = [ch.pt_add(p, p) for p in ps]
+        for i, p in enumerate(ps):  # the point lanes are the host's doubles; the identity stays the identity
+            x, y, z = (from_mont(c) for c in lanes[i])
+            assert (None if z == 0 else (x * pow(z, -1, P) % P, y * pow(z, -1, P) % P)) == p, f"lane {i}"
+    assert [lanes[i][2] for i in (6, 7)] == [0, 0] and all(lanes[i][1] for i in (6, 7))
 
 
 def _slab(L: int, ncols: int = 7):

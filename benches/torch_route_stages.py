@@ -6,13 +6,14 @@
 Runs hekaton_tpu_torch's msm_gpu at 2^log2n points (chip_smoke.py's point
 set, c and L as TorchBackend picks them) along the v9 route and the
 routes of chip_smoke.py's ROUTES, and times each stage on the device clock:
-a CUDA event is recorded before and after every call of the plan, the
-interleave, the level 1, the collapse, the suffix scan and the Horner fold
-(msm.pippenger's own functions, wrapped for the run), and a stage's time is
-the sum of its calls' spans; "other" is the rest of the call (the bucket
-readout, conversions). Each route runs once to warm up, then `reps` times,
-the routes in turn, every other turn in reverse order; the table holds the
-median. Then the halves pairing on the 2^log2n plan's slab in both layouts
+the calls run under torch.autograd.profiler.emit_nvtx (the lightest of
+torch's profilers), so msm_gpu records its spans (utils/timing.py: CUDA
+events at both ends of "msm.plan", "msm.level1", "msm.collapse",
+"msm.suffix" and "msm.horner"), read back with timing.records(); "other" is
+the rest of the call between two CUDA events around it (route resolution,
+the gaps between spans). Each route runs once to warm up, then `reps`
+times, the routes in turn, every other turn in reverse order; the table
+holds the median. Then the halves pairing on the 2^log2n plan's slab in both layouts
 (l1_aff_halves, l1_aff_halves_t) and the mega kernel in both, timed in
 turns (rows, transposed, transposed, rows).
 
@@ -27,12 +28,13 @@ With --curve g2 it times the BN254 G2 MSM on chip_smoke.py's msm_g2 set
 infinity sentinel; random scalars below r) along its one route (sort plan,
 projective steps; the Horner is `horner_fold_g2`, one launch), and inside
 level 1 and the Horner also the spans of `_mixed_step`'s `unpack_words` and
-of the three G2 kernel wrappers, each summed over the call ("of which"
+of the three G2 kernel wrappers (CUDA events around each call of the
+wrapper, patched in for the run), each summed over the call ("of which"
 columns after the total, left out of "other"); on BN254 the same columns
 give the spans of `unpack_words` and of the `pmadd_rcb` wrapper (route
 (c)'s steps). An older library without `hk_horner_g2` (d01b559 and older)
 runs the Horner as it did, the loop of one-lane pdbl_rcb_g2 / padd_rcb_g2
-launches (cuda_curve.fold_windows on PROJ_G2), in the same stage. Then the G2
+launches (cuda_curve.fold_windows on PROJ_G2), in the same span. Then the G2
 Horner of one call alone, from each library (g2_horner_clocks): its host
 clock over its launches against its kernels' device time a launch
 (torch.profiler), and the share of the host span the device was busy.
@@ -78,9 +80,7 @@ DEVICE = "cuda"
 # spans inside the stages, by curve: G2's level 1 and Horner; BN254 route (c)'s steps
 NESTED = {"g2": ("unpack_words", "pmadd_rcb_g2", "padd_rcb_g2", "pdbl_rcb_g2"), "bn254": ("unpack_words", "pmadd_rcb"),
           "bls12_381": ()}
-STAGES = ("_plan_sorted_w", "_plan_sorted_t", "_plan_tpu", "interleave_slab_t", "_level1_pair", "l1_aff_halves_t",
-          "_level1_mega", "_level1_rows", "_level1_tpu", "_collapse_columns", "_suffix_weighted", "horner_fold",
-          "horner_fold_g2", "_horner_generic")
+STAGES = ("plan", "level1", "collapse", "suffix", "horner")  # msm_gpu's spans "msm.<stage>"
 # each G2 Horner wrapper and its kernel's name in the profiler's trace
 G2_HORNER_KERNELS = {"horner_fold_g2": "horner_g2_kernel", "pdbl_rcb_g2": "pdbl_rcb_g2_kernel",
                      "padd_rcb_g2": "padd_rcb_g2_kernel"}
@@ -209,6 +209,7 @@ def main() -> int:
     from hekaton_tpu_torch.fields import cuda_field as cf
     from hekaton_tpu_torch.fields import torch_field as tf
     from hekaton_tpu_torch.msm import pippenger as pip
+    from hekaton_tpu_torch.utils import timing
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -256,7 +257,7 @@ def main() -> int:
         how = f"a mont_mul tree down to {args.old_root_width} lanes" if args.old_root_width else "this tree's"
         print(f"[old] {' '.join(args.old)}: its routes run with batch_inv as {how}")
 
-    spans = []  # (stage, start event, end event) of the current call
+    spans = []  # (nested wrapper, start event, end event) of the current call
 
     def timed(name, fn):
         def run(*a, **k):
@@ -268,57 +269,54 @@ def main() -> int:
             return out
         return run
 
-    plain = {name: getattr(pip, name) for name in STAGES}
-    for name, fn in plain.items():
-        setattr(pip, name, timed(name, fn))
     nested = {}
     nested_names = NESTED[args.curve]
-    if nested_names:
-        for name in nested_names:
-            mod = pip if name == "unpack_words" else cc
-            nested[name] = (mod, getattr(mod, name))
-            setattr(mod, name, timed(name, nested[name][1]))
-            getattr(mod, name).launches = 0  # the wrappers count on the module-level name
+    for name in nested_names:
+        mod = pip if name == "unpack_words" else cc
+        nested[name] = (mod, getattr(mod, name))
+        setattr(mod, name, timed(name, nested[name][1]))
+        getattr(mod, name).launches = 0  # the wrappers count on the module-level name
+    this_fold = pip.horner_fold_g2
 
     runs = {label: [] for label, *_ in routes}
-    for rep in range(args.reps + 1):  # round-robin over the routes; rep 0 warms up
-        # every other turn runs the routes in reverse, so that no route always follows the same one
-        for label, rl, route, m in routes if rep % 2 else routes[::-1]:
-            spans.clear()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            tf.batch_inv = old_batch_inv if label in libs else this_batch_inv  # callers look it up on tf
-            lib = libs.get(label) or cuda_lib.lib()
-            pip.horner_fold_g2 = timed("horner_fold_g2", g2_fold_of(proj, cc, lib))
-            with warnings.catch_warnings(), cuda_lib.using(lib):
-                warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
-                pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
-            tf.batch_inv = this_batch_inv
-            end.record()
-            torch.cuda.synchronize()
-            if rep == 0:
-                continue
-            per = {}
-            for name, s, e in spans:
-                per[name] = per.get(name, 0.0) + s.elapsed_time(e)
-            per["total"] = start.elapsed_time(end)
-            per["other"] = per["total"] - sum(v for k, v in per.items() if k not in nested_names + ("total",))
-            runs[label].append(per)
+    with torch.autograd.profiler.emit_nvtx():  # a profiler collects, so msm_gpu records its spans
+        for rep in range(args.reps + 1):  # round-robin over the routes; rep 0 warms up
+            # every other turn runs the routes in reverse, so that no route always follows the same one
+            for label, rl, route, m in routes if rep % 2 else routes[::-1]:
+                spans.clear()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                tf.batch_inv = old_batch_inv if label in libs else this_batch_inv  # callers look it up on tf
+                lib = libs.get(label) or cuda_lib.lib()
+                pip.horner_fold_g2 = g2_fold_of(proj, cc, lib)
+                with warnings.catch_warnings(), cuda_lib.using(lib):
+                    warnings.simplefilter("ignore")  # route (f) warns that "pair" becomes "steps"
+                    pip.msm_gpu(ax[:m], ay[:m], sc[:m], c=c, L=rl, curve=curve, **route)
+                tf.batch_inv = this_batch_inv
+                end.record()
+                torch.cuda.synchronize()
+                if rep == 0:
+                    continue
+                rec = timing.records()[-1]
+                per = {s.name.split(".", 1)[1]: s.device_ms for s in rec.children}
+                for name, s, e in spans:
+                    per[name] = per.get(name, 0.0) + s.elapsed_time(e)
+                per["total"] = start.elapsed_time(end)
+                per["other"] = per["total"] - sum(per[k] for k in STAGES)
+                runs[label].append(per)
+    pip.horner_fold_g2 = this_fold
     for label, rl, route, m in routes:
         rows = runs[label]
-        keys = [k for k in rows[0] if k not in nested_names + ("total", "other")] + ["other", "total"]
-        keys += [k for k in nested_names if k in rows[0]]  # summed over the stages they run in
+        keys = list(STAGES) + ["other", "total"] + [k for k in nested_names if k in rows[0]]
         med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
         accum, level1, plan = pip.resolve_route(curve, rl, **route)
         print(f"[stages] {label} accum={accum} level1={level1} plan={plan} {m} points, c={c}, L={rl}: "
-              + ", ".join(f"{'of which ' if k in nested_names else ''}{k.strip('_')} {med[k]:.2f}" for k in keys)
+              + ", ".join(f"{'of which ' if k in nested_names else ''}{k} {med[k]:.2f}" for k in keys)
               + f" ms (median of {args.reps}; totals "
               + ", ".join(f"{r['total']:.1f}" for r in rows) + f") on {card}")
 
     # the halves pairing and the mega kernel in both slab layouts, in turns
-    for name, fn in plain.items():
-        setattr(pip, name, fn)
     for name, (mod, fn) in nested.items():
         setattr(mod, name, fn)
     if args.curve == "g2":

@@ -129,7 +129,10 @@ native host library). Phases, one line each, every failure raises:
      unfused_affine one of UNFUSED_KERNELS, none but msm_bls one of
      BLS_KERNELS (the 24-limb instances), and msm_bls nothing else; no path
      launched dbl or pdbl_rcb_g2 (NO_PATH_KERNELS) or add on one lane; one
-     horner_fold_g2 launch a G2 msm_gpu call.
+     horner_fold_g2 launch a G2 msm_gpu call; each msm_path call's
+     host_syncs counter (utils/timing.py) equal to the synchronizing calls
+     that torch.cuda.set_sync_debug_mode("warn") reports over one more call
+     (sync_coverage).
 
 It prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -427,6 +430,36 @@ def device_busy(fn, names: tuple = ()) -> tuple:
     trace = device_trace(fn)
     total = sum(us for _, us in trace.values()) / 1e3
     return (total or None), {n: sum(us for k, (_, us) in trace.items() if n in k) / 1e3 for n in names}
+
+
+def sync_coverage(label: str, call) -> None:
+    """[coverage] The `host_syncs` counter of one msm_gpu call (`call()`)
+    against the synchronizing CUDA calls that torch.cuda.set_sync_debug_mode
+    ("warn") reports over it: a read of the device that the counter misses,
+    or one it counts and the card does not make, fails the run. The call
+    records under emit_nvtx (utils/timing.py) and must make one top-level
+    "msm" span."""
+    from hekaton_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    with torch.autograd.profiler.emit_nvtx(), warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    reported = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+    rec = timing.records()[-1]
+
+    def counted(r) -> int:
+        return r.counters.get("host_syncs", 0) + sum(counted(ch) for ch in r.children)
+
+    require(rec.name == "msm", f"{label}: the last record is {rec.name!r}, not an msm_gpu call's 'msm' span")
+    stages = ", ".join(f"{ch.name} {counted(ch)}" for ch in rec.children if counted(ch))
+    log(f"[coverage] {label}: host_syncs {counted(rec)} ({stages}), set_sync_debug_mode reports {reported}")
+    require(counted(rec) == reported,
+            f"{label}: the host_syncs counter reads {counted(rec)}, the card reports {reported} synchronizing calls")
 
 
 def timed_once(fn) -> tuple:
@@ -2379,6 +2412,7 @@ def main() -> int:
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t)
         best = min(warm)
+        sync_coverage(f"msm {label}", lambda: pip.msm_gpu(x, y, sc, c=c, L=L, **route))
         log(f"[msm] {label} {N} points (c={c}, L={L}) equals the host result; first {cold:.3f} s, warm "
             f"{', '.join(f'{w:.3f}' for w in warm)} s, best {N / best:,.0f} points/s on {card}; "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

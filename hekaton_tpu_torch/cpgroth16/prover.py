@@ -52,11 +52,11 @@ def prove_last_stage(
     backend=DEFAULT_BACKEND,
 ) -> tuple:
     """Returns (A, B, C) group elements (no commitments attached yet)."""
-    from ..utils.timing import print_timer
+    from ..utils.timing import span
 
-    with print_timer("prove: synthesize last stage"):
+    with span("prove.synthesize"):
         circuit.generate_constraints(circuit.last_stage(), cs)
-    with print_timer("prove: matrix evals"):
+    with span("prove.matrix_evals"):
         if cs.value_only:
             # fast path: precompiled matrices (generator-attached) provide the
             # evals AND the satisfiability check against the value-only witness
@@ -70,18 +70,18 @@ def prove_last_stage(
     z = cs.full_assignment()
 
     # A = alpha + <a_g, z> + r*delta_last
-    with print_timer("prove: MSM A"):
+    with span("prove.msm_a"):
         a_acc = backend.msm(pk.a_g, z)
     a_pt = ch.pt_add(ch.pt_add(a_acc, pk.vk.alpha_g), ch.pt_mul(pk.last_delta_g, r))
 
     # B (G2) = beta + <b_h, z> + s*delta_last
-    with print_timer("prove: MSM B-G2"):
+    with span("prove.msm_b_g2"):
         b_acc_h = backend.msm(pk.b_h, z)
     b_pt_h = ch.pt_add(ch.pt_add(b_acc_h, pk.vk.beta_h), ch.pt_mul(pk.vk.last_delta_h, s))
 
     # B (G1), only needed when r != 0
     if r % R != 0:
-        with print_timer("prove: MSM B-G1"):
+        with span("prove.msm_b_g1"):
             b_acc_g = backend.msm(pk.b_g, z)
         b_pt_g = ch.pt_add(ch.pt_add(b_acc_g, pk.beta_g), ch.pt_mul(pk.last_delta_g, s))
     else:
@@ -89,13 +89,13 @@ def prove_last_stage(
 
     # L-aux over the last stage's witness
     last_witness = cs.current_stage_witness()
-    with print_timer("prove: MSM L"):
+    with span("prove.msm_l"):
         l_aux = backend.msm(pk.last_ck(), last_witness)
 
     # h query
-    with print_timer("prove: witness map"):
+    with span("prove.witness_map"):
         h = backend.witness_map(a_evals, b_evals, c_evals)
-    with print_timer("prove: MSM H"):
+    with span("prove.msm_h"):
         h_acc = backend.msm(pk.h_g, h)
 
     # C = s*A + r*B - r*s*delta_last + l_aux + h_acc

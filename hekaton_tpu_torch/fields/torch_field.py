@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from . import bls12_381 as bls
 from .bn254 import LIMB_BITS, LIMB_MASK, NLIMBS, P, R, from_limbs, to_limbs
+from ..utils.timing import count
 
 M16 = LIMB_MASK
 
@@ -161,6 +162,8 @@ def _carry(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
     for _ in range(passes):
         x = (x & M16) + F.pad(x >> LIMB_BITS, (1, -1))
     hi = x >> LIMB_BITS
+    if hi.is_cuda:  # the any() below waits for the device (on the CPU plain versions run this too)
+        count("host_syncs")
     if bool(hi.any()):
         x = _ripple_units((x & M16) + F.pad(hi, (1, -1)))
     return x

@@ -102,6 +102,7 @@ from ..curves.torch_curve import G1, G2, CurveOps, Jac
 from ..fields import torch_field as tf
 from ..fields.cuda_field import fermat_inv
 from ..fields.torch_field import FieldSpec
+from ..utils.timing import count, recording, span
 
 SENT = 0xFFFFFFFF  # sort key of the tail padding (sorts last)
 
@@ -399,6 +400,8 @@ def _sorted_stream(ax, ay, scalars, c: int, L: int, nbits: int, blkc: int = 1, f
 
     counts = torch.zeros((W, B), dtype=torch.int64, device=dev)
     counts.scatter_add_(1, mag, torch.ones_like(mag))
+    if recording():
+        count("nonzero_digits", counts[:, 1:].sum())
     pad_keys = _pad_keys(counts, L)
     npad = pad_keys.shape[1]
     M0 = N + npad
@@ -479,6 +482,8 @@ def _plan_tpu(ax, ay, scalars, c: int, L: int, nbits: int = 254, order: str = "r
     N = ax.shape[0]
     dev = ax.device
     mag, neg = signed_digits_for_windows(scalars, c, nbits)  # (W, N)
+    if recording():
+        count("nonzero_digits", torch.count_nonzero(mag))
     W = mag.shape[0]
     B = (1 << (c - 1)) + 1
     NB = W * B
@@ -615,6 +620,7 @@ def _collapse_columns(ops, d, acc, M: int, NB: int, L: int, N: int, n_in: int, p
             s = 1 << q
             d_next = torch.cat([d[s:], torch.full((s,), NB, dtype=d.dtype, device=dev)])
             can_pair = (win % (2 * s) == 0) & (d_next == d) & (d < NB)
+            count("host_syncs")  # the any() below waits for the device
             if not bool(can_pair.any()):
                 continue
             nxt = type(acc)(*(torch.cat([a[s:], a[:s]]) for a in acc))
@@ -727,7 +733,15 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int | None = None,
     `level1` and `plan` pick the route as in msm_tpu (`resolve_route`;
     module docstring); `p_super` is the collapse's strides per round;
     `depth` and `G` are the gather plan's (`_level1_tpu`). Returns a
-    Jacobian point of unbatched tensors."""
+    Jacobian point of unbatched tensors.
+
+    While recording (utils/timing.py) the call is the span "msm" (curve, N,
+    c, L and the route as attributes) over five children on every route:
+    "msm.plan" (digits to slab; counters `slab_entries`, W x mcols x L, and
+    `nonzero_digits`, a 0-d tensor), "msm.level1", "msm.collapse",
+    "msm.suffix" (bucket readout, suffix sum, to projective) and
+    "msm.horner"; `host_syncs` counts each read of the device by the host
+    in the span it falls in."""
     N = ax.shape[0]
     dev = ax.device
     coord_shape = tuple(ax.shape[1:])
@@ -746,47 +760,52 @@ def msm_gpu(ax, ay, scalars, c: int = 13, L: int = 32, nbits: int | None = None,
     proj = proj_for_curve(curve)
     ops = aff_for_curve(curve) if accum == "affine" else proj
     step = ops.add_packed if accum == "affine" else _mixed_step(proj, coord_shape)
-    if plan == "tsort":
-        planes, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_t(ax, ay, scalars, c, L, nbits)
-        slab_t = interleave_slab_t(planes)
-        del planes
-        if level1 == "mega":
-            acc = _level1_mega(ops, slab_t, L, transposed=True)
-        else:
-            acc = ops.unpack_rows(l1_aff_halves_t(slab_t, L).t().contiguous())
-        del slab_t
-    elif plan == "gather":
-        src, table, col_bucket, (W, B, NB, n_in, ncols) = _plan_tpu(
-            ax, ay, scalars, c, L, nbits, order="col" if level1 == "mega" else "row", fspec=f.spec)
-        if level1 == "mega":
-            acc = _level1_mega(ops, table[src.reshape(-1)].reshape(ncols, L * table.shape[1]), L)
-        else:
-            acc = _level1_tpu(ops, src, table, ncols, L, step, depth, G)
-        del src, table
-    else:
-        rows, col_bucket, (W, B, NB, n_in, ncols) = _plan_sorted_w(ax, ay, scalars, c, L, nbits, f.spec)
-        if level1 == "mega":
-            acc = _level1_mega(ops, rows, L)
-        elif level1 == "pair":
-            acc = _level1_pair(ops, rows, L)
-        else:
-            acc = _level1_rows(ops, rows, L, step)
-        del rows
-    d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in, p=p_super)
-
-    # one column per bucket now; buckets with no point have no column
-    bucket_ids = torch.arange(NB, dtype=d.dtype, device=dev)
-    first_pos = torch.clamp(torch.searchsorted(d, bucket_ids, side="left"), max=M - 1)
-    present = d[first_pos] == bucket_ids
-    buckets = ops.select(present, type(acc)(*(a[first_pos] for a in acc)), ops.inf((NB,), dev))
-
-    ws = _suffix_weighted(ops, buckets, W, B)
-    if accum == "affine":
-        ws = proj.from_affine(ws.x, ws.y)
-    if W > 1 and (_is_bn254_g1(curve) or f.ndim == 2):
-        fold = horner_fold if f.ndim == 1 else horner_fold_g2
-        return proj.to_jacobian(fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c))
-    return _horner_generic(proj, ws, c)
+    with span("msm", curve=curve.name, N=N, c=c, L=L, accum=accum, level1=level1, plan=plan):
+        with span("msm.plan"):
+            if plan == "tsort":
+                planes, col_bucket, meta = _plan_sorted_t(ax, ay, scalars, c, L, nbits)
+                slab = interleave_slab_t(planes)
+                del planes
+            elif plan == "gather":
+                src, table, col_bucket, meta = _plan_tpu(
+                    ax, ay, scalars, c, L, nbits, order="col" if level1 == "mega" else "row", fspec=f.spec)
+            else:
+                slab, col_bucket, meta = _plan_sorted_w(ax, ay, scalars, c, L, nbits, f.spec)
+            W, B, NB, n_in, ncols = meta
+            count("slab_entries", ncols * L)
+        with span("msm.level1"):
+            if plan == "gather":
+                if level1 == "mega":
+                    acc = _level1_mega(ops, table[src.reshape(-1)].reshape(ncols, L * table.shape[1]), L)
+                else:
+                    acc = _level1_tpu(ops, src, table, ncols, L, step, depth, G)
+                del src, table
+            else:
+                if level1 == "mega":
+                    acc = _level1_mega(ops, slab, L, transposed=plan == "tsort")
+                elif plan == "tsort":  # pair
+                    acc = ops.unpack_rows(l1_aff_halves_t(slab, L).t().contiguous())
+                elif level1 == "pair":
+                    acc = _level1_pair(ops, slab, L)
+                else:
+                    acc = _level1_rows(ops, slab, L, step)
+                del slab
+        with span("msm.collapse"):
+            d, acc, M = _collapse_columns(ops, col_bucket, acc, ncols, NB, L, N, n_in, p=p_super)
+        with span("msm.suffix"):
+            # one column per bucket now; buckets with no point have no column
+            bucket_ids = torch.arange(NB, dtype=d.dtype, device=dev)
+            first_pos = torch.clamp(torch.searchsorted(d, bucket_ids, side="left"), max=M - 1)
+            present = d[first_pos] == bucket_ids
+            buckets = ops.select(present, type(acc)(*(a[first_pos] for a in acc)), ops.inf((NB,), dev))
+            ws = _suffix_weighted(ops, buckets, W, B)
+            if accum == "affine":
+                ws = proj.from_affine(ws.x, ws.y)
+        with span("msm.horner"):
+            if W > 1 and (_is_bn254_g1(curve) or f.ndim == 2):
+                fold = horner_fold if f.ndim == 1 else horner_fold_g2
+                return proj.to_jacobian(fold(ws.x.contiguous(), ws.y.contiguous(), ws.z.contiguous(), c))
+            return _horner_generic(proj, ws, c)
 
 
 def _horner_generic(proj, ws: Proj, c: int) -> Jac:

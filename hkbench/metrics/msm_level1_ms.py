@@ -1,0 +1,8 @@
+"""Device time a call of msm_gpu's "msm.level1" span (the device's clock
+between CUDA events at the span's ends, idle gaps included), averaged over
+the traced calls."""
+from .. import spans
+
+
+def read(summary):
+    return spans.stage_ms(summary, "msm.level1")
